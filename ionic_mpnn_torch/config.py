@@ -1,0 +1,133 @@
+"""Model configuration and device resolution.
+
+:class:`ModelConfig` mirrors the JAX package's dataclass field for field,
+with the same defaults and names, so :func:`model_config_from_dict`
+reads the model meta that JAX checkpoints carry. The kernel options keep
+their JAX spellings: in this package ``message_impl="pallas_step"``,
+``message_impl="pallas_fused"`` and ``scatter_impl="pallas"`` select the
+hand-written CUDA kernels of :mod:`ionic_mpnn_torch.ops.cuda`.
+
+Supported here: ``message_impl`` ``"gather"`` | ``"pallas_fused"`` |
+``"pallas_step"``, ``scatter_impl`` ``"xla"`` | ``"pallas"``,
+``gru_impl="reference"``, ``head="vft"`` and ``ep_axis=None``. The model
+builders raise on any other value.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+__all__ = [
+    "ModelConfig",
+    "viscosity_config",
+    "model_config_to_dict",
+    "model_config_from_dict",
+    "resolve_message_impl",
+    "resolve_compute_dtype",
+    "resolve_device",
+    "torch_dtype",
+]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means CUDA. Raises when CUDA is asked for and missing:
+    nothing in this package falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def resolve_message_impl(impl: str = "auto") -> str:
+    """Resolve ``"auto"``: the fused message-step kernel
+    (``"pallas_step"``) when CUDA is available, ``"gather"`` on the CPU.
+    (The JAX package resolves to its one-hot formulation on accelerators;
+    that formulation is not ported yet.)"""
+    if impl != "auto":
+        return impl
+    return "pallas_step" if torch.cuda.is_available() else "gather"
+
+
+def resolve_compute_dtype(dtype: str = "auto") -> str:
+    """Resolve ``"auto"`` to ``"bfloat16"`` when CUDA is available and
+    ``"float32"`` on the CPU, as the JAX package does per backend."""
+    if dtype != "auto":
+        return dtype
+    return "bfloat16" if torch.cuda.is_available() else "float32"
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture of the dual-encoder MPNN family (JAX field names)."""
+
+    atom_vocab_size: int  # raw vocab size; +1 pad row is added internally
+    bond_vocab_size: int
+    atom_dim: int = 32  # reference default, train_viscosity.py:142
+    bond_dim: int = 8
+    fp_size: int = 32
+    mixing_size: int = 20
+    num_steps: int = 4
+    fp_l2: float = 1e-4
+    head: str = "vft"
+    parity_mode: bool = False  # reproduce the reference's atom-0 masking quirk
+    compute_dtype: str = "float32"
+    # "gather" | "pallas_fused" (CUDA fused message+aggregate kernel) |
+    # "pallas_step" (CUDA kernel: message+aggregate+GatedUpdate)
+    message_impl: str = "gather"
+    # the fields below exist for round-trips with JAX model meta; the
+    # formulations they tune are not ported
+    onehot_window: int = 128
+    onehot_select: str = "auto"
+    remat_message: bool = False
+    gru_impl: str = "reference"
+    scatter_impl: str = "xla"  # "xla" (index_add_) | "pallas" (CUDA kernel)
+    embed_impl: str = "auto"  # every value gathers here (value-identical)
+    ep_axis: Optional[str] = None
+    # VFT head constants (reference models/layers.py:10-42)
+    vft_b_clip: Tuple[float, float] = (0.0, 20.0)
+    vft_c_clip: Tuple[float, float] = (0.1, 50.0)
+    vft_eps: float = 1e-6
+    t_scale: float = 100.0
+    transfer_dims: Tuple[int, ...] = (256, 128, 64)
+    transfer_dropout: float = 0.3
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def viscosity_config(atom_vocab_size: int, bond_vocab_size: int, **kw) -> ModelConfig:
+    """Reference viscosity model (train_viscosity.py:139-231)."""
+    return ModelConfig(
+        atom_vocab_size=atom_vocab_size,
+        bond_vocab_size=bond_vocab_size,
+        head="vft",
+        fp_l2=1e-4,
+        **kw,
+    )
+
+
+def model_config_to_dict(cfg: ModelConfig) -> dict:
+    """JSON-safe dict for persisting alongside checkpoints."""
+    d = dataclasses.asdict(cfg)
+    for k, v in d.items():
+        if isinstance(v, tuple):
+            d[k] = list(v)
+    return d
+
+
+def model_config_from_dict(d: dict) -> ModelConfig:
+    kw = dict(d)
+    for k in ("vft_b_clip", "vft_c_clip", "transfer_dims"):
+        if k in kw and isinstance(kw[k], list):
+            kw[k] = tuple(kw[k])
+    return ModelConfig(**kw)

@@ -1,0 +1,130 @@
+"""Ion encoder + shared dual-encoder trunk (the model family's core).
+
+Mirrors the JAX package's ``models/dual_encoder.py`` and the reference
+assembly (``train_viscosity.py:150-201``):
+
+  * atom/bond embedding tables are SHARED between the cation and anion
+    encoders, and nothing else is: each encoder owns ``num_steps`` fresh
+    (BondMatrixMessage, GatedUpdate) pairs,
+  * readout = masked global sum pool → Dense(fp_size, relu),
+  * mixing = Dense(mixing_size, relu) per ion, summed elementwise.
+
+Submodule names follow the flax param tree (``bmm_{i}``, ``gru_{i}``,
+``fp_dense``, ``cat_proj`` …) so :mod:`ionic_mpnn_torch.params` maps one
+onto the other by path.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ..config import ModelConfig, torch_dtype
+from ..data.packing import PackedGraphs
+from ..ops.cuda.fused_step import fused_mp_step
+from ..ops.cuda.segment_sum import csr_rowptr
+from ..ops.message import bond_type_matrices, parity_edge_mask
+from ..ops.segment import graph_sum_pool
+from .layers import BondMatrixMessage, GatedUpdate, dense, keras_embed_init_
+
+__all__ = ["IonEncoder", "DualEncoderTrunk", "check_config"]
+
+_MESSAGE_IMPLS = ("gather", "pallas_fused", "pallas_step")
+
+
+def check_config(cfg: ModelConfig) -> None:
+    """Raise on any option whose formulation this package does not hold."""
+    if cfg.message_impl not in _MESSAGE_IMPLS:
+        raise NotImplementedError(
+            f"message_impl={cfg.message_impl!r} is not ported (ported: "
+            f"{', '.join(_MESSAGE_IMPLS)})")
+    if cfg.scatter_impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown scatter_impl {cfg.scatter_impl!r}")
+    if cfg.gru_impl != "reference":
+        raise NotImplementedError(f"gru_impl={cfg.gru_impl!r} is not ported")
+    if cfg.ep_axis is not None:
+        raise NotImplementedError("edge partitioning (ep_axis) is not ported")
+    if cfg.head != "vft":
+        raise NotImplementedError(f"head={cfg.head!r} is not ported")
+    torch_dtype(cfg.compute_dtype)
+
+
+class IonEncoder(nn.Module):
+    """Encode one packed ion batch into per-graph fingerprints (B, fp)."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = torch_dtype(cfg.compute_dtype)
+        for step in range(cfg.num_steps):
+            # pallas_step reads the same params (checkpoint-compatible)
+            self.add_module(f"bmm_{step}", BondMatrixMessage(
+                cfg.atom_dim, cfg.bond_dim, generator, compute_dtype=self.dtype,
+                impl="gather" if cfg.message_impl == "pallas_step" else cfg.message_impl,
+                scatter=cfg.scatter_impl))
+            self.add_module(f"gru_{step}", GatedUpdate(
+                cfg.atom_dim, generator,
+                # None for f32 keeps the exact f32 promotion of the flax module
+                compute_dtype=None if self.dtype == torch.float32 else self.dtype))
+        self.fp_dense = dense(cfg.atom_dim, cfg.fp_size, generator)
+
+    def forward(self, graphs: PackedGraphs, atom_table: torch.Tensor,
+                bond_table: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        N = graphs.node_capacity
+        h = atom_table.index_select(0, graphs.atom_ids.long()).to(self.dtype)
+        edge_mask = graphs.edge_mask
+        if cfg.parity_mode:
+            edge_mask = parity_edge_mask(graphs.src, graphs.dst, graphs.node_local,
+                                         edge_mask)
+        kernels = cfg.message_impl != "gather" or cfg.scatter_impl == "pallas"
+        # CSR rows of the sorted dst, shared by every step's kernel
+        rowptr = csr_rowptr(graphs.dst, N) if kernels and h.is_cuda else None
+
+        for step in range(cfg.num_steps):
+            bmm = getattr(self, f"bmm_{step}")
+            gru = getattr(self, f"gru_{step}")
+            if cfg.message_impl == "pallas_step":
+                m_table = bond_type_matrices(bond_table.to(self.dtype),
+                                             bmm.bond_transform.to(self.dtype))
+                h = fused_mp_step(h, m_table, gru.params_dict(), graphs.bond_ids,
+                                  graphs.src, graphs.dst, edge_mask, N, rowptr=rowptr)
+                continue
+            agg = bmm(h, bond_table, graphs.bond_ids, graphs.src, graphs.dst,
+                      edge_mask, rowptr=rowptr)
+            h = gru(h, agg)
+
+        pooled = graph_sum_pool(h, graphs.node_graph, graphs.n_graphs,
+                                graphs.node_mask, node_sorted=graphs.node_sorted)
+        return torch.relu(self.fp_dense(pooled.float()))
+
+
+class DualEncoderTrunk(nn.Module):
+    """Shared embeddings + two ion encoders + mixing sum → (B, mixing_size)."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+        super().__init__()
+        self.atom_embed = nn.Parameter(torch.empty(cfg.atom_vocab_size + 1, cfg.atom_dim))
+        self.bond_embed = nn.Parameter(torch.empty(cfg.bond_vocab_size + 1, cfg.bond_dim))
+        keras_embed_init_(self.atom_embed, generator)
+        keras_embed_init_(self.bond_embed, generator)
+        self.cat_encoder = IonEncoder(cfg, generator)
+        self.an_encoder = IonEncoder(cfg, generator)
+        self.cat_proj = dense(cfg.fp_size, cfg.mixing_size, generator)
+        self.an_proj = dense(cfg.fp_size, cfg.mixing_size, generator)
+
+    def project_side(self, graphs: PackedGraphs, side: str) -> torch.Tensor:
+        """Per-ion relu'd mixing projection (B, mixing_size) for one side
+        ("cation" | "anion"); ``mixed == project_side(cat) + project_side(an)``."""
+        enc = self.cat_encoder if side == "cation" else self.an_encoder
+        proj = self.cat_proj if side == "cation" else self.an_proj
+        fp = enc(graphs, self.atom_embed, self.bond_embed)
+        return torch.relu(proj(fp))
+
+    def forward(self, cation: PackedGraphs, anion: PackedGraphs) -> Dict[str, torch.Tensor]:
+        fp_cat = self.cat_encoder(cation, self.atom_embed, self.bond_embed)
+        fp_an = self.an_encoder(anion, self.atom_embed, self.bond_embed)
+        mixed = torch.relu(self.cat_proj(fp_cat)) + torch.relu(self.an_proj(fp_an))
+        return {"mixed": mixed, "fp_cat": fp_cat, "fp_an": fp_an}

@@ -1,0 +1,190 @@
+"""The port's ops against the JAX package's, and each CUDA kernel's plain
+version against the JAX Pallas kernel it replaces (interpret mode on the
+CPU). Tolerances: f32 rtol 1e-5 / atol 1e-5 (summation order differs);
+bf16 2e-2 (bf16 rounds at other places in the two frameworks)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ionic_mpnn_tpu.ops import gru as jgru
+from ionic_mpnn_tpu.ops import message as jmsg
+from ionic_mpnn_tpu.ops import segment as jseg
+from ionic_mpnn_tpu.ops.pallas.fused_message import (
+    fused_message_aggregate as j_fused_message,
+    message_table_to_lanes as j_lanes,
+)
+from ionic_mpnn_tpu.ops.pallas.fused_step import fused_mp_step as j_fused_step
+from ionic_mpnn_tpu.ops.pallas.segment_sum import sorted_segment_sum as j_segment_sum
+from ionic_mpnn_torch.ops import cuda as kernels
+from ionic_mpnn_torch.ops import gru as tgru
+from ionic_mpnn_torch.ops import message as tmsg
+from ionic_mpnn_torch.ops import segment as tseg
+from ionic_mpnn_torch.ops.cuda import fused_message, fused_step, segment_sum
+
+from test_pallas_fused_message import _molecular_edges
+
+F32 = dict(rtol=1e-5, atol=1e-5)
+BF16 = dict(rtol=2e-2, atol=2e-2)
+DTYPES = {"float32": (jnp.float32, torch.float32, F32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16)}
+
+
+def _t(a, dtype=None):
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t if dtype is None else t.to(dtype)
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _graph(seed, N=256, D=32, V=7):
+    rng = np.random.default_rng(seed)
+    src, dst, bond, mask = _molecular_edges(rng, 40, 20, N, V)
+    return {
+        "rng": rng, "N": N, "D": D, "V": V,
+        "src": src, "dst": dst, "bond": bond, "mask": mask > 0,
+        "h": rng.normal(size=(N, D)).astype(np.float32),
+        "m_table": (rng.normal(size=(V, D, D)) * 0.3).astype(np.float32),
+        "gru": {k: (rng.normal(size=s) * 0.2).astype(np.float32)
+                for k, s in jgru.GATED_UPDATE_PARAM_SHAPES(D).items()},
+    }
+
+
+def _torch_edges(g):
+    return (_t(g["bond"]), _t(g["src"]), _t(g["dst"]), _t(g["mask"]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bond_type_matrices(dtype):
+    jdt, tdt, _ = DTYPES[dtype]
+    rng = np.random.default_rng(0)
+    table = rng.normal(size=(7, 8)).astype(np.float32)
+    w = (rng.normal(size=(8, 32, 32)) * 0.3).astype(np.float32)
+    want = jmsg.bond_type_matrices(jnp.asarray(table, jdt), jnp.asarray(w, jdt))
+    got = tmsg.bond_type_matrices(_t(table, tdt), _t(w, tdt))
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_allclose(got.numpy(), _np(want), **F32)
+
+
+@pytest.mark.parametrize("scatter", ["xla", "pallas"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_message_pass_aggregate(scatter, dtype):
+    jdt, tdt, _ = DTYPES[dtype]
+    g = _graph(1)
+    want = jmsg.message_pass_aggregate(
+        jnp.asarray(g["h"], jdt), g["bond"], g["src"], g["dst"],
+        jnp.asarray(g["m_table"]), g["mask"], scatter=scatter)
+    kernels.reset_launch_counts()
+    got = tmsg.message_pass_aggregate(_t(g["h"], tdt), *_torch_edges(g)[:3],
+                                      _t(g["m_table"]), _t(g["mask"]), scatter=scatter)
+    assert got.dtype == torch.float32
+    # h is rounded to bf16 identically in both; the sums are f32 in both
+    np.testing.assert_allclose(got.numpy(), _np(want), **F32)
+    assert kernels.launch_counts()["sorted_segment_sum"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_sum_pool(dtype):
+    jdt, tdt, _ = DTYPES[dtype]
+    rng = np.random.default_rng(2)
+    N, B = 300, 17
+    # multiples of 1/8 in [-1, 1]: every per-graph sum is exact in bf16, so
+    # the result does not depend on the order of summation
+    h = (rng.integers(-8, 9, size=(N, 32)) / 8).astype(np.float32)
+    node_graph = np.sort(rng.integers(0, B, N)).astype(np.int32)
+    node_mask = rng.random(N) > 0.2
+    want = jseg.graph_sum_pool(jnp.asarray(h, jdt), node_graph, B, node_mask,
+                               node_sorted=True)
+    got = tseg.graph_sum_pool(_t(h, tdt), _t(node_graph), B, _t(node_mask),
+                              node_sorted=True)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), _np(want), **F32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gated_update(dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    g = _graph(3)
+    agg = g["rng"].normal(size=(g["N"], g["D"])).astype(np.float32)
+    want = jgru.gated_update(jnp.asarray(g["h"]), jnp.asarray(agg),
+                             {k: jnp.asarray(v) for k, v in g["gru"].items()},
+                             dtype=None if dtype == "float32" else jdt)
+    got = tgru.gated_update(_t(g["h"]), _t(agg),
+                            {k: _t(v) for k, v in g["gru"].items()},
+                            dtype=None if dtype == "float32" else tdt)
+    np.testing.assert_allclose(got.float().numpy(), _np(want), **tol)
+
+
+_CASES = [(256, 32, 7, 0), (384, 16, 5, 1)]  # (N, D, V, seed)
+
+
+@pytest.mark.parametrize("kernel", ["sorted_segment_sum", "fused_message_aggregate",
+                                    "fused_mp_step"])
+@pytest.mark.parametrize("N,D,V,seed", _CASES)
+def test_plain_version_matches_pallas_kernel(kernel, N, D, V, seed):
+    """Each kernel's plain version against the Pallas kernel it replaces."""
+    g = _graph(seed, N, D, V)
+    h, m_table = jnp.asarray(g["h"]), jnp.asarray(g["m_table"])
+    bond, src, dst, mask = _torch_edges(g)
+    if kernel == "sorted_segment_sum":
+        msg = jmsg.edge_messages_from_table(h, g["bond"], g["src"], m_table)
+        msg = np.asarray(msg) * g["mask"][:, None]
+        want = j_segment_sum(jnp.asarray(msg), g["dst"], N, interpret=True)
+        got = segment_sum.sorted_segment_sum_plain(_t(msg), dst, N)
+    elif kernel == "fused_message_aggregate":
+        want = j_fused_message(h, j_lanes(m_table), g["bond"], g["src"], g["dst"],
+                               g["mask"], N, interpret=True)
+        K = fused_message.message_table_to_lanes(_t(g["m_table"]))
+        np.testing.assert_array_equal(K.numpy(), np.asarray(j_lanes(m_table)))
+        assert K.is_contiguous()  # the kernel reads it as a flat array
+        got = fused_message.fused_message_aggregate_plain(
+            _t(g["h"]), K, bond, src, dst, mask, N)
+    else:
+        gru = {k: jnp.asarray(v) for k, v in g["gru"].items()}
+        want = j_fused_step(h, m_table, gru, g["bond"], g["src"], g["dst"],
+                            g["mask"].astype(np.float32), N, interpret=True)
+        got = fused_step.fused_mp_step_plain(
+            _t(g["h"]), _t(g["m_table"]), {k: _t(v) for k, v in g["gru"].items()},
+            bond, src, dst, mask, N)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("kernel", ["sorted_segment_sum", "fused_message_aggregate",
+                                    "fused_mp_step"])
+def test_cpu_tensor_takes_plain_path(kernel):
+    """A CPU tensor reaches the plain version and never the launch counter;
+    any other device is refused rather than served by the plain version."""
+    g = _graph(4)
+    N = g["N"]
+    bond, src, dst, mask = _torch_edges(g)
+    h, m_table = _t(g["h"]), _t(g["m_table"])
+    gru = {k: _t(v) for k, v in g["gru"].items()}
+    K = fused_message.message_table_to_lanes(m_table)
+    msg = tmsg.edge_messages_from_table(h, bond, src, m_table) * mask[:, None]
+    calls = {
+        "sorted_segment_sum": (segment_sum.sorted_segment_sum,
+                               segment_sum.sorted_segment_sum_plain, (msg, dst, N)),
+        "fused_message_aggregate": (
+            fused_message.fused_message_aggregate,
+            fused_message.fused_message_aggregate_plain,
+            (h, K, bond, src, dst, mask, N)),
+        "fused_mp_step": (fused_step.fused_mp_step, fused_step.fused_mp_step_plain,
+                          (h, m_table, gru, bond, src, dst, mask, N)),
+    }
+    wrapper, plain, args = calls[kernel]
+    kernels.reset_launch_counts()
+    torch.testing.assert_close(wrapper(*args), plain(*args), rtol=0, atol=0)
+    assert kernels.launch_counts() == {k: 0 for k in kernels.launch_counts()}
+
+    def to_meta(x):
+        if isinstance(x, dict):
+            return {k: to_meta(v) for k, v in x.items()}
+        return x.to("meta") if isinstance(x, torch.Tensor) else x
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        wrapper(*[to_meta(a) for a in args])
+    assert kernels.launch_counts()[kernel] == 0
