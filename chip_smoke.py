@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -15,22 +16,47 @@ Phases, in order (any failure raises and the script exits non-zero):
    of 32). Tolerance: f32 rtol 1e-5 / atol 1e-5 (only the order of summation
    differs), bf16 inputs 1e-3. The hard cases use dyadic values, so every
    summation order is exact and the tolerance only absorbs exp/tanh/rsqrt.
-4. Main path: the viscosity model at full width (atom_dim 32, bond_dim 8,
-   fp 32, mixing 20, 4 message steps) with seeded random weights, serving 3
-   batches of 2048 records through ``predict`` in four kernel configurations,
-   each held against the plain ``gather`` f32 configuration on the card with
-   the same weights (for bf16, with the three tensors that configuration
-   rounds to bf16 rounded the same way) at rtol 1e-4 / atol 1e-4. Launch
-   counters are zeroed before each configuration and must read exactly 8
-   per forward for its kernel, 0 for the others.
-5. Times per kernel at the cation shape: the kernel's own time on the card
-   (the card's kernel records through torch.profiler, mean of 60 launches),
-   the wrapper call as a caller sees it (CUDA events, median of 60 calls,
-   host work included), the plain version's and the one-call PyTorch
-   yardstick's device time, and the least time the card could take (bound,
-   from the published H100 SXM peaks). Then each configuration's forward per
-   batch: wall time (CUDA events, median of 50), device busy time, the share
-   of the wall time in which the card ran nothing, and the top kernels.
+4. Backward vs plain: the backward's ``dh`` launch (the fused-message kernel
+   on the cotangent and the transposed table) against the plain version at
+   the cation and anion shapes and on a reversal-closed hard case (a hub of
+   in- and out-degree 3100, empty rows, |src - dst| up to 999), at f32 1e-5.
+   Then the full gradients of the three autograd Functions
+   (``FusedMessageAggregate``: dh, dm_table; ``FusedMPStep``: dh, dm_table,
+   dgru; ``SortedSegmentSum``: dmsg) against torch autograd of each plain
+   forward on the card, at rtol/atol 1e-4.
+5. Main path (serving): the viscosity model at full width (atom_dim 32,
+   bond_dim 8, fp 32, mixing 20, 4 message steps) with seeded random
+   weights, serving 3 batches of 2048 records through ``predict`` in five
+   kernel configurations, each held against a plain configuration on the
+   card with the same weights at rtol 1e-4 / atol 1e-4: plain ``gather`` f32,
+   for ``pallas_step`` bf16 with the three tensors that configuration rounds
+   to bf16 rounded the same way, and for ``pallas_fused`` bf16 plain
+   ``gather`` bf16 at 2e-2 (bf16 GatedUpdate matmuls round an aggregate that
+   was summed in another order). Launch counters are zeroed before each
+   configuration and must read exactly 8 per forward for its kernel, 0 for
+   the others.
+6. Train path: the same model and weights, 3 train steps (forward, masked
+   MSE + L2, backward through the kernels' autograd Functions, per-tensor
+   clip, Adam) on the same 3 batches in five kernel configurations and
+   three plain ones. Every parameter's first gradient is present and
+   finite; the gradients and the three losses match the plain arm with the
+   same roundings (f32: gradients 1e-3 of each tensor's scale, losses rtol
+   1e-4 then 1e-3; bf16: 2e-2); the launch counters read exactly, per step,
+   8 ``fused_mp_step`` + 16 ``fused_message_aggregate`` (8 remat, 8 dh) for
+   ``pallas_step``, 16 ``fused_message_aggregate`` (8 forward, 8 dh) for
+   ``pallas_fused``, 8 ``sorted_segment_sum`` for the pallas scatter.
+7. Times. Wall times first (CUDA events, before torch.profiler attaches):
+   each wrapper call at the cation shape (median of 60), each forward per
+   batch (median of 50), the host time each kernel's autograd Function would
+   add to a launch in inference mode (the wrapper's direct launch and the
+   Function alternated, medians of 60) and each train step (median of 20 after 3
+   warm-up steps, with message-edges/s over the 20). Then the card's own records through
+   torch.profiler: each kernel's time (mean of 60 launches), the plain
+   version's and the one-call PyTorch yardstick's device time, the ``dK``
+   reduction's device time, and per forward and per train step the busy
+   time, the share of the wall time in which the card ran nothing, and the
+   top kernels. Bounds are the least time the card could take (published
+   H100 SXM peaks).
 
 Output: one ``{"kernels": [...]}`` JSON line, then the last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
@@ -60,7 +86,17 @@ N_BATCHES = 3
 F32_TOL = 1e-5
 BF16_TOL = 1e-3
 MODEL_TOL = (1e-4, 1e-4)  # rtol, atol of a 4-step forward against its plain path
+BF16_MODEL_TOL = (2e-2, 2e-2)  # bf16 GatedUpdate: the CPU tests' bf16 tolerance
+GRAD_TOL = 1e-4  # rtol and atol of a Function's gradients against plain autograd
+# train step against its plain arm: gradients |err| <= tol·|want| + tol·max|want|
+# per tensor (a backward through 4 message steps over 2048 pairs, with sums of
+# up to 1.2e5 edge terms in other orders: 5x the CPU tests' 2e-4 at 2 steps and
+# 16 pairs); losses rtol 1e-4 at step 1 and 1e-3 after it (Adam's first updates
+# are about lr·sign(g), so gradient entries at rounding noise can move a few
+# parameters by up to 2·lr in one arm only); bf16 arms 2e-2 throughout.
+TRAIN_TOL = {"float32": (1e-3, (1e-4, 1e-3, 1e-3)), "bfloat16": (2e-2, (2e-2,) * 3)}
 TIMED_LAUNCHES = 60
+TRAIN_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -102,6 +138,31 @@ def time_ms(fn, n=TIMED_LAUNCHES):
     return statistics.median(times)
 
 
+def function_overhead(direct, wrapped, n=TIMED_LAUNCHES):
+    """A kernel's wrapper with no gradient to record (it launches directly)
+    against the same launch through its autograd Function, alternately so
+    that drift hits both alike:
+    medians of the host time of a call (clock at its return, the card idle
+    before it) and of its CUDA-event call time."""
+    times = {f"{k}_{m}": [] for k in ("direct", "function") for m in ("host_ms", "call_ms")}
+    for _ in range(5):
+        direct()
+        wrapped()
+    for _ in range(n):
+        for key, fn in (("direct", direct), ("function", wrapped)):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            t0 = time.perf_counter()
+            fn()
+            times[f"{key}_host_ms"].append(1e3 * (time.perf_counter() - t0))
+            b.record()
+            b.synchronize()
+            times[f"{key}_call_ms"].append(a.elapsed_time(b))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
 def device_profile(fn, n=TIMED_LAUNCHES):
     """Device time of ``fn`` per call, from the card's own kernel records
     (torch.profiler / CUPTI): ``{"device_ms", "busy_ms", "by_kernel"}``.
@@ -118,7 +179,10 @@ def device_profile(fn, n=TIMED_LAUNCHES):
         torch.cuda.synchronize()
     spans, by_kernel = [], {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # user annotations (the optimizer's record_function range) are spans
+        # on the device timeline, not work
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             start, end = e.time_range.start, e.time_range.end
             spans.append((start, end))
             by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (end - start) / 1e3 / n
@@ -292,18 +356,131 @@ def check_refusals(h, m_table, gru, bond, src, dst, mask, N):
 
 # ---------------------------------------------------------------- phase 4
 
-CONFIGS = [  # (name, message_impl, scatter_impl, compute_dtype, kernel it runs)
-    ("pallas_step f32", "pallas_step", "xla", "float32", "fused_mp_step"),
-    ("pallas_step bf16", "pallas_step", "xla", "bfloat16", "fused_mp_step"),
-    ("pallas_fused f32", "pallas_fused", "xla", "float32", "fused_message_aggregate"),
-    ("gather+pallas scatter f32", "gather", "pallas", "float32", "sorted_segment_sum"),
+def symmetric_hard_case(dev, rng, V=7, D=32):
+    """A reversal-closed graph (every edge's reverse, same bond and mask, is
+    in the list): N = 1001, rows left empty (nodes 2-6 mod 7 that are not
+    multiples of 3), node 500 a hub joined to multiples of 3 by 3100 pairs in
+    both directions (a fifth of them masked), pairs with |src - dst| of 890
+    and 999, masked pad self-loops with bond 0; dyadic values."""
+    N = 1001
+    pairs = [(n, n + 1, int(rng.integers(1, V)), True) for n in range(0, N - 1, 7)]
+    for k in range(3100):
+        s = 3 * int(rng.integers(0, 333))
+        pairs.append((s if s != 500 else 0, 500, int(rng.integers(0, V)), k % 5 != 0))
+    pairs += [(10, 900, 3, True), (999, 0, 2, True)]
+    edges = [e for a, b, bond, m in pairs for e in ((a, b, bond, m), (b, a, bond, m))]
+    edges += [(n, n, 0, False) for n in range(0, N, 97)]
+    edges.sort(key=lambda e: e[1])
+    src, dst, bond, mask = (np.array(c) for c in zip(*edges))
+    fwd = sorted(zip(src[mask], dst[mask], bond[mask]))
+    if fwd != sorted(zip(dst[mask], src[mask], bond[mask])):
+        raise AssertionError("the hard case is not closed under reversal")
+    h = rng.integers(-2, 3, size=(N, D)) / 4.0
+    table = rng.integers(-4, 5, size=(V, D, D)) / 16.0
+    t = lambda a, dt: torch.tensor(a, dtype=dt, device=dev)
+    return (t(h, torch.float32), t(table, torch.float32), t(bond, torch.int32),
+            t(src, torch.int32), t(dst, torch.int32), t(mask, torch.bool), N)
+
+
+def function_grads(fn, leaves, cot):
+    leaves = [x.detach().clone().requires_grad_() for x in leaves]
+    return torch.autograd.grad(fn(*leaves), leaves, cot)
+
+
+def check_functions(tag, h, m_table, gru, bond, src, dst, mask, N, cot):
+    """The three autograd Functions' gradients against torch autograd of
+    their plain forwards, on the card."""
+    from ionic_mpnn_torch.ops.cuda import fused_message, fused_step, segment_sum
+    from ionic_mpnn_torch.ops.message import edge_messages_from_table
+
+    lanes = fused_message.message_table_to_lanes
+    keys = list(gru)
+    msg = edge_messages_from_table(h, bond, src, m_table) * mask[:, None]
+    cases = {
+        "SortedSegmentSum (dmsg)": (
+            lambda m: segment_sum.sorted_segment_sum(m, dst, N),
+            lambda m: segment_sum.sorted_segment_sum_plain(m, dst, N), [msg]),
+        "FusedMessageAggregate (dh, dm_table)": (
+            lambda h_, m_: fused_message.fused_message_aggregate(
+                h_, lanes(m_), bond, src, dst, mask, N),
+            lambda h_, m_: fused_message.fused_message_aggregate_plain(
+                h_, lanes(m_), bond, src, dst, mask, N), [h, m_table]),
+        "FusedMPStep (dh, dm_table, dgru)": (
+            lambda h_, m_, *g_: fused_step.fused_mp_step(
+                h_, m_, dict(zip(keys, g_)), bond, src, dst, mask, N),
+            lambda h_, m_, *g_: fused_step.fused_mp_step_plain(
+                h_, m_, dict(zip(keys, g_)), bond, src, dst, mask, N),
+            [h, m_table, *gru.values()]),
+    }
+    errs = {}
+    for name, (fn, plain, leaves) in cases.items():
+        got = function_grads(fn, leaves, cot)
+        want = function_grads(plain, leaves, cot)
+        errs[name] = max(close(f"{name} grad {i} {tag}", a, b, GRAD_TOL, GRAD_TOL)
+                         for i, (a, b) in enumerate(zip(got, want)))
+    torch.cuda.synchronize()
+    log(f"[backward] {tag}: " + ", ".join(f"{k} max|err| {v:.3e}" for k, v in errs.items()))
+
+
+def phase_backward(batch, V, dev):
+    """The dh launch against its plain version, then the Functions against
+    plain autograd."""
+    from ionic_mpnn_torch.ops.cuda import fused_message
+    from ionic_mpnn_torch.ops.cuda.segment_sum import csr_rowptr
+
+    gen = torch.Generator().manual_seed(4)
+    cases = []
+    for side in ("cation", "anion"):
+        g = getattr(batch, side)
+        N = g.node_capacity
+        cases.append((f"{side} N={N} E={g.edge_capacity}",
+                      torch.randn(N, 32, generator=gen).to(dev),
+                      (torch.randn(V, 32, 32, generator=gen) * 0.2).to(dev),
+                      g.bond_ids, g.src, g.dst, g.edge_mask, N,
+                      torch.randn(N, 32, generator=gen).to(dev)))
+    rng = np.random.default_rng(5)
+    h, m_table, bond, src, dst, mask, N = symmetric_hard_case(dev, rng, V=V)
+    cot = torch.tensor(rng.integers(-2, 3, size=(N, 32)) / 4.0, dtype=torch.float32,
+                       device=dev)
+    cases.append((f"reversal-closed hard case N={N} E={src.shape[0]}",
+                  h, m_table, bond, src, dst, mask, N, cot))
+    worst = 0.0
+    for tag, h, m_table, bond, src, dst, mask, N, cot in cases:
+        K = fused_message.message_table_to_lanes(m_table)
+        dh, _ = fused_message.message_backward(cot, h, K, bond, src, dst, mask, N,
+                                               csr_rowptr(dst, N), need_dK=False)
+        want = fused_message.fused_message_aggregate_plain(
+            cot, fused_message.transpose_lane_table(K), bond, src, dst, mask, N)
+        err = close(f"dh launch {tag}", dh, want, F32_TOL, F32_TOL)
+        log(f"[backward] dh launch {tag}: max|err| {err:.3e}")
+        if not tag.startswith("anion"):
+            worst = max(worst, err)
+        check_functions(tag, h, m_table, gru_params(gen, 32, dev), bond, src, dst, mask,
+                        N, cot)
+    return worst
+
+
+# ---------------------------------------------------------------- phase 5
+
+CONFIGS = [  # (name, message_impl, scatter_impl, compute_dtype, kernel it runs,
+    #           plain reference, tolerance)
+    ("pallas_step f32", "pallas_step", "xla", "float32", "fused_mp_step",
+     "float32", MODEL_TOL),
+    ("pallas_step bf16", "pallas_step", "xla", "bfloat16", "fused_mp_step",
+     "float32, bf16-rounded", MODEL_TOL),
+    ("pallas_fused f32", "pallas_fused", "xla", "float32", "fused_message_aggregate",
+     "float32", MODEL_TOL),
+    ("pallas_fused bf16", "pallas_fused", "xla", "bfloat16", "fused_message_aggregate",
+     "bfloat16", BF16_MODEL_TOL),
+    ("gather+pallas scatter f32", "gather", "pallas", "float32", "sorted_segment_sum",
+     "float32", MODEL_TOL),
 ]
 
 
 # bf16 configurations round these parameters to bf16 before any arithmetic
 # (the embedding lookup and the bond-type table); the rest of pallas_step's
-# math is f32, so f32 gather with the same three tensors rounded is its exact
-# plain counterpart.
+# math is f32, so f32 gather reading the same three tensors rounded is its
+# exact plain counterpart (round_in_every_forward).
 BF16_ROUNDED = ("atom_embed", "bond_embed", "bond_transform")
 
 
@@ -322,14 +499,17 @@ def phase_main_path(records, plan, vocab, dev):
         raise AssertionError(f"expected {N_BATCHES} batches, the plan gives {n_fwd}")
     batch0 = next(iter_batches(records, plan)).to(dev)
 
-    def reference(dtype):
-        """Plain gather f32 on the card: predictions and batch-0 outputs."""
+    def reference(kind):
+        """Plain gather on the card (f32; f32 with the bf16-rounded tensors;
+        bf16): predictions and batch-0 outputs."""
         model = plain
-        if dtype == "bfloat16":
+        if kind == "float32, bf16-rounded":
             model = ViscosityModel(base, seed=0)
-            model.load_state_dict({
-                k: v.to(torch.bfloat16).float() if k.endswith(BF16_ROUNDED) else v
-                for k, v in state.items()})
+            model.load_state_dict(state)
+            round_in_every_forward(model)
+        elif kind == "bfloat16":
+            model = ViscosityModel(base.replace(compute_dtype="bfloat16"), seed=0)
+            model.load_state_dict(state)
         kernels.reset_launch_counts()
         pred = predict(model, records, plan)
         if any(kernels.launch_counts().values()):
@@ -339,10 +519,11 @@ def phase_main_path(records, plan, vocab, dev):
         with torch.inference_mode():
             return pred, model(batch0)
 
-    refs = {dt: reference(dt) for dt in ("float32", "bfloat16")}
+    refs = {kind: reference(kind) for kind in ("float32", "float32, bf16-rounded",
+                                                "bfloat16")}
     models = {"gather f32 (plain)": plain}
     launches = {}
-    for name, impl, scatter, dtype, kernel in CONFIGS:
+    for name, impl, scatter, dtype, kernel, ref, tol in CONFIGS:
         cfg = base.replace(message_impl=impl, scatter_impl=scatter, compute_dtype=dtype)
         model = ViscosityModel(cfg, seed=0)
         model.load_state_dict(state)
@@ -354,20 +535,140 @@ def phase_main_path(records, plan, vocab, dev):
         if counts != want:
             raise AssertionError(f"{name}: launch counts {counts}, expected {want}")
         launches[kernel] = launches.get(kernel, 0) + counts[kernel]
-        ref_pred, ref_out = refs[dtype]
+        ref_pred, ref_out = refs[ref]
         err = close(f"predict {name}", torch.from_numpy(pred), torch.from_numpy(ref_pred),
-                    *MODEL_TOL)
+                    *tol)
         with torch.inference_mode():
             out = model(batch0)
         for key in ("pred", "mixed", "fp_cat", "fp_an"):
-            close(f"{name} {key}", out[key], ref_out[key], *MODEL_TOL)
+            close(f"{name} {key}", out[key], ref_out[key], *tol)
         log(f"[main] {name}: predict over {len(records)} records in {n_fwd} batches, "
             f"{kernel} launched {counts[kernel]} times, pred max|err| {err:.3e} "
-            f"vs plain gather f32{' (bf16-rounded inputs)' if dtype == 'bfloat16' else ''}")
-    return models, batch0, launches
+            f"vs plain gather {ref} (rtol/atol {tol[0]})")
+    return models, batch0, launches, state
 
 
-# ---------------------------------------------------------------- phase 5
+class RoundToBf16(torch.nn.Module):
+    def forward(self, x):
+        return x.to(torch.bfloat16).float()
+
+
+def round_in_every_forward(model):
+    """Make an f32 model read the tensors that a bf16 ``pallas_step`` model
+    rounds to bf16 rounded, in every forward (so after each update too), and
+    round their gradients as that model's casts do."""
+    from torch.nn.utils import parametrize
+
+    for module in list(model.modules()):
+        for name in BF16_ROUNDED:
+            if name in module._parameters:
+                parametrize.register_parametrization(module, name, RoundToBf16())
+
+
+def param_name(name):
+    return name.replace("parametrizations.", "").replace(".original", "")
+
+
+# ---------------------------------------------------------------- phase 6
+
+TRAIN_ARMS = [  # (name, message_impl, scatter_impl, compute_dtype, weights,
+    #              plain reference arm, kernel launches per train step)
+    ("gather f32 (plain)", "gather", "xla", "float32", "as is", None, {}),
+    ("gather f32, bf16-rounded (plain)", "gather", "xla", "float32", "rounded in forward",
+     None, {}),
+    ("gather bf16 (plain)", "gather", "xla", "bfloat16", "as is", None, {}),
+    ("pallas_step f32", "pallas_step", "xla", "float32", "as is", "gather f32 (plain)",
+     {"fused_mp_step": 8, "fused_message_aggregate": 16, "fused_message_aggregate_dh": 8}),
+    ("pallas_step bf16", "pallas_step", "xla", "bfloat16", "as is",
+     "gather f32, bf16-rounded (plain)",
+     {"fused_mp_step": 8, "fused_message_aggregate": 16, "fused_message_aggregate_dh": 8}),
+    ("pallas_fused f32", "pallas_fused", "xla", "float32", "as is", "gather f32 (plain)",
+     {"fused_message_aggregate": 16, "fused_message_aggregate_dh": 8}),
+    ("pallas_fused bf16", "pallas_fused", "xla", "bfloat16", "as is",
+     "gather bf16 (plain)", {"fused_message_aggregate": 16, "fused_message_aggregate_dh": 8}),
+    ("gather+pallas scatter f32", "gather", "pallas", "float32", "as is",
+     "gather f32 (plain)", {"sorted_segment_sum": 8}),
+]
+TIMED_ARMS = ("gather f32 (plain)", "pallas_step f32", "pallas_step bf16",
+              "pallas_fused f32", "pallas_fused bf16", "gather+pallas scatter f32")
+
+
+def grads_close(name, got, want, tol):
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].float()
+        w = w.float()
+        scale = w.abs().max().item()
+        err = (g - w).abs()
+        excess = err - tol * (w.abs() + scale)
+        if excess.max().item() > 0:
+            raise AssertionError(f"{name} gradient of {k}: max |err| {err.max().item():.3e} "
+                                 f"beyond {tol} of |want| + max|want| ({scale:.3e})")
+        worst = max(worst, err.max().item() / max(scale, 1e-30))
+    return worst
+
+
+def phase_train(records, plan, vocab, dev, state):
+    """3 train steps per arm from the same weights on the same 3 batches."""
+    from ionic_mpnn_torch.config import TrainConfig, viscosity_config
+    from ionic_mpnn_torch.data import iter_batches
+    from ionic_mpnn_torch.models import ViscosityModel
+    from ionic_mpnn_torch.ops import cuda as kernels
+    from ionic_mpnn_torch.training import data_loss, l2_penalty, make_train_step
+
+    base = viscosity_config(vocab.atom_vocab_size, vocab.bond_vocab_size)
+    tcfg = TrainConfig()
+    host_batches = list(iter_batches(records, plan))
+    batches = [b.to(dev) for b in host_batches]
+    arms, train_launches = {}, {}
+    for name, impl, scatter, dtype, weights, ref, per_step in TRAIN_ARMS:
+        cfg = base.replace(message_impl=impl, scatter_impl=scatter, compute_dtype=dtype)
+        model = ViscosityModel(cfg, seed=0)
+        model.load_state_dict(state)
+        if weights == "rounded in forward":
+            round_in_every_forward(model)
+        # the first step's gradients, before any update
+        b0 = batches[0]
+        loss = (data_loss(model(b0)["pred"], b0.y, b0.sample_mask, tcfg.loss,
+                          tcfg.huber_delta) + l2_penalty(model, cfg.fp_l2))
+        loss.backward()
+        grads = {}
+        for k, p in model.named_parameters():
+            if p.grad is None or not torch.isfinite(p.grad).all():
+                raise AssertionError(f"train {name}: gradient of {k} is "
+                                     f"{'missing' if p.grad is None else 'not finite'}")
+            grads[param_name(k)] = p.grad.detach().clone()
+        step = make_train_step(model, cfg, tcfg)  # its optimizer from tcfg
+        kernels.reset_launch_counts()
+        losses = [step(b)["loss"] for b in batches]
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        losses = [float(x) for x in losses]
+        want = {k: TRAIN_STEPS * per_step.get(k, 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"train {name}: launch counts {counts}, expected {want}")
+        for k, v in counts.items():
+            train_launches[k] = train_launches.get(k, 0) + v
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train {name}: losses {losses}")
+        arms[name] = {"step": step, "grads": grads, "losses": losses}
+        msg = f"[train] {name}: losses {losses}, launches {counts}"
+        if ref is not None:
+            grad_tol, loss_tols = TRAIN_TOL[dtype]
+            g_err = grads_close(f"train {name}", grads, arms[ref]["grads"], grad_tol)
+            for i, (a, b, rt) in enumerate(zip(losses, arms[ref]["losses"], loss_tols)):
+                if abs(a - b) > rt * abs(b):
+                    raise AssertionError(f"train {name}: loss of step {i + 1} {a!r} vs "
+                                         f"{b!r} of {ref}, beyond rtol {rt}")
+            msg += (f"; vs {ref}: max gradient |err| {g_err:.3e} of the tensor's "
+                    f"max, loss rtol {[abs(a / b - 1) for a, b in zip(losses, arms[ref]['losses'])]}")
+        log(msg)
+    for name in TIMED_ARMS:
+        arms[name]["grads"] = None  # free them; the step objects are timed later
+    return {k: arms[k]["step"] for k in TIMED_ARMS}, host_batches[0], train_launches
+
+
+# ---------------------------------------------------------------- phase 7
 
 def bound_ms(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -375,7 +676,9 @@ def bound_ms(nbytes, flops):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_times(batch, V, models, launches, errs):
+def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
+                train_launches):
+    from ionic_mpnn_torch.benchmarks import bench_packed_train_step
     from ionic_mpnn_torch.ops.cuda import fused_message, fused_step, segment_sum
     from ionic_mpnn_torch.ops.message import edge_messages_from_table
 
@@ -389,6 +692,8 @@ def phase_times(batch, V, models, launches, errs):
     gru = gru_params(gen, D, dev)
     K = fused_message.message_table_to_lanes(m_table)
     msg = edge_messages_from_table(h, g.bond_ids, g.src, m_table) * g.edge_mask[:, None]
+    cot = torch.randn(N, D, generator=gen).to(dev)  # the cotangent of the aggregate
+    Kt = fused_message.transpose_lane_table(K)
     rowptr = segment_sum.csr_rowptr(g.dst, N)
     dst64 = g.dst.long()
     args = (g.bond_ids, g.src, g.dst, g.edge_mask, N)
@@ -412,13 +717,48 @@ def phase_times(batch, V, models, launches, errs):
          lambda: fused_step.fused_mp_step_plain(h, m_table, gru, *args),
          None, N * D * 4 + K.numel() * 4 + 4 * (6 * D * D + 5 * D) + edge_bytes + N * D * 4,
          2 * E_real * D * D + 12 * N * D * D),
+        # the backward's dh: the fused-message kernel on (g, Kᵀ); the call
+        # includes the transpose of the table
+        ("fused_message_aggregate_dh", "ionic_mpnn_torch/csrc/fused_message.cu",
+         "ionic_mpnn_tpu/ops/pallas/fused_message.py:324", "fused_message_kernel",
+         lambda: fused_message.message_backward(cot, h, K, *args, rowptr, need_dK=False),
+         lambda: fused_message.fused_message_aggregate_plain(cot, Kt, *args),
+         None, N * D * 4 + K.numel() * 4 + edge_bytes + N * D * 4, 2 * E_real * D * D),
     ]
+    # the backward's dK: PyTorch ops, as the JAX package leaves it to XLA
+    dK_call = lambda: fused_message.fused_message_table_grad(cot, h, *args[:4], V)
+    dK_bytes = 2 * N * D * 4 + edge_bytes + K.numel() * 4  # g, h, edges in; dK out
     # wall-clock timings first: once the profiler has run, CUPTI stays
     # attached to the process and slows every later launch
     with torch.inference_mode():
         call_ms = {spec[0]: time_ms(spec[4]) for spec in specs}
+        dK_call_ms = time_ms(dK_call)
         forward = {name: {"wall_ms": time_ms(lambda: model(batch), n=50)}
                    for name, model in models.items()}
+        # the wrapper in inference mode launches directly; .apply forces the
+        # autograd Function that training goes through
+        gru_values = [gru[k] for k in fused_step.GRU_KEYS]
+        overhead = {
+            "fused_mp_step": function_overhead(
+                lambda: fused_step.fused_mp_step(h, m_table, gru, *args, rowptr=rowptr),
+                lambda: fused_step.FusedMPStep.apply(h, m_table, *args, 1e-3, rowptr,
+                                                     *gru_values)),
+            "fused_message_aggregate": function_overhead(
+                lambda: fused_message.fused_message_aggregate(h, K, *args, rowptr=rowptr),
+                lambda: fused_message.FusedMessageAggregate.apply(h, K, *args, rowptr)),
+            "sorted_segment_sum": function_overhead(
+                lambda: segment_sum.sorted_segment_sum(msg, g.dst, N, rowptr=rowptr),
+                lambda: segment_sum.SortedSegmentSum.apply(msg, g.dst, N, rowptr)),
+        }
+    for name, o in overhead.items():
+        log(f"[times] autograd Function overhead {name} (inference mode, N={N}): host "
+            f"{o['direct_host_ms']:.5f} ms per launch by the wrapper, "
+            f"{o['function_host_ms']:.5f} ms through the Function; call "
+            f"{o['direct_call_ms']:.5f} / {o['function_call_ms']:.5f} ms; 8 launches per "
+            f"forward through the Function would add "
+            f"{8 * (o['function_host_ms'] - o['direct_host_ms']):.5f} ms of host time")
+    train = {name: bench_packed_train_step(step, train_batch, iters=20, warmup=3)
+             for name, step in train_steps.items()}
     rows = []
     for name, source, replaces, symbol, kernel, plain, library, nbytes, flops in specs:
         b_ms, b_by = bound_ms(nbytes, flops)
@@ -427,7 +767,9 @@ def phase_times(batch, V, models, launches, errs):
             raise AssertionError(f"{name}: expected one {symbol} kernel, got {ours}")
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches.get(name, 0), "max_abs_err": errs[name],
+            "launches": launches.get(name, 0) + train_launches.get(name, 0),
+            "main_launches": launches.get(name, 0),
+            "train_launches": train_launches.get(name, 0), "max_abs_err": errs[name],
             # the kernel alone on the card; the wrapper call with its host
             # work; the plain version's and the library call's device time
             "ms": next(iter(ours.values())), "call_ms": call_ms[name],
@@ -440,6 +782,17 @@ def phase_times(batch, V, models, launches, errs):
         log(f"[times] {name} N={N} E={E}: kernel {r['ms']:.5f} ms on the card "
             f"(wrapper call {r['call_ms']:.5f} ms), plain {r['plain_ms']:.5f} ms, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+
+    b_ms, b_by = bound_ms(dK_bytes, 2 * E_real * D * D)
+    prof = device_profile(dK_call)
+    dK = {"name": "fused_message_table_grad (dK)", "route": "torch ops",
+          "source": "ionic_mpnn_torch/ops/cuda/fused_message.py",
+          "replaces": "ionic_mpnn_tpu/ops/pallas/fused_message.py:338-347 (XLA ops)",
+          "ms": prof["device_ms"], "call_ms": dK_call_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "kernels": {k[:60]: v for k, v in prof["by_kernel"].items()}}
+    log(f"[times] dK (not a Pallas kernel) N={N} E={E}: {dK['ms']:.5f} ms on the card "
+        f"(call {dK_call_ms:.5f} ms), bound {b_ms:.5f} ms ({b_by}); kernels ms: "
+        + json.dumps({k: round(v, 5) for k, v in dK["kernels"].items()}))
 
     with torch.inference_mode():
         for name, model in models.items():
@@ -454,7 +807,20 @@ def phase_times(batch, V, models, launches, errs):
                 f"(device busy {f['busy_ms']:.4f} ms, idle share {f['idle_share']:.3f}); "
                 f"top kernels ms: "
                 + json.dumps({k: round(v, 5) for k, v in f["top"].items()}))
-    return rows, forward
+    dev_batch = train_batch.to(dev)
+    for name, step in train_steps.items():
+        prof = device_profile(lambda: step(dev_batch), n=10)
+        t = train[name]
+        t.update(device_ms=prof["device_ms"], busy_ms=prof["busy_ms"],
+                 idle_share=max(0.0, 1 - prof["busy_ms"] / t["step_ms"]),
+                 top={k[:60]: v for k, v in list(prof["by_kernel"].items())[:6]})
+        log(f"[times] train step {name}: {t['step_ms']:.4f} ms per batch of {BATCH} "
+            f"(median of {t['iters']}), {t['edges_per_s']:.6e} message-edges/s "
+            f"({t['message_edges_per_step']} per step), host {t['host_ms']:.4f} ms to enqueue "
+            f"a step; device busy {t['busy_ms']:.4f} ms, "
+            f"idle share {t['idle_share']:.3f}; top kernels ms: "
+            + json.dumps({k: round(v, 5) for k, v in t["top"].items()}))
+    return rows, forward, dK, train, overhead
 
 
 def main() -> int:
@@ -477,11 +843,15 @@ def main() -> int:
         f"E={batch0.anion.edge_capacity}, V={V}")
 
     errs = phase_kernels(batch0, V, dev)
-    models, batch0, launches = phase_main_path(records, plan, vocab, dev)
-    rows, forward = phase_times(batch0, V, models, launches, errs)
+    errs["fused_message_aggregate_dh"] = phase_backward(batch0, V, dev)
+    models, batch0, launches, state = phase_main_path(records, plan, vocab, dev)
+    train_steps, train_batch, train_launches = phase_train(records, plan, vocab, dev, state)
+    rows, forward, dK, train, overhead = phase_times(batch0, V, models, launches, errs, train_steps,
+                                           train_batch, train_launches)
 
-    log(json.dumps({"kernels": rows, "forward_ms_per_batch": forward,
-                    "card": smi}))
+    log(json.dumps({"kernels": rows, "not_kernels": [dK],
+                    "forward_ms_per_batch": forward, "train_step": train,
+                    "function_overhead": overhead, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,5 @@
 """Benchmark helpers."""
 
-from .harness import make_bench_dataset
+from .harness import bench_packed_train_step, make_bench_dataset
 
-__all__ = ["make_bench_dataset"]
+__all__ = ["bench_packed_train_step", "make_bench_dataset"]

@@ -1,13 +1,28 @@
-"""Benchmark data: the synthetic batch the throughput benchmarks use."""
+"""Benchmark data and the packed train-step benchmark.
+
+The training metric is the JAX harness's (``benchmarks/harness.py``):
+**message-edges/s** of the full train step (forward, backward, clip and
+Adam) at batch 2048 with 4 message steps. One message edge is one real
+directed edge processed by one message step, so a step processes
+``(E_cat + E_an) · num_steps`` of them (:func:`_count_message_edges`),
+forward and backward. Building the model and batches from the
+benchmark's arguments, as the JAX ``bench_packed_train_step`` does, waits
+for ``bench_torch.py``.
+"""
 
 from __future__ import annotations
 
+import statistics
+import time
+from typing import Any, Dict
+
 import numpy as np
+import torch
 
 from ..data import build_vocab, encode_dataset, smiles_to_graph
 from ..data.synthetic import ANION_SMILES, CATION_TEMPLATES
 
-__all__ = ["make_bench_dataset"]
+__all__ = ["make_bench_dataset", "bench_packed_train_step"]
 
 
 def make_bench_dataset(n_records: int = 512, seed: int = 0):
@@ -41,3 +56,60 @@ def make_bench_dataset(n_records: int = 512, seed: int = 0):
     if report.skipped:
         raise RuntimeError(f"bench records skipped:\n{report.summary()}")
     return records, vocab
+
+
+def _count_message_edges(batch, num_steps: int) -> int:
+    e = int(np.asarray(batch.cation.edge_mask).sum() + np.asarray(batch.anion.edge_mask).sum())
+    return e * num_steps
+
+
+def bench_packed_train_step(step, host_batch, iters: int = 20,
+                            warmup: int = 3) -> Dict[str, Any]:
+    """The training metric of one packed batch: ``step`` (from
+    :func:`~ionic_mpnn_torch.training.make_train_step`) run on
+    ``host_batch`` in this process, one step per call (the JAX harness's
+    ``inner=1``), after ``warmup`` steps.
+
+    On CUDA each step is timed with CUDA events around the call.
+    ``edges_per_s`` is all message edges of the ``iters`` steps over the
+    sum of their times (the whole window); ``step_ms`` is the median of the
+    same times; ``host_ms`` is the median host time to enqueue a step (the
+    call's return, before the wait for the card). On the CPU the host clock
+    times the steps and the result says so in ``device``."""
+    dev = step.device
+    me_per_step = _count_message_edges(host_batch, step.num_steps)
+    batch = host_batch.to(dev)
+    for _ in range(warmup):
+        step(batch)
+    times_ms, host_ms = [], []
+    for _ in range(iters):
+        if dev.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            t0 = time.perf_counter()
+            last = step(batch)
+            host_ms.append(1e3 * (time.perf_counter() - t0))
+            b.record()
+            b.synchronize()
+            times_ms.append(a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            last = step(batch)
+            times_ms.append(1e3 * (time.perf_counter() - t0))
+            host_ms.append(times_ms[-1])
+    loss = float(last["loss"])
+    if not np.isfinite(loss):
+        raise RuntimeError(f"train step loss is {loss}")
+    wall_s = sum(times_ms) / 1e3
+    n_pairs = int(np.asarray(host_batch.sample_mask).sum())
+    return {
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "iters": iters, "step_ms": statistics.median(times_ms),
+        "host_ms": statistics.median(host_ms), "wall_s": wall_s,
+        "message_edges_per_step": me_per_step,
+        "edges_per_s": me_per_step * iters / wall_s,
+        "steps_per_s": iters / wall_s,
+        "molecules_per_s": 2 * n_pairs * iters / wall_s,
+        "loss": loss,
+    }

@@ -11,13 +11,19 @@ Supported here: ``message_impl`` ``"gather"`` | ``"pallas_fused"`` |
 ``"pallas_step"``, ``scatter_impl`` ``"xla"`` | ``"pallas"``,
 ``gru_impl="reference"``, ``head="vft"`` and ``ep_axis=None``. The model
 builders raise on any other value.
+
+:class:`TrainConfig` mirrors the JAX dataclass field for field too. Of its
+fields ``make_train_step`` reads ``loss`` and ``huber_delta``, and
+``learning_rate``, ``clipnorm``, ``weight_decay`` and ``warmup_steps``
+when it builds the optimizer itself (no optimizer passed); the rest
+configure ``fit()`` and its loaders, which are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -26,6 +32,9 @@ __all__ = [
     "viscosity_config",
     "model_config_to_dict",
     "model_config_from_dict",
+    "TrainConfig",
+    "train_config_to_dict",
+    "train_config_from_dict",
     "resolve_message_impl",
     "resolve_compute_dtype",
     "resolve_device",
@@ -131,3 +140,48 @@ def model_config_from_dict(d: dict) -> ModelConfig:
         if k in kw and isinstance(kw[k], list):
             kw[k] = tuple(kw[k])
     return ModelConfig(**kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimization recipe (reference: Adam(1e-3, clipnorm=1.0), MSE,
+    EarlyStopping(val_loss, patience=50, restore_best_weights=True),
+    epochs<=1000, batch 32 — train_viscosity.py:227-338). JAX field names
+    and defaults; see the JAX package's ``config.py`` for each field."""
+
+    learning_rate: float = 1e-3
+    clipnorm: float = 1.0
+    warmup_steps: int = 0  # linear warm-up from lr/25 (0 = reference recipe)
+    loss: str = "mse"  # "mse" | "huber"
+    huber_delta: float = 1.0
+    epochs: int = 1000
+    batch_size: int = 32
+    early_stopping_patience: int = 50
+    seed: int = 0
+    steps_per_call: int = 0
+    use_native_loader: bool = True
+    device_epochs: Any = "auto"  # "auto" | True | False
+    paired_epochs: Any = "auto"  # "auto" | True | False
+    normalize_y: bool = False
+    normalize_guard: str = "or1"  # "or1" | "eps"
+    weight_decay: float = 0.0
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0
+    log_epochs: Tuple[int, ...] = (1, 2, 3, 4, 5, 50, 100, 150, 200)
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def train_config_to_dict(cfg: TrainConfig) -> dict:
+    """JSON-safe dict (tuples as lists), for checkpoint meta."""
+    d = dataclasses.asdict(cfg)
+    d["log_epochs"] = list(d["log_epochs"])
+    return d
+
+
+def train_config_from_dict(d: dict) -> TrainConfig:
+    kw = dict(d)
+    if isinstance(kw.get("log_epochs"), list):
+        kw["log_epochs"] = tuple(kw["log_epochs"])
+    return TrainConfig(**kw)

@@ -66,6 +66,8 @@ class BondMatrixMessage(nn.Module):
     ``impl``: ``"gather"`` (matrix gather + batched matvec + segment sum,
     the sum by ``index_add_`` or, with ``scatter="pallas"``, the CUDA
     segment-sum kernel) or ``"pallas_fused"`` (the CUDA fused kernel).
+    Both kernel paths are autograd Functions whose backward runs on the
+    card too (:mod:`ionic_mpnn_torch.ops.cuda`).
     """
 
     def __init__(self, atom_dim: int, bond_dim: int, generator: torch.Generator,
@@ -89,8 +91,10 @@ class BondMatrixMessage(nn.Module):
         m_table = bond_type_matrices(bond_table.to(dt), self.bond_transform.to(dt))
         h = node_states.to(dt)
         if self.impl == "pallas_fused":
+            # the kernel takes an f32 table whatever the compute dtype (the
+            # JAX kernel multiplies its table by h with an f32 result)
             return fused_message_aggregate(
-                h, message_table_to_lanes(m_table), bond_ids, src, dst,
+                h, message_table_to_lanes(m_table.float()), bond_ids, src, dst,
                 edge_mask, h.shape[0], rowptr=rowptr)
         return message_pass_aggregate(h, bond_ids, src, dst, m_table, edge_mask,
                                       scatter=self.scatter, rowptr=rowptr)

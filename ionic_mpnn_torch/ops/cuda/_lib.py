@@ -25,7 +25,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["library", "build", "check", "require_cuda", "stream_ptr", "BUILD_LOG"]
+__all__ = ["library", "build", "check", "require_cuda", "needs_grad", "stream_ptr",
+           "BUILD_LOG"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
@@ -138,6 +139,14 @@ def require_cuda(name: str, t: torch.Tensor) -> None:
     CUDA card (kernel); anything else is refused, never served."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would record a call on these tensors. When it would
+    not (``inference_mode``, ``no_grad``, or no input requires a gradient),
+    a wrapper launches its kernel without its autograd Function, whose
+    ``apply`` costs host time on every call."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -1,9 +1,11 @@
 """One full message step per launch: the fused message + aggregate of
 :mod:`.fused_message` with the GatedUpdate as an epilogue (CUDA kernel
-``csrc/fused_message.cu`` with ``kGru = true``), and its plain version.
+``csrc/fused_message.cu`` with ``kGru = true``), its plain version, and
+the autograd Function (:class:`FusedMPStep`) whose remat backward runs
+the fused-message kernel twice.
 
 Replaces the JAX package's Pallas kernel ``ops/pallas/fused_step.py``
-(``fused_mp_step``, forward): ``h' = GatedUpdate(h, Σ_{e→n} mask_e ·
+(``fused_mp_step`` and its custom VJP): ``h' = GatedUpdate(h, Σ_{e→n} mask_e ·
 M[bond_e] @ h[src_e])`` where the aggregate never reaches memory. On the
 TPU the epilogue runs on a finished 128-node output window; here each
 destination node's warp holds both ``h`` and ``agg`` when its edge loop
@@ -20,8 +22,10 @@ Bound on the H100: close to the f32 CUDA-core / memory balance point at
 D = 32 (2·E·D² + 12·N·D² flops against the gathered h rows and edge
 arrays); see ``csrc/fused_message.cu``.
 
-Dispatch: a CPU tensor takes :func:`fused_mp_step_plain`; a CUDA tensor
-launches the kernel or raises.
+Dispatch: a CPU tensor takes :func:`fused_mp_step_plain` (and the plain
+versions in the backward, through the same Function); a CUDA tensor
+launches the kernels or raises. With no gradient to record the wrapper
+skips the Function (:func:`._lib.needs_grad`).
 """
 
 from __future__ import annotations
@@ -34,13 +38,20 @@ from ..gru import gated_update
 from . import _lib
 from .fused_message import (
     _DTYPES,
+    _aggregate,
     check_fused_inputs,
     fused_message_aggregate_plain,
+    lanes_to_message_table,
+    message_backward,
     message_table_to_lanes,
 )
 from .segment_sum import csr_rowptr
 
-__all__ = ["fused_mp_step", "fused_mp_step_plain", "pack_gru_weights"]
+__all__ = ["FusedMPStep", "GRU_KEYS", "fused_mp_step", "fused_mp_step_plain",
+           "pack_gru_weights"]
+
+# the GatedUpdate params in the order FusedMPStep takes them
+GRU_KEYS = ("wz", "bz", "wr", "br", "wh", "bh", "ln_scale", "ln_bias")
 
 launches = 0  # kernel launches since the last reset (ops.cuda.reset_launch_counts)
 
@@ -68,19 +79,10 @@ def fused_mp_step_plain(
                         ln_eps=ln_eps)
 
 
-def fused_mp_step(
-    h: torch.Tensor,  # (N, D) f32 or bf16
-    m_table: torch.Tensor,  # (V, D, D) per-type message matrices
-    gru: Dict[str, torch.Tensor],  # ops.gru.GATED_UPDATE_PARAM_SHAPES dict
-    bond_ids: torch.Tensor,  # (E,) int32 in [0, V)
-    src: torch.Tensor,  # (E,) int32
-    dst: torch.Tensor,  # (E,) int32, non-decreasing
-    edge_mask: torch.Tensor,  # (E,) bool
-    num_nodes: int,
-    ln_eps: float = 1e-3,
-    rowptr: Optional[torch.Tensor] = None,  # (N+1,) int32 from csr_rowptr
-) -> torch.Tensor:
-    """One fused message-passing step; returns the new (N, D) f32 states."""
+def _step(h, m_table, gru, bond_ids, src, dst, edge_mask, num_nodes: int,
+          ln_eps: float, rowptr):
+    """One forward evaluation, no autograd: the plain version for a CPU
+    tensor, else one kernel launch."""
     if h.device.type == "cpu":
         return fused_mp_step_plain(h, m_table, gru, bond_ids, src, dst,
                                    edge_mask, num_nodes, ln_eps)
@@ -108,3 +110,77 @@ def fused_mp_step(
     _lib.check(code, "fused_mp_step")
     launches += 1
     return out
+
+
+class FusedMPStep(torch.autograd.Function):
+    """The fused step with the remat backward of the JAX custom VJP
+    (``ops/pallas/fused_step.py:293-320``); differentiable in ``h``,
+    ``m_table`` and the GRU params (passed flat, in :data:`GRU_KEYS`
+    order). Forward saves only its inputs. Backward recomputes ``agg``
+    with one fused-message launch, differentiates the f32
+    :func:`~ionic_mpnn_torch.ops.gru.gated_update` on ``(h, agg)`` with
+    autograd, and sends ``dagg`` through the fused message's backward
+    (:func:`.fused_message.message_backward`: the ``dh`` launch on the
+    transposed table and the ``dK`` reduction). That is the function JAX
+    differentiates in ``_reference_compose``: its message part's
+    h-gradient is ``message_pass_aggregate_symmetric``'s.
+
+    bf16 ``h`` (step 0 of a bf16 model): the backward is f32 throughout
+    with ``h`` upcast exactly, as the forward kernel computes and as JAX's
+    remat computes after type promotion (its f32 ``m_table`` promotes the
+    messages, and the f32 ``agg`` promotes the GatedUpdate); ``dh`` is
+    rounded to bf16 once, at the end."""
+
+    @staticmethod
+    def forward(ctx, h, m_table, bond_ids, src, dst, edge_mask, num_nodes, ln_eps,
+                rowptr, *gru_values):
+        if h.device.type != "cpu" and rowptr is None:
+            _lib.require_cuda("fused_mp_step", h)
+            rowptr = csr_rowptr(dst, num_nodes)  # shared with the backward's launches
+        ctx.num_nodes, ctx.ln_eps = num_nodes, ln_eps
+        ctx.save_for_backward(h, m_table, bond_ids, src, dst, edge_mask, rowptr,
+                              *gru_values)
+        return _step(h, m_table, dict(zip(GRU_KEYS, gru_values)), bond_ids, src, dst,
+                     edge_mask, num_nodes, ln_eps, rowptr)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, m_table, bond_ids, src, dst, edge_mask, rowptr, *gru_values = ctx.saved_tensors
+        N = ctx.num_nodes
+        K = message_table_to_lanes(m_table.float())
+        edges = (bond_ids, src, dst, edge_mask, N, rowptr)
+        agg = _aggregate(h, K, *edges)  # remat: one launch
+        with torch.enable_grad():
+            hf = h.detach().float().requires_grad_()
+            aggl = agg.detach().requires_grad_()
+            gru = [v.detach().float().requires_grad_() for v in gru_values]
+            out = gated_update(hf, aggl, dict(zip(GRU_KEYS, gru)), ln_eps=ctx.ln_eps)
+            dh, dagg, *dgru = torch.autograd.grad(out, (hf, aggl, *gru), g)
+        need_h, need_m = ctx.needs_input_grad[:2]
+        dh_msg, dK = message_backward(dagg, h, K, *edges, need_dh=need_h, need_dK=need_m)
+        dh = (dh + dh_msg).to(h.dtype) if need_h else None
+        dm = lanes_to_message_table(dK).to(m_table.dtype) if need_m else None
+        dgru = [d.to(v.dtype) for d, v in zip(dgru, gru_values)]
+        return (dh, dm, None, None, None, None, None, None, None, *dgru)
+
+
+def fused_mp_step(
+    h: torch.Tensor,  # (N, D) f32 or bf16
+    m_table: torch.Tensor,  # (V, D, D) per-type message matrices
+    gru: Dict[str, torch.Tensor],  # ops.gru.GATED_UPDATE_PARAM_SHAPES dict
+    bond_ids: torch.Tensor,  # (E,) int32 in [0, V)
+    src: torch.Tensor,  # (E,) int32
+    dst: torch.Tensor,  # (E,) int32, non-decreasing
+    edge_mask: torch.Tensor,  # (E,) bool
+    num_nodes: int,
+    ln_eps: float = 1e-3,
+    rowptr: Optional[torch.Tensor] = None,  # (N+1,) int32 from csr_rowptr
+) -> torch.Tensor:
+    """One fused message-passing step; returns the new (N, D) f32 states,
+    differentiable in ``h``, ``m_table`` and ``gru``."""
+    gru_values = [gru[k] for k in GRU_KEYS]
+    if not _lib.needs_grad(h, m_table, *gru_values):
+        return _step(h, m_table, gru, bond_ids, src, dst, edge_mask, num_nodes, ln_eps,
+                     rowptr)
+    return FusedMPStep.apply(h, m_table, bond_ids, src, dst, edge_mask, num_nodes,
+                             ln_eps, rowptr, *gru_values)

@@ -1,5 +1,5 @@
-"""Sorted segment sum: the CUDA kernel ``csrc/segment_sum.cu`` and its
-plain PyTorch version.
+"""Sorted segment sum: the CUDA kernel ``csrc/segment_sum.cu``, its plain
+PyTorch version, and its autograd Function (:class:`SortedSegmentSum`).
 
 Replaces the JAX package's Pallas kernel ``ops/pallas/segment_sum.py``
 (``sorted_segment_sum``): ``out[n] = Σ_{e: dst_e = n} messages[e]`` for
@@ -14,8 +14,12 @@ is ever dropped.
 Bound on the H100: memory bytes (each message row read once, each node
 row written once; one add per element).
 
+Backward: the gather ``g[dst]`` (``index_select``), with no kernel, as
+the JAX ``segment_sum_vjp`` (``ops/pallas/segment_sum.py:269-283``).
+
 Dispatch: a CPU tensor takes :func:`sorted_segment_sum_plain`; a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises. With no gradient to record the
+wrapper skips the Function (:func:`._lib.needs_grad`).
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import torch
 
 from . import _lib
 
-__all__ = ["sorted_segment_sum", "sorted_segment_sum_plain", "csr_rowptr"]
+__all__ = ["SortedSegmentSum", "sorted_segment_sum", "sorted_segment_sum_plain",
+           "csr_rowptr"]
 
 launches = 0  # kernel launches since the last reset (ops.cuda.reset_launch_counts)
 
@@ -53,13 +58,9 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"sorted_segment_sum: {msg}")
 
 
-def sorted_segment_sum(
-    messages: torch.Tensor,  # (E, D) f32 or bf16, pad rows already zero
-    dst: torch.Tensor,  # (E,) int32, non-decreasing
-    num_nodes: int,
-    rowptr: Optional[torch.Tensor] = None,  # (N+1,) int32 from csr_rowptr
-) -> torch.Tensor:
-    """Segment-sum dst-sorted messages into (num_nodes, D) f32."""
+def _segment_sum(messages, dst, num_nodes: int, rowptr):
+    """One forward evaluation, no autograd: the plain version for a CPU
+    tensor, else one kernel launch."""
     if messages.device.type == "cpu":
         return sorted_segment_sum_plain(messages, dst, num_nodes)
     _lib.require_cuda("sorted_segment_sum", messages)
@@ -89,3 +90,31 @@ def sorted_segment_sum(
     _lib.check(code, "sorted_segment_sum")
     launches += 1
     return out
+
+
+class SortedSegmentSum(torch.autograd.Function):
+    """The segment sum, differentiable in ``messages``: its backward is
+    the gather of the cotangent at ``dst``."""
+
+    @staticmethod
+    def forward(ctx, messages, dst, num_nodes, rowptr):
+        ctx.save_for_backward(dst)
+        ctx.msg_dtype = messages.dtype
+        return _segment_sum(messages, dst, num_nodes, rowptr)
+
+    @staticmethod
+    def backward(ctx, g):
+        (dst,) = ctx.saved_tensors
+        return g.index_select(0, dst.long()).to(ctx.msg_dtype), None, None, None
+
+
+def sorted_segment_sum(
+    messages: torch.Tensor,  # (E, D) f32 or bf16, pad rows already zero
+    dst: torch.Tensor,  # (E,) int32, non-decreasing
+    num_nodes: int,
+    rowptr: Optional[torch.Tensor] = None,  # (N+1,) int32 from csr_rowptr
+) -> torch.Tensor:
+    """Segment-sum dst-sorted messages into (num_nodes, D) f32."""
+    if not _lib.needs_grad(messages):
+        return _segment_sum(messages, dst, num_nodes, rowptr)
+    return SortedSegmentSum.apply(messages, dst, num_nodes, rowptr)

@@ -71,7 +71,9 @@ def message_pass_aggregate(
     dst: torch.Tensor,  # (E,) sorted
     m_table: torch.Tensor,  # (V, D, D)
     edge_mask: torch.Tensor,  # (E,) bool (already parity-adjusted if needed)
-    scatter: str = "xla",  # "xla" (index_add_) | "pallas" (CUDA segment-sum kernel)
+    # "xla" (index_add_) | "pallas" (the CUDA segment-sum kernel's autograd
+    # Function, whose backward is the gather g[dst])
+    scatter: str = "xla",
     rowptr: Optional[torch.Tensor] = None,  # CSR rows of dst, for scatter="pallas"
 ) -> torch.Tensor:
     """Message + aggregate: returns per-node summed messages (N, D) f32."""

@@ -3,6 +3,7 @@ version against the JAX Pallas kernel it replaces (interpret mode on the
 CPU). Tolerances: f32 rtol 1e-5 / atol 1e-5 (summation order differs);
 bf16 2e-2 (bf16 rounds at other places in the two frameworks)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -188,3 +189,146 @@ def test_cpu_tensor_takes_plain_path(kernel):
     with pytest.raises(ValueError, match="unsupported device"):
         wrapper(*[to_meta(a) for a in args])
     assert kernels.launch_counts()[kernel] == 0
+
+
+@pytest.mark.parametrize("kernel", ["sorted_segment_sum", "fused_message_aggregate",
+                                    "fused_mp_step"])
+def test_wrapper_applies_its_function_only_to_record_a_gradient(kernel, monkeypatch):
+    """A call that autograd records goes through the kernel's Function; in
+    inference mode or under no_grad the wrapper skips it, same result."""
+    g = _graph(4)
+    N = g["N"]
+    bond, src, dst, mask = _torch_edges(g)
+    h, m_table = _t(g["h"]).requires_grad_(), _t(g["m_table"])
+    gru = {k: _t(v) for k, v in g["gru"].items()}
+    K = fused_message.message_table_to_lanes(m_table)
+    msg = tmsg.edge_messages_from_table(h, bond, src, m_table) * mask[:, None]
+    fn, call = {
+        "sorted_segment_sum": (segment_sum.SortedSegmentSum,
+                               lambda: segment_sum.sorted_segment_sum(msg, dst, N)),
+        "fused_message_aggregate": (
+            fused_message.FusedMessageAggregate,
+            lambda: fused_message.fused_message_aggregate(h, K, bond, src, dst, mask, N)),
+        "fused_mp_step": (
+            fused_step.FusedMPStep,
+            lambda: fused_step.fused_mp_step(h, m_table, gru, bond, src, dst, mask, N)),
+    }[kernel]
+    recorded = call()
+    assert type(recorded.grad_fn).__name__ == f"{fn.__name__}Backward"
+    monkeypatch.setattr(fn, "apply", lambda *a: pytest.fail(f"{fn.__name__} applied"))
+    with torch.inference_mode():
+        torch.testing.assert_close(call(), recorded.detach(), rtol=0, atol=0)
+    with torch.no_grad():
+        torch.testing.assert_close(call(), recorded.detach(), rtol=0, atol=0)
+
+
+# ---- the kernels' autograd Functions against jax.grad of the Pallas kernels
+# (interpret mode). Tolerance f32 rtol/atol 2e-4, as the JAX package's own
+# gradient tests of these kernels use.
+
+GRAD = dict(rtol=2e-4, atol=2e-4)
+
+
+def test_lane_table_helpers_match_jax():
+    from ionic_mpnn_tpu.ops.pallas.fused_message import transpose_lane_table as j_tlt
+
+    g = _graph(5)
+    K = fused_message.message_table_to_lanes(_t(g["m_table"]))
+    Kt = fused_message.transpose_lane_table(K)
+    assert Kt.is_contiguous()
+    np.testing.assert_array_equal(Kt.numpy(), np.asarray(j_tlt(jnp.asarray(K.numpy()), g["V"])))
+    np.testing.assert_array_equal(fused_message.lanes_to_message_table(K).numpy(),
+                                  g["m_table"])
+
+
+def _cotangent(g):
+    """A fixed (N, D) cotangent that reaches the Function as a strided
+    (transposed) tensor, as autograd sometimes hands one over."""
+    c = g["rng"].normal(size=(g["D"], g["N"])).astype(np.float32)
+    return c.T, _t(c)
+
+
+def _torch_grads(out, cot_t, *leaves):
+    (out.t() * cot_t).sum().backward()  # out's cotangent is cot_t.t(): strided
+    return [x.grad.numpy() for x in leaves]
+
+
+@pytest.mark.parametrize("kernel", ["sorted_segment_sum", "fused_message_aggregate",
+                                    "fused_mp_step"])
+def test_function_gradients_match_jax(kernel):
+    """Each Function's gradients against ``jax.grad`` of the JAX kernel it
+    replaces, and against torch autograd of its plain forward (which takes
+    the unsymmetric scatter-by-src backward: equal on reversal-closed edges)."""
+    from ionic_mpnn_tpu.ops.pallas.segment_sum import segment_sum_vjp as j_ssv
+
+    g = _graph(6)
+    N = g["N"]
+    bond, src, dst, mask = _torch_edges(g)
+    cot, cot_t = _cotangent(g)
+    h, m_table = jnp.asarray(g["h"]), jnp.asarray(g["m_table"])
+    gru = {k: jnp.asarray(v) for k, v in g["gru"].items()}
+    leaf = lambda a: _t(a).clone().requires_grad_()
+    kernels.reset_launch_counts()
+    if kernel == "sorted_segment_sum":
+        msg = np.array(jmsg.edge_messages_from_table(h, g["bond"], g["src"], m_table))
+        want = jax.grad(lambda m: jnp.sum(j_ssv(m, g["dst"], N, True) * cot))(jnp.asarray(msg))
+        wants = [want]
+        x = leaf(msg)
+        out = segment_sum.sorted_segment_sum(x, dst, N)
+        grad_fn = type(out.grad_fn).__name__
+        got = _torch_grads(out, cot_t, x)
+        y = leaf(msg)
+        plain = _torch_grads(segment_sum.sorted_segment_sum_plain(y, dst, N), cot_t, y)
+    elif kernel == "fused_message_aggregate":
+        wants = jax.grad(lambda h_, m_: jnp.sum(j_fused_message(
+            h_, j_lanes(m_), g["bond"], g["src"], g["dst"], g["mask"], N,
+            interpret=True) * cot), argnums=(0, 1))(h, m_table)
+        xs = [leaf(g["h"]), leaf(g["m_table"])]
+        out = fused_message.fused_message_aggregate(
+            xs[0], fused_message.message_table_to_lanes(xs[1]), bond, src, dst, mask, N)
+        grad_fn = type(out.grad_fn).__name__
+        got = _torch_grads(out, cot_t, *xs)
+        ys = [leaf(g["h"]), leaf(g["m_table"])]
+        plain = _torch_grads(fused_message.fused_message_aggregate_plain(
+            ys[0], fused_message.message_table_to_lanes(ys[1]), bond, src, dst, mask, N),
+            cot_t, *ys)
+    else:
+        keys = list(g["gru"])
+        jh, jm, jg = jax.grad(lambda h_, m_, g_: jnp.sum(j_fused_step(
+            h_, m_, g_, g["bond"], g["src"], g["dst"], g["mask"].astype(np.float32), N,
+            interpret=True) * cot), argnums=(0, 1, 2))(h, m_table, gru)
+        wants = [jh, jm, *(jg[k] for k in keys)]
+        xs = [leaf(g["h"]), leaf(g["m_table"]), *(leaf(g["gru"][k]) for k in keys)]
+        out = fused_step.fused_mp_step(xs[0], xs[1], dict(zip(keys, xs[2:])), bond, src,
+                                       dst, mask, N)
+        grad_fn = type(out.grad_fn).__name__
+        got = _torch_grads(out, cot_t, *xs)
+        ys = [leaf(g["h"]), leaf(g["m_table"]), *(leaf(g["gru"][k]) for k in keys)]
+        plain = _torch_grads(fused_step.fused_mp_step_plain(
+            ys[0], ys[1], dict(zip(keys, ys[2:])), bond, src, dst, mask, N), cot_t, *ys)
+    assert grad_fn.startswith({"sorted_segment_sum": "SortedSegmentSum",
+                               "fused_message_aggregate": "FusedMessageAggregate",
+                               "fused_mp_step": "FusedMPStep"}[kernel])
+    assert not any(kernels.launch_counts().values())  # CPU: plain versions only
+    for i, (a, b, w) in enumerate(zip(got, plain, wants)):
+        np.testing.assert_allclose(a, np.asarray(w), err_msg=f"grad {i} vs jax", **GRAD)
+        np.testing.assert_allclose(a, b, err_msg=f"grad {i} vs plain autograd", **GRAD)
+
+
+def test_fused_message_backward_needs_reversal_closed_edges():
+    """On an edge list that is not closed under reversal the Function's h
+    gradient is not the h gradient (the documented precondition): it
+    differs from plain autograd, while the table gradient still agrees."""
+    g = _graph(8)
+    N = g["N"]
+    keep = (g["src"] < g["dst"]) | ~g["mask"]  # one direction of each bond
+    bond, src, dst, mask = (_t(a[keep]) for a in (g["bond"], g["src"], g["dst"], g["mask"]))
+    cot, cot_t = _cotangent(g)
+    grads = []
+    for fn in (fused_message.fused_message_aggregate,
+               fused_message.fused_message_aggregate_plain):
+        h = _t(g["h"]).clone().requires_grad_()
+        K = fused_message.message_table_to_lanes(_t(g["m_table"])).requires_grad_()
+        grads.append(_torch_grads(fn(h, K, bond, src, dst, mask, N), cot_t, h, K))
+    assert np.abs(grads[0][0] - grads[1][0]).max() > 1e-2
+    np.testing.assert_allclose(grads[0][1], grads[1][1], **GRAD)
