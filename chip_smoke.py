@@ -8,14 +8,20 @@ Phases, in order (any failure raises and the script exits non-zero):
 
 1. Device: the card's name, ``nvidia-smi`` name and power limit.
 2. Build: compile ``ionic_mpnn_torch/csrc`` with nvcc (one process per
-   source) and print the build time and each kernel's registers.
+   source) and print the build time, each kernel's registers and spills,
+   and, where the toolkit has ``cuobjdump``, each fused kernel's count of
+   HMMA (tensor-core) instructions; the D = 32 kernels must have some.
 3. Kernel vs plain: each CUDA kernel against its plain PyTorch version on
    the card, at the cation and anion shapes of a batch-2048 bench batch with
    h in f32 and in bf16, and on hard cases (nodes with no in-edges, one node
    with in-degree >= 3000, an edge with |src - dst| >= 256, N not a multiple
-   of 32). Tolerance: f32 rtol 1e-5 / atol 1e-5 (only the order of summation
-   differs), bf16 inputs 1e-3. The hard cases use dyadic values, so every
-   summation order is exact and the tolerance only absorbs exp/tanh/rsqrt.
+   of 32); then graphs whose 16-node tiles hold every bond type (V = 7, and
+   V = 32, the most D = 32 takes), two launches on the same input giving the
+   same bits, the kernels and their plain versions against an f64
+   evaluation, and inputs the wrappers refuse. Tolerance: f32 rtol 1e-5 /
+   atol 1e-5 (the order of summation and the f32-accurate tensor-core
+   products differ), bf16 inputs 1e-3. The hard cases use dyadic values, so every summation order is exact
+   and the tolerance only absorbs exp/tanh/rsqrt.
 4. Backward vs plain: the backward's ``dh`` launch (the fused-message kernel
    on the cotangent and the transposed table) against the plain version at
    the cation and anion shapes and on a reversal-closed hard case (a hub of
@@ -56,7 +62,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    reduction's device time, and per forward and per train step the busy
    time, the share of the wall time in which the card ran nothing, and the
    top kernels. Bounds are the least time the card could take (published
-   H100 SXM peaks).
+   H100 SXM peaks: 3.35 TB/s; the fused kernels' f32-accurate products over
+   the TF32 tensor-core rate / 3, the rest over the f32 CUDA-core rate).
 
 Output: one ``{"kernels": [...]}`` JSON line, then the last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
@@ -81,6 +88,7 @@ HERE = Path(__file__).resolve().parent
 # Published H100 SXM peaks (NVIDIA data sheet) used for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # CUDA cores, no tensor cores
+TF32_FLOPS = 495e12  # tensor cores, dense TF32; an f32-accurate product takes three passes
 BATCH = 2048
 N_BATCHES = 3
 F32_TOL = 1e-5
@@ -233,6 +241,31 @@ def phase_build():
                 kernel = m.group(1)
             if "registers" in line or "spill" in line:
                 log(f"[build] {kernel}: {line.strip()}")
+    tensor_core_sass(so)
+
+
+def tensor_core_sass(so):
+    """Count each fused kernel's HMMA (tensor-core) instructions in the built
+    SASS, where the toolkit has cuobjdump; the D = 32 kernels must hold some."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        log("[build] cuobjdump not found: HMMA count not taken")
+        return
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = m.group(1)
+        elif kernel and "fused_message" in kernel and "HMMA" in line:
+            counts[kernel] = counts.get(kernel, 0) + 1
+    for kernel in sorted(k for k in re.findall(r"Function : (\S+)", sass) if "fused_message" in k):
+        log(f"[build] {kernel}: {counts.get(kernel, 0)} HMMA instructions")
+        if "fused_message_tc_kernel" in kernel and not counts.get(kernel):
+            raise AssertionError(f"{kernel}: no tensor-core instruction in its SASS")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -258,6 +291,73 @@ def hard_case(dev, rng, V=7, D=32):
     t = lambda a, dt: torch.tensor(a, dtype=dt, device=dev)
     return (t(h, torch.float32), t(table, torch.float32), t(bond, torch.int32),
             t(src, torch.int32), t(dst, torch.int32), t(mask, torch.bool), N)
+
+
+def typed_case(dev, rng, V, per_node, N=1001, D=32):
+    """A graph in which every 16-node tile holds all V bond types: node n
+    has per_node in-edges with bonds (n·per_node + k) mod V, sources spread
+    over the graph, plus masked pad self-loops with bond 0; N = 1001;
+    Gaussian values."""
+    edges = [((n + 1 + 37 * k) % N, n, (n * per_node + k) % V, True)
+             for n in range(N) for k in range(per_node)]
+    edges += [(n, n, 0, False) for n in range(0, N, 13)]
+    edges.sort(key=lambda e: e[1])
+    src, dst, bond, mask = (np.array(c) for c in zip(*edges))
+    t = lambda a, dt: torch.tensor(a, dtype=dt, device=dev)
+    return (t(rng.normal(size=(N, D)), torch.float32),
+            t(rng.normal(size=(V, D, D)) * 0.2, torch.float32), t(bond, torch.int32),
+            t(src, torch.int32), t(dst, torch.int32), t(mask, torch.bool), N)
+
+
+def check_repeatable(tag, h, m_table, gru, bond, src, dst, mask, N):
+    """Two launches of each fused kernel on the same input give the same bits
+    (one warp sums a tile in CSR order, no atomics)."""
+    from ionic_mpnn_torch.ops.cuda import fused_message, fused_step
+
+    K = fused_message.message_table_to_lanes(m_table)
+    for name, call in (
+            ("fused_message_aggregate", lambda: fused_message.fused_message_aggregate(
+                h, K, bond, src, dst, mask, N)),
+            ("fused_mp_step", lambda: fused_step.fused_mp_step(
+                h, m_table, gru, bond, src, dst, mask, N))):
+        a, b = call(), call()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} {tag}: two launches differ by "
+                                 f"{(a - b).abs().max().item():.3e}")
+    torch.cuda.synchronize()
+    log(f"[kernels] {tag}: two launches of each fused kernel give the same bits")
+
+
+def accuracy_vs_f64(tag, h, m_table, gru, bond, src, dst, mask, N):
+    """Each fused kernel and its plain version against an f64 evaluation of
+    the same function: max and RMS |err|. The kernels sum the messages in
+    another order (buckets per node and type, then the product), so this
+    says which of the two f32 results is nearer the function."""
+    from ionic_mpnn_torch.ops.cuda import fused_message, fused_step
+    from ionic_mpnn_torch.ops.gru import gated_update
+
+    E, D = src.shape[0], h.shape[1]
+    K = fused_message.message_table_to_lanes(m_table)
+    x = (h.double().index_select(0, src.long()) @ K.double()).view(E, -1, D)
+    x = x.gather(1, bond.long().view(E, 1, 1).expand(E, 1, D)).squeeze(1) * mask[:, None]
+    agg64 = torch.zeros(N, D, dtype=torch.float64, device=h.device).index_add_(0, dst.long(), x)
+    step64 = gated_update(h.double(), agg64, {k: v.double() for k, v in gru.items()})
+    cases = {
+        "fused_message_aggregate": (
+            agg64, fused_message.fused_message_aggregate(h, K, bond, src, dst, mask, N),
+            fused_message.fused_message_aggregate_plain(h, K, bond, src, dst, mask, N)),
+        "fused_mp_step": (
+            step64, fused_step.fused_mp_step(h, m_table, gru, bond, src, dst, mask, N),
+            fused_step.fused_mp_step_plain(h, m_table, gru, bond, src, dst, mask, N)),
+    }
+    parts = []
+    for name, (ref, kernel, plain) in cases.items():
+        stats = []
+        for got in (kernel, plain):
+            err = (got.double() - ref).abs()
+            stats.append(f"max {err.max().item():.3e} rms {err.pow(2).mean().sqrt().item():.3e}")
+        parts.append(f"{name} kernel {stats[0]}, plain {stats[1]}")
+    log(f"[kernels] {tag} against f64: " + "; ".join(parts))
 
 
 def gru_params(gen, D, dev):
@@ -319,6 +419,20 @@ def phase_kernels(batch, V, dev):
                              bond, src, dst, mask, N, F32_TOL)
         for k, v in errs.items():
             worst[k] = max(worst.get(k, 0.0), v)
+    # the tensor-core kernel's type skipping: tiles that hold every type, up
+    # to the most types D = 32 takes
+    for types, per_node in ((V, V), (32, 8)):
+        t_case = typed_case(dev, rng, types, per_node)
+        for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            check_kernels(f"every type in every tile V={types} N={t_case[-1]} "
+                          f"h {str(dt)[6:]}", t_case[0].to(dt), t_case[1], gru, *t_case[2:],
+                          tol)
+    g = batch.cation
+    h32 = torch.randn(g.node_capacity, 32, generator=gen).to(dev)
+    m32 = (torch.randn(V, 32, 32, generator=gen) * 0.2).to(dev)
+    cation = (g.bond_ids, g.src, g.dst, g.edge_mask, g.node_capacity)
+    check_repeatable("cation D=32 h float32", h32, m32, gru, *cation)
+    accuracy_vs_f64("cation D=32 h float32", h32, m32, gru, *cation)
     check_refusals(h, m_table, gru, bond, src, dst, mask, N)
     return worst
 
@@ -333,8 +447,10 @@ def check_refusals(h, m_table, gru, bond, src, dst, mask, N):
     cases = {
         "D=48": lambda: fused_message.fused_message_aggregate(
             zeros(N, 48), zeros(48, 48 * 7), bond, src, dst, mask, N),
-        "shared memory": lambda: fused_message.fused_message_aggregate(
-            zeros(N, 64), zeros(64, 64 * 64), bond, src, dst, mask, N),  # 64 types
+        "9 types at D=64": lambda: fused_message.fused_message_aggregate(
+            zeros(N, 64), zeros(64, 64 * 9), bond, src, dst, mask, N),
+        "33 types at D=32": lambda: fused_step.fused_mp_step(
+            h, zeros(33, 32, 32), gru, bond, src, dst, mask, N),
         "dtype": lambda: fused_step.fused_mp_step(h.half(), m_table, gru, bond, src, dst,
                                                   mask, N),
         "strided": lambda: segment_sum.sorted_segment_sum(
@@ -670,10 +786,19 @@ def phase_train(records, plan, vocab, dev, state):
 
 # ---------------------------------------------------------------- phase 7
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOPS
+    t_ops = flops / flops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# the fused kernels' products are f32-accurate on the tensor cores: three
+# TF32 passes (the step), or six bf16 products at 989e12 / 6 (the message),
+# the same rate; the segment sum and the dK ops are f32 on the CUDA cores
+TC_F32 = (TF32_FLOPS / 3, "tensor cores, f32-accurate: TF32 / 3")
+FLOP_PEAKS = {"fused_message_aggregate": TC_F32, "fused_mp_step": TC_F32,
+              "fused_message_aggregate_dh": TC_F32,
+              "sorted_segment_sum": (F32_FLOPS, "f32 CUDA cores")}
 
 
 def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
@@ -707,12 +832,12 @@ def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
          lambda: torch.zeros(N, D, device=dev).index_add_(0, dst64, msg),
          E * D * 4 + E * 4 + N * D * 4, E * D),
         ("fused_message_aggregate", "ionic_mpnn_torch/csrc/fused_message.cu",
-         "ionic_mpnn_tpu/ops/pallas/fused_message.py:290", "fused_message_kernel",
+         "ionic_mpnn_tpu/ops/pallas/fused_message.py:290", "fused_message_tc_kernel",
          lambda: fused_message.fused_message_aggregate(h, K, *args, rowptr=rowptr),
          lambda: fused_message.fused_message_aggregate_plain(h, K, *args),
          None, N * D * 4 + K.numel() * 4 + edge_bytes + N * D * 4, 2 * E_real * D * D),
         ("fused_mp_step", "ionic_mpnn_torch/csrc/fused_message.cu",
-         "ionic_mpnn_tpu/ops/pallas/fused_step.py:268", "fused_message_kernel",
+         "ionic_mpnn_tpu/ops/pallas/fused_step.py:268", "fused_message_tc_kernel",
          lambda: fused_step.fused_mp_step(h, m_table, gru, *args, rowptr=rowptr),
          lambda: fused_step.fused_mp_step_plain(h, m_table, gru, *args),
          None, N * D * 4 + K.numel() * 4 + 4 * (6 * D * D + 5 * D) + edge_bytes + N * D * 4,
@@ -720,7 +845,7 @@ def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
         # the backward's dh: the fused-message kernel on (g, Kᵀ); the call
         # includes the transpose of the table
         ("fused_message_aggregate_dh", "ionic_mpnn_torch/csrc/fused_message.cu",
-         "ionic_mpnn_tpu/ops/pallas/fused_message.py:324", "fused_message_kernel",
+         "ionic_mpnn_tpu/ops/pallas/fused_message.py:324", "fused_message_tc_kernel",
          lambda: fused_message.message_backward(cot, h, K, *args, rowptr, need_dK=False),
          lambda: fused_message.fused_message_aggregate_plain(cot, Kt, *args),
          None, N * D * 4 + K.numel() * 4 + edge_bytes + N * D * 4, 2 * E_real * D * D),
@@ -761,7 +886,9 @@ def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
              for name, step in train_steps.items()}
     rows = []
     for name, source, replaces, symbol, kernel, plain, library, nbytes, flops in specs:
-        b_ms, b_by = bound_ms(nbytes, flops)
+        peak, peak_name = FLOP_PEAKS[name]
+        b_ms, b_by = bound_ms(nbytes, flops, peak)
+        cores_ms = bound_ms(nbytes, flops)[0]  # for the log: the flops over the f32 CUDA cores
         ours = {k: v for k, v in device_profile(kernel)["by_kernel"].items() if symbol in k}
         if len(ours) != 1:
             raise AssertionError(f"{name}: expected one {symbol} kernel, got {ours}")
@@ -774,14 +901,15 @@ def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
             # work; the plain version's and the library call's device time
             "ms": next(iter(ours.values())), "call_ms": call_ms[name],
             "plain_ms": device_profile(plain)["device_ms"],
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "flop_peak": peak_name,
             "library_ms": device_profile(library)["device_ms"] if library else None,
             "shape": {"N": N, "E": E, "E_real": E_real, "D": D, "V": V},
         })
         r = rows[-1]
         log(f"[times] {name} N={N} E={E}: kernel {r['ms']:.5f} ms on the card "
             f"(wrapper call {r['call_ms']:.5f} ms), plain {r['plain_ms']:.5f} ms, "
-            f"library {r['library_ms']}, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+            f"library {r['library_ms']}, bound {r['bound_ms']:.5f} ms ({r['bound_by']}; "
+            f"flops over {peak_name}; {cores_ms:.5f} ms with the flops over f32 CUDA cores)")
 
     b_ms, b_by = bound_ms(dK_bytes, 2 * E_real * D * D)
     prof = device_profile(dK_call)

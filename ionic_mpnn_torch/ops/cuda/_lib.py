@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 
 __all__ = ["library", "build", "check", "require_cuda", "needs_grad", "stream_ptr",
-           "BUILD_LOG"]
+           "aligned16", "BUILD_LOG"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
@@ -41,6 +41,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ionic_error_string": ([_I], ctypes.c_char_p),
     "ionic_max_dynamic_smem": ([], _I),
+    # dim -> the most bond types the fused kernels take at that width
+    "ionic_fused_max_types": ([_I], _I),
+    # dim, n_types, gru -> the least dynamic shared memory a fused launch
+    # needs, or -1 for a shape the kernels do not take
+    "ionic_fused_smem_bytes": ([_I, _I, _I], _I),
     # msg, msg_dtype, rowptr, out, n_nodes, dim, stream
     "ionic_segment_sum": ([_P, _I, _P, _P, _I, _I, _P], _I),
     # h, h_dtype, table, bond, src, mask, rowptr, out, n_nodes, dim, n_types, stream
@@ -147,6 +152,12 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
     a wrapper launches its kernel without its autograd Function, whose
     ``apply`` costs host time on every call."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh copy when its data does not start on a 16-byte
+    boundary (the fused kernels copy 16-byte pieces and whole rows)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -8,11 +8,19 @@ Replaces the JAX package's Pallas kernel ``ops/pallas/fused_message.py``
 (E, D) messages never written to memory. The TPU kernel gathers h[src]
 and scatters into dst as one-hot MXU matmuls over 128-node windows with a
 3-window src halo and a static tile budget, and rejects inputs outside
-them. The Hopper kernel reads the sorted dst as CSR rows: one warp per
-destination node, lane i owning feature i, the lane-stacked table
-``K (D, V·D)`` in shared memory, ``h[src]`` loaded as one row per edge and
-broadcast with warp shuffles, f32 accumulation in registers. Any degree
-and any |src − dst| are accepted; no edge is dropped.
+them. The Hopper kernel reads the sorted dst as CSR rows and, at the
+model's width D = 32, runs on the tensor cores: one warp per tile of 16
+destination nodes sums each real edge's ``h[src]`` row into a
+(node, bond type) bucket in shared memory, in CSR order and without
+atomics, then multiplies the buckets of the types the tile holds by the
+lane-stacked table ``K (D, V·D)`` on the bf16 tensor cores, each operand
+split exactly into three bf16 parts (f32-accurate, so the backward's sums
+over every node read an aggregate as exact as the plain version's). D = 64
+keeps the first design, one warp per node with
+the per-edge matvec on the CUDA cores. Any degree and any |src − dst| are
+accepted; no edge is dropped; two launches on the same input give the
+same bits. Limits, checked before a launch: at most 32 bond types at
+D = 32 and 8 at D = 64.
 
 Backward (:class:`FusedMessageAggregate`), as the JAX ``_vjp_bwd``:
 
@@ -34,8 +42,9 @@ Numerics for a bf16 ``h``: the forward reads it exactly into f32 sums; the
 backward takes ``dh`` in f32 and rounds it to bf16 once, and ``dK`` uses
 ``h`` upcast exactly, as JAX's type promotion does.
 
-Bound on the H100: memory bytes (gathered h rows, the edge arrays and the
-output) against 2·E·D² CUDA-core flops; see ``csrc/fused_message.cu``.
+Bound on the H100: memory bytes (h, the edge arrays, the table, the
+output) against 2·E_real·D² flops on the tensor cores at the f32-accurate
+rate (six bf16 products, 989 TFLOP/s / 6); see ``csrc/fused_message.cu``.
 
 Dispatch: a CPU tensor takes :func:`fused_message_aggregate_plain` (in
 both directions, through the same Function); a CUDA tensor launches the
@@ -135,8 +144,11 @@ def check_fused_inputs(name: str, h, K, bond_ids, src, dst, edge_mask,
     require(rowptr.dtype == torch.int32 and rowptr.shape == (N + 1,),
             "rowptr must be (N+1,) int32")
     V = K.shape[1] // D
-    smem = 4 * (D * V * D + (6 * D * D + 5 * D if gru else 0))
-    limit = _lib.library().ionic_max_dynamic_smem()
+    lib = _lib.library()
+    smem = lib.ionic_fused_smem_bytes(D, V, int(gru))
+    require(smem >= 0, f"{V} bond types at D={D}: the kernels take at most "
+                       f"{lib.ionic_fused_max_types(D)}")
+    limit = lib.ionic_max_dynamic_smem()
     require(smem <= limit,
             f"table of {V} types at D={D} needs {smem} B of shared memory, "
             f"the card allows {limit} B")
@@ -163,6 +175,7 @@ def _aggregate(h, K, bond_ids, src, dst, edge_mask, num_nodes: int, rowptr,
                        edge_mask, num_nodes, rowptr)
 
     global launches, dh_launches
+    h, K = _lib.aligned16(h), _lib.aligned16(K)
     out = torch.empty(num_nodes, h.shape[1], dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
         code = _lib.library().ionic_fused_message(

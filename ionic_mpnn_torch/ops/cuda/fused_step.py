@@ -7,20 +7,26 @@ the fused-message kernel twice.
 Replaces the JAX package's Pallas kernel ``ops/pallas/fused_step.py``
 (``fused_mp_step`` and its custom VJP): ``h' = GatedUpdate(h, Σ_{e→n} mask_e ·
 M[bond_e] @ h[src_e])`` where the aggregate never reaches memory. On the
-TPU the epilogue runs on a finished 128-node output window; here each
-destination node's warp holds both ``h`` and ``agg`` when its edge loop
-ends, runs the three gate matvecs against ``[Wz | Wr | Wh]`` staged in
-shared memory, and takes the LayerNorm with two warp-shuffle reductions
-(the mean, then ``mean((x − μ)²)``).
+TPU the epilogue runs on a finished 128-node output window. Here, at
+D = 32, a warp finishes a tile of 16 nodes with their aggregate in
+registers and runs the gates on the tensor cores in three TF32 passes
+(f32-accurate, as its aggregate): ``[h | agg] @ [Wz | Wr]`` for z and r,
+``[r·h | agg] @ Wh`` for the candidate, with ``[Wz | Wr | Wh]`` split into
+TF32 (hi, lo) pairs once per block in shared memory; sigmoid through
+``__expf``/``__fdividef``, tanh stays ``tanhf``; the LayerNorm (the mean,
+then ``mean((x − μ)²)``) sums each row over the four lanes that hold it.
+D = 64 keeps the first design: one warp per node, the gate matvecs on the
+CUDA cores.
 
 Numerics follow the JAX kernel: the result is f32 whatever the dtype of
 ``h`` (a bf16 ``h`` is read exactly and upcast), and the whole epilogue
-is f32 with eps 1e-3. That is not the composed bf16 GatedUpdate, whose
-gate matmuls round to bf16.
+is f32-accurate with eps 1e-3 (sigmoid and tanh to a few ulp). That is
+not the composed bf16 GatedUpdate, whose gate matmuls round to bf16.
 
-Bound on the H100: close to the f32 CUDA-core / memory balance point at
-D = 32 (2·E·D² + 12·N·D² flops against the gathered h rows and edge
-arrays); see ``csrc/fused_message.cu``.
+Bound on the H100: operations at D = 32 (2·E_real·D² + 12·N·D² flops on
+the tensor cores at the f32-accurate rate, 495 TFLOP/s / 3, against the
+gathered h rows, the edge arrays and the weights); see
+``csrc/fused_message.cu``.
 
 Dispatch: a CPU tensor takes :func:`fused_mp_step_plain` (and the plain
 versions in the backward, through the same Function); a CUDA tensor
@@ -99,6 +105,7 @@ def _step(h, m_table, gru, bond_ids, src, dst, edge_mask, num_nodes: int,
                        extra=(("gru_w", w), ("gru_b", b), ("ln", ln)), gru=True)
 
     global launches
+    h = _lib.aligned16(h)
     out = torch.empty(num_nodes, D, dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
         code = _lib.library().ionic_fused_step(
