@@ -51,7 +51,35 @@ Phases, in order (any failure raises and the script exits non-zero):
    8 ``fused_mp_step`` + 16 ``fused_message_aggregate`` (8 remat, 8 dh) for
    ``pallas_step``, 16 ``fused_message_aggregate`` (8 forward, 8 dh) for
    ``pallas_fused``, 8 ``sorted_segment_sum`` for the pallas scatter.
-7. Times. Wall times first (CUDA events, before torch.profiler attaches):
+7. fit(): the viscosity model at full width, batch 32, on 3,200 bench
+   records whose targets are a seed-1 teacher's predictions on the card,
+   split 2560 / 320 / 320 by ``random_split``, from the same weights. Under
+   deterministic algorithms: plain ``gather`` f32 (2 epochs), the same
+   from weights one f32 rounding up (2), ``pallas_step`` f32 (4, a
+   checkpoint every epoch), and the same stopped at epoch 2 and resumed to
+   4 from its checkpoints: the resumed run equals the uninterrupted one bit
+   for bit (history and best weights); the trajectories' gaps to plain are
+   printed (the one-rounding run shows how far rounding alone moves them).
+   Then 2 epochs of ``pallas_step`` f32 in lockstep with plain ``gather``
+   on the same parameters: every forward's predictions at rtol/atol 1e-4
+   and every train step's gradients at 1e-3 of |want| + max|want| (phase
+   6's bound), before the update. Then, as
+   users run it, the default-resolved configuration (``pallas_step`` bf16,
+   4 epochs: the last epoch's loss below half the first's;
+   ``evaluate_splits`` finite and equal to the metrics of ``predict``) and
+   ``gather`` with the pallas scatter (1). Over each whole ``fit()`` the
+   launch counts are exact: train steps × the per-step counts of phase 6
+   plus dev batches × epochs × 8 for the forward's kernel. Per epoch it
+   prints the seconds of ``dispatch``, ``fetch+eval(sync)`` and
+   ``host_reduce``; per run the median epoch time and train steps/s.
+8. Melting-point model at full width (bond_dim 1024): ``predict`` over the
+   3 bench batches in ``pallas_step`` f32 against plain ``gather`` f32 at
+   rtol/atol 1e-4 with 8 launches per forward, then 2 epochs of
+   ``fit(normalize_y=True)`` on a teacher's targets, its normalizer fitted
+   on the train split only.
+9. Bench: ``python -m ionic_mpnn_torch.bench --repeats 1`` in a process of
+   its own exits 0 and prints the training metric, finite and positive.
+10. Times. Wall times first (CUDA events, before torch.profiler attaches):
    each wrapper call at the cation shape (median of 60), each forward per
    batch (median of 50), the host time each kernel's autograd Function would
    add to a launch in inference mode (the wrapper's direct launch and the
@@ -64,6 +92,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    top kernels. Bounds are the least time the card could take (published
    H100 SXM peaks: 3.35 TB/s; the fused kernels' f32-accurate products over
    the TF32 tensor-core rate / 3, the rest over the f32 CUDA-core rate).
+   Last, one epoch of the default configuration's ``fit()`` under the
+   profiler: the card's busy time and its share of the epoch.
 
 Output: one ``{"kernels": [...]}`` JSON line, then the last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
@@ -72,6 +102,7 @@ repository, it exits non-zero before printing either.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -171,14 +202,14 @@ def function_overhead(direct, wrapped, n=TIMED_LAUNCHES):
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def device_profile(fn, n=TIMED_LAUNCHES):
+def device_profile(fn, n=TIMED_LAUNCHES, warmup=5):
     """Device time of ``fn`` per call, from the card's own kernel records
     (torch.profiler / CUPTI): ``{"device_ms", "busy_ms", "by_kernel"}``.
     ``device_ms`` sums every kernel and copy the call runs; ``busy_ms`` is
     the union of their spans."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -687,23 +718,36 @@ def param_name(name):
 
 # ---------------------------------------------------------------- phase 6
 
+def kernel_launches(impl, scatter):
+    """Kernel launches of the 4-step model per train step and per forward:
+    per train step 8 fused_mp_step + 16 fused_message_aggregate (8 remat,
+    8 dh) for pallas_step, 16 fused_message_aggregate (8 forward, 8 dh)
+    for pallas_fused, 8 sorted_segment_sum for the pallas scatter; per
+    forward 8 of the configuration's kernel."""
+    if impl == "pallas_step":
+        return ({"fused_mp_step": 8, "fused_message_aggregate": 16,
+                 "fused_message_aggregate_dh": 8}, {"fused_mp_step": 8})
+    if impl == "pallas_fused":
+        return ({"fused_message_aggregate": 16, "fused_message_aggregate_dh": 8},
+                {"fused_message_aggregate": 8})
+    if scatter == "pallas":
+        return {"sorted_segment_sum": 8}, {"sorted_segment_sum": 8}
+    return {}, {}
+
+
 TRAIN_ARMS = [  # (name, message_impl, scatter_impl, compute_dtype, weights,
-    #              plain reference arm, kernel launches per train step)
-    ("gather f32 (plain)", "gather", "xla", "float32", "as is", None, {}),
+    #              plain reference arm)
+    ("gather f32 (plain)", "gather", "xla", "float32", "as is", None),
     ("gather f32, bf16-rounded (plain)", "gather", "xla", "float32", "rounded in forward",
-     None, {}),
-    ("gather bf16 (plain)", "gather", "xla", "bfloat16", "as is", None, {}),
-    ("pallas_step f32", "pallas_step", "xla", "float32", "as is", "gather f32 (plain)",
-     {"fused_mp_step": 8, "fused_message_aggregate": 16, "fused_message_aggregate_dh": 8}),
+     None),
+    ("gather bf16 (plain)", "gather", "xla", "bfloat16", "as is", None),
+    ("pallas_step f32", "pallas_step", "xla", "float32", "as is", "gather f32 (plain)"),
     ("pallas_step bf16", "pallas_step", "xla", "bfloat16", "as is",
-     "gather f32, bf16-rounded (plain)",
-     {"fused_mp_step": 8, "fused_message_aggregate": 16, "fused_message_aggregate_dh": 8}),
-    ("pallas_fused f32", "pallas_fused", "xla", "float32", "as is", "gather f32 (plain)",
-     {"fused_message_aggregate": 16, "fused_message_aggregate_dh": 8}),
-    ("pallas_fused bf16", "pallas_fused", "xla", "bfloat16", "as is",
-     "gather bf16 (plain)", {"fused_message_aggregate": 16, "fused_message_aggregate_dh": 8}),
+     "gather f32, bf16-rounded (plain)"),
+    ("pallas_fused f32", "pallas_fused", "xla", "float32", "as is", "gather f32 (plain)"),
+    ("pallas_fused bf16", "pallas_fused", "xla", "bfloat16", "as is", "gather bf16 (plain)"),
     ("gather+pallas scatter f32", "gather", "pallas", "float32", "as is",
-     "gather f32 (plain)", {"sorted_segment_sum": 8}),
+     "gather f32 (plain)"),
 ]
 TIMED_ARMS = ("gather f32 (plain)", "pallas_step f32", "pallas_step bf16",
               "pallas_fused f32", "pallas_fused bf16", "gather+pallas scatter f32")
@@ -737,7 +781,8 @@ def phase_train(records, plan, vocab, dev, state):
     host_batches = list(iter_batches(records, plan))
     batches = [b.to(dev) for b in host_batches]
     arms, train_launches = {}, {}
-    for name, impl, scatter, dtype, weights, ref, per_step in TRAIN_ARMS:
+    for name, impl, scatter, dtype, weights, ref in TRAIN_ARMS:
+        per_step = kernel_launches(impl, scatter)[0]
         cfg = base.replace(message_impl=impl, scatter_impl=scatter, compute_dtype=dtype)
         model = ViscosityModel(cfg, seed=0)
         model.load_state_dict(state)
@@ -786,6 +831,384 @@ def phase_train(records, plan, vocab, dev, state):
 
 # ---------------------------------------------------------------- phase 7
 
+FIT_RECORDS = 3200  # 2560 train, 320 dev, 320 test (random_split, seed 42)
+FIT_BATCH = 32  # the reference recipe's batch size
+# Two fit() trajectories cannot be held to each other: the kernels round
+# differently from the plain ops (phase 6: 1e-7 to 1e-6 of a step's loss) and
+# 80 Adam steps per epoch on these targets amplify any such difference, as
+# the plain arm started from weights one f32 rounding up shows against
+# itself. So the kernels are held to plain in lockstep instead: along the
+# pallas_step f32 fit's own trajectory, a plain model on the SAME parameters
+# recomputes every forward (predictions at MODEL_TOL) and every train step's
+# gradients (TRAIN_TOL's f32 gradient bound) before the update.
+EVAL_TOL = 1e-5  # evaluate_splits against metrics of a second predict (atomics in the readout)
+LOCKSTEP_EPOCHS = 2
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic PyTorch algorithms (the readout's and the embedding
+    backward's index_add_ without atomics); the CUDA kernels are so anyway."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def teacher_records(records, plan, teacher, key):
+    """``records`` with ``key`` replaced by the teacher's predictions on the
+    card, so a model of the same family can learn the targets."""
+    from ionic_mpnn_torch.training import predict
+
+    y = predict(teacher, records, plan)
+    if not np.isfinite(y).all():
+        raise AssertionError("teacher predictions are not finite")
+    return [dict(r, **{key: float(v)}) for r, v in zip(records, y)]
+
+
+def counted_fit(tag, model, cfg, tcfg, train, dev, plan, n_dev_batches, steps_before=0,
+                optimizer=None):
+    """``fit`` with the launch counters zeroed just before it and read just
+    after: they must equal its train steps × the per-step launches plus its
+    dev batches × epochs × the per-forward launches."""
+    from ionic_mpnn_torch.ops import cuda as kernels
+    from ionic_mpnn_torch.training import fit
+
+    per_step, per_fwd = kernel_launches(cfg.message_impl, cfg.scatter_impl)
+    kernels.reset_launch_counts()
+    res = fit(model, cfg, tcfg, train, dev, plan, optimizer=optimizer, verbose=False)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    epochs, steps = len(res.segments), res.steps - steps_before
+    if steps < epochs * -(-len(train) // plan.batch_size):
+        raise AssertionError(f"fit {tag}: {steps} train steps in {epochs} epochs")
+    want = {k: steps * per_step.get(k, 0) + n_dev_batches * epochs * per_fwd.get(k, 0)
+            for k in counts}
+    if counts != want:
+        raise AssertionError(f"fit {tag}: launch counts {counts}, expected {want}")
+    for key in ("loss", "val_loss"):
+        if not np.isfinite(res.history[key]).all():
+            raise AssertionError(f"fit {tag}: {key} {res.history[key]}")
+    for i, seg in enumerate(res.segments):
+        epoch = res.epochs_run - epochs + i + 1
+        log(f"[fit] {tag} epoch {epoch}: loss {res.history['loss'][epoch - 1]!r} val_loss "
+            f"{res.history['val_loss'][epoch - 1]!r}, "
+            + ", ".join(f"{k} {v:.4f} s" for k, v in seg.items())
+            + f", epoch {res.history['epoch_seconds'][epoch - 1]:.4f} s")
+    seconds = res.history["epoch_seconds"][-epochs:]
+    summary = {"epochs": epochs, "train_steps": steps,
+               "median_epoch_s": statistics.median(seconds),
+               "train_steps_per_s": steps / sum(seconds),
+               "segments_s": {k: sum(seg[k] for seg in res.segments) for k in res.segments[0]},
+               "launches": counts, "history": res.history}
+    log(f"[fit] {tag}: {steps} train steps, median epoch {summary['median_epoch_s']:.4f} s, "
+        f"{summary['train_steps_per_s']:.3f} train steps/s inside fit(), launches {counts}")
+    return res, summary
+
+
+class Lockstep(torch.nn.Module):
+    """A kernel model and a plain model sharing one set of parameters. Each
+    forward returns the kernel model's output and measures the plain one's
+    on the same weights and batch: the predictions' excess over MODEL_TOL
+    (at most 1 passes) and, in training, plain's gradient of the train
+    step's loss, which :class:`LockstepOptimizer` compares before the update."""
+
+    def __init__(self, kernel, plain, fp_l2):
+        super().__init__()
+        self.kernel, self.plain, self.fp_l2 = kernel, plain, fp_l2
+        for name, p in kernel.named_parameters():
+            path, _, leaf = name.rpartition(".")
+            setattr(plain.get_submodule(path), leaf, p)
+        self.params = list(kernel.parameters())
+        self.plain_grads = None
+        self.worst = {"pred": 0.0, "grad": 0.0}
+        self.forwards = {"train": 0, "eval": 0}
+
+    def forward(self, batch):
+        from ionic_mpnn_torch.training import data_loss, l2_penalty
+
+        out = self.kernel(batch)
+        if self.training:
+            ref = self.plain(batch)
+            loss = (data_loss(ref["pred"], batch.y, batch.sample_mask, "mse", 1.0)
+                    + l2_penalty(self.plain, self.fp_l2))
+            self.plain_grads = torch.autograd.grad(loss, self.params)
+        else:
+            ref = self.plain(batch)
+        got, want = out["pred"].detach().float(), ref["pred"].detach().float()
+        rtol, atol = MODEL_TOL
+        excess = ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+        self.worst["pred"] = max(self.worst["pred"], excess)
+        self.forwards["train" if self.training else "eval"] += 1
+        return out
+
+
+def lockstep_optimizer(shadow, **kw):
+    """The train step's optimizer, holding each gradient to the plain one of
+    ``shadow`` (a :class:`Lockstep`) before it clips and updates."""
+    from ionic_mpnn_torch.training import Optimizer
+
+    class LockstepOptimizer(Optimizer):
+        def step(self):
+            tol = TRAIN_TOL["float32"][0]
+            for p, want in zip(shadow.params, shadow.plain_grads):
+                got = torch.zeros_like(p) if p.grad is None else p.grad
+                bound = tol * (want.abs() + want.abs().max())
+                excess = ((got - want).abs() / bound.clamp(min=1e-30)).max().item()
+                shadow.worst["grad"] = max(shadow.worst["grad"], excess)
+            super().step()
+
+    return LockstepOptimizer(shadow.parameters(), **kw)
+
+
+def phase_fit():
+    """fit() at full width on teacher targets, from the same weights: under
+    deterministic algorithms plain gather f32, the same from weights one
+    rounding up, pallas_step f32 (uninterrupted, a checkpoint every epoch)
+    and the same stopped at epoch 2 and resumed to 4; pallas_step f32 in
+    lockstep with plain; then, as users run it, the default-resolved
+    configuration and gather with the pallas scatter."""
+    import tempfile
+
+    from ionic_mpnn_torch.benchmarks import make_bench_dataset
+    from ionic_mpnn_torch.config import (TrainConfig, resolve_compute_dtype,
+                                         resolve_message_impl, viscosity_config)
+    from ionic_mpnn_torch.data import iter_batches, plan_capacities
+    from ionic_mpnn_torch.models import ViscosityModel
+    from ionic_mpnn_torch.training import (evaluate_splits, mae, predict, r2_score,
+                                           random_split)
+
+    records, vocab = make_bench_dataset(FIT_RECORDS, seed=0)
+    plan = plan_capacities(records, FIT_BATCH)  # on all records, as the CLI plans
+    base = viscosity_config(vocab.atom_vocab_size, vocab.bond_vocab_size)
+    with deterministic():  # the same targets in every run
+        records = teacher_records(records, plan, ViscosityModel(base, seed=1), "log_eta")
+    idx = random_split(len(records))
+    train, dev_split, test = ([records[i] for i in part] for part in idx)
+    n_dev = sum(1 for _ in iter_batches(dev_split, plan))
+    log(f"[fit] {len(records)} records (teacher targets), train {len(train)}, dev "
+        f"{len(dev_split)} ({n_dev} batches), test {len(test)}; batch {FIT_BATCH}, "
+        f"cation N={plan.node_cap} E={plan.edge_cap}")
+    state = ViscosityModel(base, seed=0).state_dict()
+
+    def model_for(impl, scatter="xla", dtype="float32", rounding_up=False):
+        cfg = base.replace(message_impl=impl, scatter_impl=scatter, compute_dtype=dtype)
+        model = ViscosityModel(cfg, seed=0)
+        model.load_state_dict({k: v * (1 + 2 ** -23) if rounding_up else v
+                               for k, v in state.items()})
+        return model, cfg
+
+    def tcfg(epochs, **kw):
+        return TrainConfig(epochs=epochs, batch_size=FIT_BATCH, seed=0, **kw)
+
+    runs, launches = {}, {}
+
+    def run(tag, model_cfg, train_cfg, steps_before=0, optimizer=None):
+        res, summary = counted_fit(tag, *model_cfg, train_cfg, train, dev_split, plan, n_dev,
+                                   steps_before, optimizer)
+        runs[tag] = summary
+        for k, v in summary["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        return res
+
+    def gap(a, b, key, epoch):
+        return abs(a.history[key][epoch] / b.history[key][epoch] - 1)
+
+    with deterministic(), tempfile.TemporaryDirectory() as tmp:
+        plain = run("gather f32 (plain, deterministic)", model_for("gather"), tcfg(2))
+        control = run("gather f32, weights one rounding up (plain, deterministic)",
+                      model_for("gather", rounding_up=True), tcfg(2))
+        whole = run("pallas_step f32 (deterministic)", model_for("pallas_step"),
+                    tcfg(4, checkpoint_dir=f"{tmp}/whole", checkpoint_every=1))
+        first = run("pallas_step f32 (deterministic) resume, first 2",
+                    model_for("pallas_step"),
+                    tcfg(2, checkpoint_dir=f"{tmp}/resume", checkpoint_every=1))
+        resumed = run("pallas_step f32 (deterministic) resume, epochs 3-4",
+                      model_for("pallas_step"), tcfg(4, checkpoint_dir=f"{tmp}/resume"),
+                      steps_before=first.steps)
+    gaps = {f"{key} epoch {e + 1}": {"kernel": gap(whole, plain, key, e),
+                                     "one_rounding": gap(control, plain, key, e)}
+            for key in ("loss", "val_loss") for e in range(2)}
+    log("[fit] trajectories, relative gap to plain gather f32 of pallas_step f32 (and of "
+        "plain from weights one rounding up): "
+        + ", ".join(f"{k} {v['kernel']:.3e} ({v['one_rounding']:.3e})"
+                    for k, v in gaps.items()))
+    runs["pallas_step f32 (deterministic)"]["gap_vs_plain"] = gaps
+
+    kernel, cfg = model_for("pallas_step")
+    shadow = Lockstep(kernel, model_for("gather")[0], cfg.fp_l2)
+    t = tcfg(LOCKSTEP_EPOCHS)
+    res = run("pallas_step f32 in lockstep with plain", (shadow, cfg), t,
+              optimizer=lockstep_optimizer(shadow, learning_rate=t.learning_rate,
+                                           clipnorm=t.clipnorm))
+    want = {"train": res.steps, "eval": n_dev * LOCKSTEP_EPOCHS}
+    if shadow.forwards != want:
+        raise AssertionError(f"lockstep: {shadow.forwards} forwards, expected {want}")
+    if max(shadow.worst.values()) > 1.0:
+        raise AssertionError(f"lockstep: kernel against plain on the same weights beyond "
+                             f"tolerance (excess/bound): {shadow.worst}")
+    log(f"[fit] lockstep, {LOCKSTEP_EPOCHS} epochs: {res.steps} train steps and "
+        f"{want['eval']} dev forwards of pallas_step f32 against plain gather f32 on the "
+        f"same weights; worst predictions {shadow.worst['pred']:.3e} of rtol/atol "
+        f"{MODEL_TOL[0]}, worst gradient {shadow.worst['grad']:.3e} of "
+        f"{TRAIN_TOL['float32'][0]}·(|want| + max|want|)")
+    runs["pallas_step f32 in lockstep with plain"]["lockstep_worst"] = dict(shadow.worst)
+
+    if (resumed.history["loss"][:2] != first.history["loss"][:2]
+            or resumed.history["val_loss"][:2] != first.history["val_loss"][:2]):
+        raise AssertionError("the resumed history does not start with the saved epochs")
+    for key in ("loss", "val_loss", "dead_fp_cat_frac"):
+        if resumed.history[key] != whole.history[key]:
+            raise AssertionError(f"resumed {key} {resumed.history[key]} is not the "
+                                 f"uninterrupted run's {whole.history[key]}")
+    for k, v in whole.params.items():
+        if not torch.equal(v, resumed.params[k]):
+            raise AssertionError(f"resumed best weights differ from the uninterrupted "
+                                 f"run's in {k}")
+    log("[fit] resumed at epoch 2 against uninterrupted: loss, val_loss, "
+        "dead_fp_cat_frac and the best weights equal, bit for bit")
+
+    impl, dtype = resolve_message_impl("auto"), resolve_compute_dtype("auto")
+    if (impl, dtype) != ("pallas_step", "bfloat16"):
+        raise AssertionError(f"auto resolves to {impl} {dtype} on the card")
+    model, _ = model_for(impl, dtype=dtype)
+    default = run(f"default ({impl} {dtype})", (model, model.cfg), tcfg(4))
+    losses = default.history["loss"]
+    if not losses[-1] < 0.5 * losses[0]:
+        raise AssertionError(f"fit default: the last epoch's loss {losses[-1]!r} is not "
+                             f"below half the first's {losses[0]!r}")
+    splits = {"train": train, "dev": dev_split, "test": test}
+    metrics = evaluate_splits(model, splits, plan, default.normalizer)
+    for name, part in splits.items():
+        y = np.asarray([r["log_eta"] for r in part], np.float32)
+        pred = default.normalizer.inverse(predict(model, part, plan))
+        want = {"r2": r2_score(y, pred), "mae": mae(y, pred)}
+        for k, v in want.items():
+            got = metrics[name][k]
+            if not (np.isfinite(got) and abs(got - v) <= EVAL_TOL * (1 + abs(v))):
+                raise AssertionError(f"evaluate_splits {name} {k} {got!r} vs {v!r}")
+    log("[fit] default evaluate_splits: " + json.dumps(metrics))
+    runs[f"default ({impl} {dtype})"]["evaluate_splits"] = metrics
+    run("gather+pallas scatter f32", model_for("gather", "pallas"), tcfg(1))
+
+    def one_epoch_fit():
+        """A one-epoch fit() of the default configuration, its model built
+        now, so the call holds nothing but fit()."""
+        from ionic_mpnn_torch.training import fit
+
+        model, cfg = model_for(impl, dtype=dtype)
+        return lambda: fit(model, cfg, tcfg(1), train, dev_split, plan, verbose=False)
+
+    return runs, launches, one_epoch_fit
+
+
+def fit_busy_share(one_epoch_fit):
+    """A one-epoch fit() of the default configuration under the profiler
+    (after every timed run: the profiler slows later host work): the card's
+    busy time and its share of the same span's wall time, the whole fit()
+    call up to the card's last kernel (the dev upload, the epoch, the dev
+    eval, the best-weight clones and their restore)."""
+    call, box = one_epoch_fit(), {}
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box["res"] = call()
+        torch.cuda.synchronize()
+        box["wall_ms"] = 1e3 * (time.perf_counter() - t0)
+
+    prof = device_profile(timed, n=1, warmup=0)
+    res, wall_ms = box["res"], box["wall_ms"]
+    out = {"wall_ms": wall_ms, "epoch_ms": 1e3 * res.history["epoch_seconds"][0],
+           "busy_ms": prof["busy_ms"], "train_steps": res.steps,
+           "busy_share": prof["busy_ms"] / wall_ms,
+           "top": {k[:60]: v for k, v in list(prof["by_kernel"].items())[:6]}}
+    log(f"[fit] default configuration, one-epoch fit() call under the profiler: wall "
+        f"{wall_ms:.2f} ms (its epoch {out['epoch_ms']:.2f} ms), device "
+        f"busy {out['busy_ms']:.2f} ms (busy share {out['busy_share']:.4f}, "
+        f"{out['busy_ms'] / res.steps:.4f} ms per train step); top kernels ms: "
+        + json.dumps({k: round(v, 3) for k, v in out["top"].items()}))
+    return out
+
+
+# ---------------------------------------------------------------- phase 8
+
+def phase_mp(records, plan, vocab):
+    """The melting-point model at full width (bond_dim 1024): predict over
+    the three bench batches in pallas_step f32 against plain gather f32,
+    then 2 epochs of fit(normalize_y=True) on teacher targets."""
+    from ionic_mpnn_torch.config import TrainConfig, melting_point_config
+    from ionic_mpnn_torch.data import iter_batches, plan_capacities
+    from ionic_mpnn_torch.models import MeltingPointModel
+    from ionic_mpnn_torch.ops import cuda as kernels
+    from ionic_mpnn_torch.training import Normalizer, predict, random_split
+
+    base = melting_point_config(vocab.atom_vocab_size, vocab.bond_vocab_size)
+    plain = MeltingPointModel(base, seed=0)
+    kernel = MeltingPointModel(base.replace(message_impl="pallas_step"), seed=0)
+    kernel.load_state_dict(plain.state_dict())
+    want = predict(plain, records, plan)
+    kernels.reset_launch_counts()
+    got = predict(kernel, records, plan)
+    counts = kernels.launch_counts()
+    per_fwd = kernel_launches("pallas_step", "xla")[1]
+    expect = {k: N_BATCHES * per_fwd.get(k, 0) for k in counts}
+    if counts != expect:
+        raise AssertionError(f"mp predict: launch counts {counts}, expected {expect}")
+    err = close("mp predict pallas_step f32", torch.from_numpy(got), torch.from_numpy(want),
+                *MODEL_TOL)
+    log(f"[mp] bond_dim {base.bond_dim}: predict over {len(records)} records in "
+        f"{N_BATCHES} batches, fused_mp_step launched {counts['fused_mp_step']} times, "
+        f"pred max|err| {err:.3e} vs plain gather f32 (rtol/atol {MODEL_TOL[0]})")
+    launches = dict(counts)
+
+    # the bench records carry no melting point: a placeholder until the teacher's
+    fit_records = [dict(r, mp=0.0) for r in records[:FIT_RECORDS]]
+    mp_plan = plan_capacities(fit_records, FIT_BATCH, with_temperature=False, target_key="mp")
+    fit_records = teacher_records(fit_records, mp_plan, MeltingPointModel(base, seed=1), "mp")
+    idx = random_split(len(fit_records))
+    train, dev_split = ([fit_records[i] for i in part] for part in idx[:2])
+    n_dev = sum(1 for _ in iter_batches(dev_split, mp_plan))
+    cfg = base.replace(message_impl="pallas_step")
+    model = MeltingPointModel(cfg, seed=0)
+    model.load_state_dict(plain.state_dict())
+    res, summary = counted_fit("mp pallas_step f32, normalize_y", model, cfg,
+                               TrainConfig(epochs=2, batch_size=FIT_BATCH, seed=0,
+                                           normalize_y=True),
+                               train, dev_split, mp_plan, n_dev)
+    want_norm = Normalizer.fit(np.asarray([r["mp"] for r in train], np.float32))
+    if res.normalizer != want_norm:
+        raise AssertionError(f"mp normalizer {res.normalizer} is not the train split's "
+                             f"{want_norm}")
+    log(f"[mp] normalizer {res.normalizer} (fitted on the {len(train)} train records)")
+    for k, v in summary["launches"].items():
+        launches[k] += v
+    return {"predict_max_abs_err": err, "fit": summary}, launches
+
+
+# ---------------------------------------------------------------- phase 9
+
+def phase_bench():
+    """``python -m ionic_mpnn_torch.bench --repeats 1`` with its defaults,
+    in a process of its own."""
+    cmd = [sys.executable, "-m", "ionic_mpnn_torch.bench", "--repeats", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    out = json.loads(line)
+    value = out.get("value")
+    if (out.get("metric") != "message_edges_per_s_fwd_bwd"
+            or not (isinstance(value, (int, float)) and np.isfinite(value) and value > 0)):
+        raise AssertionError(f"bench printed {line}")
+    log(f"[bench] {' '.join(cmd[1:])} in {time.perf_counter() - t0:.1f} s: {line}")
+    return out
+
+
+# ---------------------------------------------------------------- phase 10
+
 def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / flops_per_s
@@ -802,8 +1225,8 @@ FLOP_PEAKS = {"fused_message_aggregate": TC_F32, "fused_mp_step": TC_F32,
 
 
 def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
-                train_launches):
-    from ionic_mpnn_torch.benchmarks import bench_packed_train_step
+                train_launches, path_launches):
+    from ionic_mpnn_torch.benchmarks import time_train_step
     from ionic_mpnn_torch.ops.cuda import fused_message, fused_step, segment_sum
     from ionic_mpnn_torch.ops.message import edge_messages_from_table
 
@@ -882,7 +1305,7 @@ def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
             f"{o['direct_call_ms']:.5f} / {o['function_call_ms']:.5f} ms; 8 launches per "
             f"forward through the Function would add "
             f"{8 * (o['function_host_ms'] - o['direct_host_ms']):.5f} ms of host time")
-    train = {name: bench_packed_train_step(step, train_batch, iters=20, warmup=3)
+    train = {name: time_train_step(step, train_batch, iters=20, warmup=3)
              for name, step in train_steps.items()}
     rows = []
     for name, source, replaces, symbol, kernel, plain, library, nbytes, flops in specs:
@@ -894,9 +1317,12 @@ def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
             raise AssertionError(f"{name}: expected one {symbol} kernel, got {ours}")
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches.get(name, 0) + train_launches.get(name, 0),
+            "launches": (launches.get(name, 0) + train_launches.get(name, 0)
+                         + sum(p.get(name, 0) for p in path_launches.values())),
             "main_launches": launches.get(name, 0),
-            "train_launches": train_launches.get(name, 0), "max_abs_err": errs[name],
+            "train_launches": train_launches.get(name, 0),
+            **{f"{k}_launches": p.get(name, 0) for k, p in path_launches.items()},
+            "max_abs_err": errs[name],
             # the kernel alone on the card; the wrapper call with its host
             # work; the plain version's and the library call's device time
             "ms": next(iter(ours.values())), "call_ms": call_ms[name],
@@ -974,12 +1400,18 @@ def main() -> int:
     errs["fused_message_aggregate_dh"] = phase_backward(batch0, V, dev)
     models, batch0, launches, state = phase_main_path(records, plan, vocab, dev)
     train_steps, train_batch, train_launches = phase_train(records, plan, vocab, dev, state)
-    rows, forward, dK, train, overhead = phase_times(batch0, V, models, launches, errs, train_steps,
-                                           train_batch, train_launches)
+    fit_runs, fit_launches, one_epoch_fit = phase_fit()
+    mp, mp_launches = phase_mp(records, plan, vocab)
+    bench = phase_bench()
+    rows, forward, dK, train, overhead = phase_times(
+        batch0, V, models, launches, errs, train_steps, train_batch, train_launches,
+        {"fit": fit_launches, "mp": mp_launches})
+    fit_profile = fit_busy_share(one_epoch_fit)
 
     log(json.dumps({"kernels": rows, "not_kernels": [dK],
                     "forward_ms_per_batch": forward, "train_step": train,
-                    "function_overhead": overhead, "card": smi}))
+                    "function_overhead": overhead, "fit": fit_runs,
+                    "fit_profile": fit_profile, "mp": mp, "bench": bench, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,5 @@
 """Benchmark helpers."""
 
-from .harness import bench_packed_train_step, make_bench_dataset
+from .harness import BenchResult, bench_packed_train_step, make_bench_dataset, time_train_step
 
-__all__ = ["bench_packed_train_step", "make_bench_dataset"]
+__all__ = ["BenchResult", "bench_packed_train_step", "make_bench_dataset", "time_train_step"]

@@ -5,24 +5,31 @@ The training metric is the JAX harness's (``benchmarks/harness.py``):
 Adam) at batch 2048 with 4 message steps. One message edge is one real
 directed edge processed by one message step, so a step processes
 ``(E_cat + E_an) · num_steps`` of them (:func:`_count_message_edges`),
-forward and backward. Building the model and batches from the
-benchmark's arguments, as the JAX ``bench_packed_train_step`` does, waits
-for ``bench_torch.py``.
+forward and backward.
+
+:func:`bench_packed_train_step` builds the model, optimizer and batches
+from the benchmark's arguments, as the JAX function of that name does
+(its host-packed harness; ``python -m ionic_mpnn_torch.bench`` prints
+it). :func:`time_train_step` times a train step the caller built on one
+packed batch. The JAX harness's roofline fields and its onehot, window,
+tile and remat knobs are not ported.
 """
 
 from __future__ import annotations
 
 import statistics
 import time
+from dataclasses import dataclass
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
-from ..data import build_vocab, encode_dataset, smiles_to_graph
+from ..config import TrainConfig, melting_point_config, resolve_device, viscosity_config
+from ..data import build_vocab, encode_dataset, iter_batches, plan_capacities, smiles_to_graph
 from ..data.synthetic import ANION_SMILES, CATION_TEMPLATES
 
-__all__ = ["make_bench_dataset", "bench_packed_train_step"]
+__all__ = ["make_bench_dataset", "BenchResult", "bench_packed_train_step", "time_train_step"]
 
 
 def make_bench_dataset(n_records: int = 512, seed: int = 0):
@@ -63,8 +70,7 @@ def _count_message_edges(batch, num_steps: int) -> int:
     return e * num_steps
 
 
-def bench_packed_train_step(step, host_batch, iters: int = 20,
-                            warmup: int = 3) -> Dict[str, Any]:
+def time_train_step(step, host_batch, iters: int = 20, warmup: int = 3) -> Dict[str, Any]:
     """The training metric of one packed batch: ``step`` (from
     :func:`~ionic_mpnn_torch.training.make_train_step`) run on
     ``host_batch`` in this process, one step per call (the JAX harness's
@@ -113,3 +119,92 @@ def bench_packed_train_step(step, host_batch, iters: int = 20,
         "molecules_per_s": 2 * n_pairs * iters / wall_s,
         "loss": loss,
     }
+
+
+@dataclass
+class BenchResult:
+    edges_per_s: float
+    steps_per_s: float
+    molecules_per_s: float
+    message_edges_per_step: int
+    wall_s: float
+    device: str  # the card's name, or "cpu"
+
+
+def bench_packed_train_step(
+    records,
+    vocab,
+    batch_size: int = 512,
+    num_steps: int = 4,
+    iters: int = 30,
+    warmup: int = 5,
+    compute_dtype: str = "float32",
+    message_impl: str = "gather",
+    inner: int = 1,
+    model_kind: str = "viscosity",
+    distinct_batches: bool = True,
+    scatter_impl: str = "xla",
+    device=None,
+) -> BenchResult:
+    """Message-edges/s of the full train step on one device, as the JAX
+    ``bench_packed_train_step`` measures it (host-packed batches).
+
+    The batch is ``records[:batch_size]``, packed with capacities planned
+    on all ``records``. A timed call runs ``inner`` steps: with
+    ``distinct_batches``, over ``inner`` different shuffled packings of
+    that batch (seeds ``0..inner-1``), else ``inner`` times over the
+    unshuffled one. Every batch is moved to the device before the clock
+    starts; ``warmup`` calls run first, then ``iters`` timed calls end in
+    one wait for the card. The model (``model_kind`` ``"viscosity"`` or
+    ``"mp"``) starts from the seed-0 init with Adam 1e-3 and the clip
+    1.0. ``device=None`` means CUDA (raises without it)."""
+    from ..models import MeltingPointModel, ViscosityModel
+    from ..training import make_train_step
+
+    dev = resolve_device(device)
+    kw = dict(num_steps=num_steps, compute_dtype=compute_dtype,
+              message_impl=message_impl, scatter_impl=scatter_impl)
+    if model_kind == "mp":
+        cfg = melting_point_config(vocab.atom_vocab_size, vocab.bond_vocab_size, **kw)
+        model = MeltingPointModel(cfg, seed=0, device=dev)
+    elif model_kind == "viscosity":
+        cfg = viscosity_config(vocab.atom_vocab_size, vocab.bond_vocab_size, **kw)
+        model = ViscosityModel(cfg, seed=0, device=dev)
+    else:
+        raise ValueError(f"unknown model_kind {model_kind!r}")
+    plan = plan_capacities(records, batch_size=batch_size)
+    head = records[:batch_size]
+    if inner > 1 and distinct_batches:
+        host = [next(iter_batches(head, plan, shuffle=True, seed=s)) for s in range(inner)]
+        me_per_step = int(np.mean([_count_message_edges(b, num_steps) for b in host]))
+    else:
+        host = [next(iter_batches(head, plan))] * inner
+        me_per_step = _count_message_edges(host[0], num_steps)
+    batches = [b.to(dev) for b in host]
+    step = make_train_step(model, cfg, TrainConfig())
+
+    def call():
+        for b in batches:
+            last = step(b)["loss"]
+        return last
+
+    for _ in range(warmup):
+        call()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        last = call()
+    loss = float(last)  # waits for the card: the steps are a chain
+    dt = time.perf_counter() - t0
+    if not np.isfinite(loss):
+        raise RuntimeError(f"train step loss is {loss}")
+    total_steps = iters * inner
+    return BenchResult(
+        edges_per_s=me_per_step * total_steps / dt,
+        steps_per_s=total_steps / dt,
+        molecules_per_s=2 * batch_size * total_steps / dt,
+        message_edges_per_step=me_per_step,
+        wall_s=dt,
+        device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+    )

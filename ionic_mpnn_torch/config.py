@@ -1,4 +1,4 @@
-"""Model configuration and device resolution.
+"""Model and training configuration, and device resolution.
 
 :class:`ModelConfig` mirrors the JAX package's dataclass field for field,
 with the same defaults and names, so :func:`model_config_from_dict`
@@ -9,14 +9,15 @@ hand-written CUDA kernels of :mod:`ionic_mpnn_torch.ops.cuda`.
 
 Supported here: ``message_impl`` ``"gather"`` | ``"pallas_fused"`` |
 ``"pallas_step"``, ``scatter_impl`` ``"xla"`` | ``"pallas"``,
-``gru_impl="reference"``, ``head="vft"`` and ``ep_axis=None``. The model
-builders raise on any other value.
+``gru_impl="reference"``, ``head`` ``"vft"`` (viscosity) | ``"mlp"``
+(melting point) and ``ep_axis=None``. The model builders raise on any
+other value.
 
-:class:`TrainConfig` mirrors the JAX dataclass field for field too. Of its
-fields ``make_train_step`` reads ``loss`` and ``huber_delta``, and
-``learning_rate``, ``clipnorm``, ``weight_decay`` and ``warmup_steps``
-when it builds the optimizer itself (no optimizer passed); the rest
-configure ``fit()`` and its loaders, which are not ported yet.
+:class:`TrainConfig` mirrors the JAX dataclass field for field too. The
+train step reads ``loss`` and ``huber_delta``, and ``learning_rate``,
+``clipnorm``, ``weight_decay`` and ``warmup_steps`` when it builds the
+optimizer itself; ``fit`` reads the rest, except ``use_native_loader``,
+``device_epochs`` and ``paired_epochs``, whose paths are not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 __all__ = [
     "ModelConfig",
     "viscosity_config",
+    "melting_point_config",
     "model_config_to_dict",
     "model_config_from_dict",
     "TrainConfig",
@@ -53,22 +55,30 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def resolve_message_impl(impl: str = "auto") -> str:
+def _on_cuda(device) -> bool:
+    if device is None:
+        return torch.cuda.is_available()
+    return torch.device(device).type == "cuda"
+
+
+def resolve_message_impl(impl: str = "auto", device=None) -> str:
     """Resolve ``"auto"``: the fused message-step kernel
-    (``"pallas_step"``) when CUDA is available, ``"gather"`` on the CPU.
-    (The JAX package resolves to its one-hot formulation on accelerators;
-    that formulation is not ported yet.)"""
+    (``"pallas_step"``) on CUDA, ``"gather"`` on the CPU. ``device=None``
+    asks whether CUDA is available. (The JAX package resolves to its
+    one-hot formulation on accelerators; that formulation is not ported
+    yet.)"""
     if impl != "auto":
         return impl
-    return "pallas_step" if torch.cuda.is_available() else "gather"
+    return "pallas_step" if _on_cuda(device) else "gather"
 
 
-def resolve_compute_dtype(dtype: str = "auto") -> str:
-    """Resolve ``"auto"`` to ``"bfloat16"`` when CUDA is available and
-    ``"float32"`` on the CPU, as the JAX package does per backend."""
+def resolve_compute_dtype(dtype: str = "auto", device=None) -> str:
+    """Resolve ``"auto"`` to ``"bfloat16"`` on CUDA and ``"float32"`` on
+    the CPU, as the JAX package does per backend. ``device=None`` asks
+    whether CUDA is available."""
     if dtype != "auto":
         return dtype
-    return "bfloat16" if torch.cuda.is_available() else "float32"
+    return "bfloat16" if _on_cuda(device) else "float32"
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -125,6 +135,21 @@ def viscosity_config(atom_vocab_size: int, bond_vocab_size: int, **kw) -> ModelC
     )
 
 
+def melting_point_config(atom_vocab_size: int, bond_vocab_size: int, atom_dim: int = 32,
+                         **kw) -> ModelConfig:
+    """Reference melting-point model: bond_dim = atom_dim², MLP head
+    (train_melting_point.py:137-215)."""
+    return ModelConfig(
+        atom_vocab_size=atom_vocab_size,
+        bond_vocab_size=bond_vocab_size,
+        atom_dim=atom_dim,
+        bond_dim=atom_dim * atom_dim,
+        head="mlp",
+        fp_l2=1e-5,
+        **kw,
+    )
+
+
 def model_config_to_dict(cfg: ModelConfig) -> dict:
     """JSON-safe dict for persisting alongside checkpoints."""
     d = dataclasses.asdict(cfg)
@@ -158,7 +183,7 @@ class TrainConfig:
     batch_size: int = 32
     early_stopping_patience: int = 50
     seed: int = 0
-    steps_per_call: int = 0
+    steps_per_call: int = 0  # kept for the JAX fields; fit() ignores it
     use_native_loader: bool = True
     device_epochs: Any = "auto"  # "auto" | True | False
     paired_epochs: Any = "auto"  # "auto" | True | False

@@ -48,7 +48,12 @@ class GraphCapacityError(ValueError):
 def _to_tensor(x, device):
     if isinstance(x, torch.Tensor):
         return x.to(device)
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if torch.device(device).type == "cuda":
+        # from a pinned copy the upload queues behind the card's work; from
+        # pageable memory it would wait for the card to finish first
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 @dataclass(frozen=True)

@@ -3,6 +3,7 @@
 from .layers import BondMatrixMessage, GatedUpdate, VFTHead
 from .dual_encoder import IonEncoder, DualEncoderTrunk
 from .viscosity import ViscosityModel
+from .melting_point import MeltingPointModel
 
 __all__ = [
     "BondMatrixMessage",
@@ -11,4 +12,5 @@ __all__ = [
     "IonEncoder",
     "DualEncoderTrunk",
     "ViscosityModel",
+    "MeltingPointModel",
 ]

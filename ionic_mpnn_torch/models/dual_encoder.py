@@ -46,7 +46,7 @@ def check_config(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"gru_impl={cfg.gru_impl!r} is not ported")
     if cfg.ep_axis is not None:
         raise NotImplementedError("edge partitioning (ep_axis) is not ported")
-    if cfg.head != "vft":
+    if cfg.head not in ("vft", "mlp"):
         raise NotImplementedError(f"head={cfg.head!r} is not ported")
     torch_dtype(cfg.compute_dtype)
 

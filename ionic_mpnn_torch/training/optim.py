@@ -89,6 +89,21 @@ class Optimizer:
         if self.schedule is not None:
             self.schedule.step()
 
+    def state_dict(self) -> dict:
+        """Adam(W)'s moments and step counts and the warm-up schedule's
+        position: what a checkpoint needs to continue bit-identically."""
+        return {"adam": self.adam.state_dict(),
+                "schedule": None if self.schedule is None else self.schedule.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict` into an optimizer built over the same
+        parameters with the same settings."""
+        if (state["schedule"] is None) != (self.schedule is None):
+            raise ValueError("the saved optimizer and this one differ in their warm-up")
+        self.adam.load_state_dict(state["adam"])
+        if self.schedule is not None:
+            self.schedule.load_state_dict(state["schedule"])
+
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], learning_rate: float = 1e-3,
                    clipnorm: float = 1.0, weight_decay: float = 0.0,

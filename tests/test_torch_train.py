@@ -52,7 +52,7 @@ from ionic_mpnn_tpu.training.loop import TrainState, _data_loss, _l2_penalty
 from ionic_mpnn_tpu.training.loop import make_train_step as j_make_train_step
 from ionic_mpnn_tpu.training.optim import clip_by_per_variable_norm
 from ionic_mpnn_tpu.training.optim import make_optimizer as j_make_optimizer
-from ionic_mpnn_torch.benchmarks import bench_packed_train_step
+from ionic_mpnn_torch.benchmarks import time_train_step
 from ionic_mpnn_torch.benchmarks.harness import _count_message_edges
 from ionic_mpnn_torch.config import (TrainConfig, model_config_from_dict,
                                      train_config_from_dict, train_config_to_dict)
@@ -386,7 +386,7 @@ def test_bench_train_step_counts_message_edges(setup):
     cfg = tviscosity_config(vocab.atom_vocab_size, vocab.bond_vocab_size, num_steps=1)
     step = make_train_step(TModel(cfg, device="cpu"), cfg, TrainConfig())
     batch = setup["t_batches"][0]
-    res = bench_packed_train_step(step, batch, iters=2, warmup=1)
+    res = time_train_step(step, batch, iters=2, warmup=1)
     assert res["device"] == "cpu" and step.steps == 3
     assert res["message_edges_per_step"] == _count_message_edges(batch, 1) > 0
     assert np.isfinite(res["loss"]) and res["edges_per_s"] > 0
