@@ -79,7 +79,34 @@ Phases, in order (any failure raises and the script exits non-zero):
    on the train split only.
 9. Bench: ``python -m ionic_mpnn_torch.bench --repeats 1`` in a process of
    its own exits 0 and prints the training metric, finite and positive.
-10. Times. Wall times first (CUDA events, before torch.profiler attaches):
+10. One-hot: the JAX package's accelerator default, ``message_impl=
+   "onehot"`` on ``window_aligned`` batches (``edge_layout_for``; window
+   from ``resolve_onehot_window``: 128 for f32, 64 for bf16), and the other
+   window layouts, on the 6,144 bench records. Per plan: batches, and per
+   side N, E, windows, tile and tile fill. The three CUDA kernels against
+   their plain versions on an aligned cation batch (window pads: masked
+   self-loops on each window's last node). ``predict`` in onehot f32 with
+   each select (vloop, lanes, basis), bf16, on ``window`` (halo) and on
+   balanced batches, and ``pallas_step`` f32 and bf16 on aligned batches,
+   each against plain ``gather`` on the same batches and weights (1e-4;
+   onehot bf16 at 2e-2 against plain ``gather`` bf16 rounding the bond-type
+   table and the messages to bf16 where onehot does; ``pallas_step`` bf16
+   against f32 with its rounded tensors, as in phase 5; the plain
+   references under deterministic algorithms); plain ``gather`` on aligned
+   batches against sorted ones per record at 1e-5. Launches: none in the onehot arms, exactly 8
+   ``fused_mp_step`` per forward in ``pallas_step``'s. Then 3 train steps
+   per arm against its plain arm (phase 6's tolerances and launch counts;
+   ``remat_message``'s first gradients against the same arm without it at
+   1e-5), and ``fit()`` of onehot f32 for 2 epochs at batch 32 on phase 7's
+   teacher records with an aligned plan, twice under deterministic
+   algorithms: the histories and best weights equal bit for bit, the loss
+   falls. Last, with CUDA events, forward and train-step wall and host
+   times of onehot f32, onehot bf16 and ``pallas_step`` bf16 on aligned
+   batches, with message-edges/s and peak memory; their profiler readings
+   (busy time, idle share, top kernels; a session each) and pallas_step's
+   fused-kernel device time per forward on aligned against sorted batches
+   come last, after phase 11.
+11. Times. Wall times first (CUDA events, before torch.profiler attaches):
    each wrapper call at the cation shape (median of 60), each forward per
    batch (median of 50), the host time each kernel's autograd Function would
    add to a launch in inference mode (the wrapper's direct launch and the
@@ -92,7 +119,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    top kernels. Bounds are the least time the card could take (published
    H100 SXM peaks: 3.35 TB/s; the fused kernels' f32-accurate products over
    the TF32 tensor-core rate / 3, the rest over the f32 CUDA-core rate).
-   Last, one epoch of the default configuration's ``fit()`` under the
+   Then one epoch of the default configuration's ``fit()`` under the
    profiler: the card's busy time and its share of the epoch.
 
 Output: one ``{"kernels": [...]}`` JSON line, then the last line
@@ -712,6 +739,28 @@ def round_in_every_forward(model):
                 parametrize.register_parametrization(module, name, RoundToBf16())
 
 
+def use_onehot_roundings(model):
+    """Make a plain ``gather`` bf16 model round where a bf16 onehot model
+    rounds: the bond-type table and every message to bf16 (then summed in
+    f32), so that it is the one-hot formulation's plain counterpart."""
+    from ionic_mpnn_torch.models.layers import BondMatrixMessage
+    from ionic_mpnn_torch.ops.message import bond_type_matrices, edge_messages_from_table
+
+    class RoundedGatherMessage(BondMatrixMessage):
+        def forward(self, node_states, bond_table, bond_ids, src, dst, edge_mask, **_):
+            dt = self.compute_dtype
+            m_table = bond_type_matrices(bond_table.to(dt), self.bond_transform.to(dt))
+            msg = edge_messages_from_table(node_states.to(dt), bond_ids, src,
+                                           m_table.to(dt).float())
+            msg = msg.to(dt).float() * edge_mask[:, None]
+            return torch.zeros(node_states.shape[0], msg.shape[1], device=msg.device
+                               ).index_add_(0, dst.long(), msg)
+
+    for module in model.modules():
+        if isinstance(module, BondMatrixMessage) and module.impl == "gather":
+            module.__class__ = RoundedGatherMessage
+
+
 def param_name(name):
     return name.replace("parametrizations.", "").replace(".original", "")
 
@@ -768,13 +817,56 @@ def grads_close(name, got, want, tol):
     return worst
 
 
+def train_arm(tag, model, cfg, tcfg, batches):
+    """The first step's gradients (before any update), then one train step
+    per batch with the launch counters zeroed just before and read just
+    after; they must read the configuration's per-step launches exactly."""
+    from ionic_mpnn_torch.ops import cuda as kernels
+    from ionic_mpnn_torch.training import data_loss, l2_penalty, make_train_step
+
+    per_step = kernel_launches(cfg.message_impl, cfg.scatter_impl)[0]
+    b0 = batches[0]
+    loss = (data_loss(model(b0)["pred"], b0.y, b0.sample_mask, tcfg.loss, tcfg.huber_delta)
+            + l2_penalty(model, cfg.fp_l2))
+    loss.backward()
+    grads = {}
+    for k, p in model.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise AssertionError(f"train {tag}: gradient of {k} is "
+                                 f"{'missing' if p.grad is None else 'not finite'}")
+        grads[param_name(k)] = p.grad.detach().clone()
+    step = make_train_step(model, cfg, tcfg)  # its optimizer from tcfg
+    kernels.reset_launch_counts()
+    losses = [step(b)["loss"] for b in batches]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    losses = [float(x) for x in losses]
+    want = {k: len(batches) * per_step.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"train {tag}: launch counts {counts}, expected {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train {tag}: losses {losses}")
+    return {"step": step, "grads": grads, "losses": losses, "counts": counts}
+
+
+def hold_train_arm(tag, arm, ref, ref_name, dtype):
+    """An arm's first gradients and its losses against its plain arm's
+    (TRAIN_TOL); returns the log line's comparison."""
+    grad_tol, loss_tols = TRAIN_TOL[dtype]
+    g_err = grads_close(f"train {tag}", arm["grads"], ref["grads"], grad_tol)
+    for i, (a, b, rt) in enumerate(zip(arm["losses"], ref["losses"], loss_tols)):
+        if abs(a - b) > rt * abs(b):
+            raise AssertionError(f"train {tag}: loss of step {i + 1} {a!r} vs "
+                                 f"{b!r} of {ref_name}, beyond rtol {rt}")
+    return (f"; vs {ref_name}: max gradient |err| {g_err:.3e} of the tensor's max, loss "
+            f"rtol {[abs(a / b - 1) for a, b in zip(arm['losses'], ref['losses'])]}")
+
+
 def phase_train(records, plan, vocab, dev, state):
     """3 train steps per arm from the same weights on the same 3 batches."""
     from ionic_mpnn_torch.config import TrainConfig, viscosity_config
     from ionic_mpnn_torch.data import iter_batches
     from ionic_mpnn_torch.models import ViscosityModel
-    from ionic_mpnn_torch.ops import cuda as kernels
-    from ionic_mpnn_torch.training import data_loss, l2_penalty, make_train_step
 
     base = viscosity_config(vocab.atom_vocab_size, vocab.bond_vocab_size)
     tcfg = TrainConfig()
@@ -782,47 +874,17 @@ def phase_train(records, plan, vocab, dev, state):
     batches = [b.to(dev) for b in host_batches]
     arms, train_launches = {}, {}
     for name, impl, scatter, dtype, weights, ref in TRAIN_ARMS:
-        per_step = kernel_launches(impl, scatter)[0]
         cfg = base.replace(message_impl=impl, scatter_impl=scatter, compute_dtype=dtype)
         model = ViscosityModel(cfg, seed=0)
         model.load_state_dict(state)
         if weights == "rounded in forward":
             round_in_every_forward(model)
-        # the first step's gradients, before any update
-        b0 = batches[0]
-        loss = (data_loss(model(b0)["pred"], b0.y, b0.sample_mask, tcfg.loss,
-                          tcfg.huber_delta) + l2_penalty(model, cfg.fp_l2))
-        loss.backward()
-        grads = {}
-        for k, p in model.named_parameters():
-            if p.grad is None or not torch.isfinite(p.grad).all():
-                raise AssertionError(f"train {name}: gradient of {k} is "
-                                     f"{'missing' if p.grad is None else 'not finite'}")
-            grads[param_name(k)] = p.grad.detach().clone()
-        step = make_train_step(model, cfg, tcfg)  # its optimizer from tcfg
-        kernels.reset_launch_counts()
-        losses = [step(b)["loss"] for b in batches]
-        torch.cuda.synchronize()
-        counts = kernels.launch_counts()
-        losses = [float(x) for x in losses]
-        want = {k: TRAIN_STEPS * per_step.get(k, 0) for k in counts}
-        if counts != want:
-            raise AssertionError(f"train {name}: launch counts {counts}, expected {want}")
-        for k, v in counts.items():
+        arms[name] = arm = train_arm(name, model, cfg, tcfg, batches)
+        for k, v in arm["counts"].items():
             train_launches[k] = train_launches.get(k, 0) + v
-        if not all(np.isfinite(losses)):
-            raise AssertionError(f"train {name}: losses {losses}")
-        arms[name] = {"step": step, "grads": grads, "losses": losses}
-        msg = f"[train] {name}: losses {losses}, launches {counts}"
+        msg = f"[train] {name}: losses {arm['losses']}, launches {arm['counts']}"
         if ref is not None:
-            grad_tol, loss_tols = TRAIN_TOL[dtype]
-            g_err = grads_close(f"train {name}", grads, arms[ref]["grads"], grad_tol)
-            for i, (a, b, rt) in enumerate(zip(losses, arms[ref]["losses"], loss_tols)):
-                if abs(a - b) > rt * abs(b):
-                    raise AssertionError(f"train {name}: loss of step {i + 1} {a!r} vs "
-                                         f"{b!r} of {ref}, beyond rtol {rt}")
-            msg += (f"; vs {ref}: max gradient |err| {g_err:.3e} of the tensor's "
-                    f"max, loss rtol {[abs(a / b - 1) for a, b in zip(losses, arms[ref]['losses'])]}")
+            msg += hold_train_arm(name, arm, arms[ref], ref, dtype)
         log(msg)
     for name in TIMED_ARMS:
         arms[name]["grads"] = None  # free them; the step objects are timed later
@@ -1100,7 +1162,8 @@ def phase_fit():
         model, cfg = model_for(impl, dtype=dtype)
         return lambda: fit(model, cfg, tcfg(1), train, dev_split, plan, verbose=False)
 
-    return runs, launches, one_epoch_fit
+    fit_data = {"records": records, "train": train, "dev": dev_split}
+    return runs, launches, one_epoch_fit, fit_data
 
 
 def fit_busy_share(one_epoch_fit):
@@ -1208,6 +1271,331 @@ def phase_bench():
 
 
 # ---------------------------------------------------------------- phase 10
+
+# serving arms of [onehot]: (name, plan, model overrides, plain reference,
+# tolerance, kernel per forward or None)
+ONEHOT_SERVE = [
+    ("onehot f32 vloop", "aligned f32", {"message_impl": "onehot", "onehot_select": "vloop"},
+     "gather f32", MODEL_TOL, None),
+    ("onehot f32 lanes", "aligned f32", {"message_impl": "onehot", "onehot_select": "lanes"},
+     "gather f32", MODEL_TOL, None),
+    ("onehot f32 basis", "aligned f32", {"message_impl": "onehot", "onehot_select": "basis"},
+     "gather f32", MODEL_TOL, None),
+    ("onehot bf16", "aligned bf16", {"message_impl": "onehot", "compute_dtype": "bfloat16"},
+     "gather bf16, onehot roundings", BF16_MODEL_TOL, None),
+    ("onehot f32 halo", "window f32", {"message_impl": "onehot"}, "gather f32", MODEL_TOL,
+     None),
+    ("onehot f32 balanced", "balanced f32", {"message_impl": "onehot"}, "gather f32",
+     MODEL_TOL, None),
+    ("pallas_step f32 aligned", "aligned f32", {"message_impl": "pallas_step"}, "gather f32",
+     MODEL_TOL, "fused_mp_step"),
+    ("pallas_step bf16 aligned", "aligned f32",
+     {"message_impl": "pallas_step", "compute_dtype": "bfloat16"}, "gather f32, bf16-rounded",
+     MODEL_TOL, "fused_mp_step"),
+]
+# training arms of [onehot]: (name, plan, model overrides, plain arm or None)
+ONEHOT_TRAIN = [
+    ("gather f32 aligned (plain)", "aligned f32", {}, None),
+    ("gather f32 aligned, bf16-rounded (plain)", "aligned f32", {"round": "weights"}, None),
+    ("gather bf16 aligned, onehot roundings (plain)", "aligned bf16",
+     {"compute_dtype": "bfloat16", "round": "onehot"}, None),
+    ("onehot f32 vloop", "aligned f32", {"message_impl": "onehot", "onehot_select": "vloop"},
+     "gather f32 aligned (plain)"),
+    ("onehot f32 vloop, remat", "aligned f32",
+     {"message_impl": "onehot", "onehot_select": "vloop", "remat_message": True},
+     "gather f32 aligned (plain)"),
+    ("onehot bf16", "aligned bf16", {"message_impl": "onehot", "compute_dtype": "bfloat16"},
+     "gather bf16 aligned, onehot roundings (plain)"),
+    ("pallas_step f32 aligned", "aligned f32", {"message_impl": "pallas_step"},
+     "gather f32 aligned (plain)"),
+    ("pallas_step bf16 aligned", "aligned f32",
+     {"message_impl": "pallas_step", "compute_dtype": "bfloat16"},
+     "gather f32 aligned, bf16-rounded (plain)"),
+]
+ONEHOT_TIMED = ("onehot f32 vloop", "onehot bf16", "pallas_step bf16 aligned")
+REMAT_TOL = 1e-5  # remat's first gradients against the same arm without it
+ONEHOT_FIT_EPOCHS = 2
+
+
+def layout_stats(tag, plan, records):
+    """A window plan's batches over ``records``, and per side the node and
+    edge capacity, the windows nw, the tile T and the tile fill (real edges
+    over nw·T, over every batch)."""
+    from ionic_mpnn_torch.data import iter_batches
+
+    batches = list(iter_batches(records, plan))
+    out = {"batches": len(batches), "window": plan.window}
+    for side in ("cation", "anion"):
+        g = getattr(batches[0], side)
+        N, E = g.node_capacity, g.edge_capacity
+        nw = N // plan.window
+        real = sum(int(getattr(b, side).edge_mask.sum()) for b in batches)
+        out[side] = {"N": N, "E": E, "nw": nw, "T": E // nw,
+                     "fill": real / (len(batches) * E)}
+    log(f"[onehot] plan {tag} ({plan.edge_layout}, window {plan.window}"
+        f"{', balanced' if plan.balance else ''}): {len(batches)} batches; "
+        + "; ".join(f"{side} N={out[side]['N']} E={out[side]['E']} nw={out[side]['nw']} "
+                    f"T={out[side]['T']} fill {out[side]['fill']:.4f}"
+                    for side in ("cation", "anion")))
+    return out, batches
+
+
+def forward_times(fn, n=50):
+    """Median wall time (CUDA events) and host time (the clock at the call's
+    return) of one call, the card idle before each."""
+    for _ in range(5):
+        fn()
+    wall, host = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append(1e3 * (time.perf_counter() - t0))
+        b.record()
+        b.synchronize()
+        wall.append(a.elapsed_time(b))
+    return {"wall_ms": statistics.median(wall), "host_ms": statistics.median(host)}
+
+
+def phase_onehot(records, sorted_plan, vocab, state, dev, fit_data):
+    """The JAX package's accelerator default, the one-hot message
+    formulation on window_aligned batches, and the other window layouts:
+    serving, train steps and fit() held against plain gather on the same
+    batches, then wall and host times. Returns the results, the kernel
+    launches of its driven paths, and a function that takes the profiler's
+    readings (called after every wall-clock timing of the script).
+    ``sorted_plan`` is [data]'s plan."""
+    from ionic_mpnn_torch.config import (TrainConfig, edge_layout_for, resolve_onehot_window,
+                                         viscosity_config)
+    from ionic_mpnn_torch.benchmarks import time_train_step
+    from ionic_mpnn_torch.data import iter_batches, plan_capacities
+    from ionic_mpnn_torch.models import ViscosityModel
+    from ionic_mpnn_torch.ops import cuda as kernels
+    from ionic_mpnn_torch.training import predict
+
+    t_phase = time.perf_counter()
+    layout = edge_layout_for("onehot")
+    w32, w16 = resolve_onehot_window("float32"), resolve_onehot_window("bfloat16")
+    if (layout, w32, w16) != ("window_aligned", 128, 64):
+        raise AssertionError(f"onehot plans {layout} with windows {w32} / {w16}")
+    plans = {  # headroom 2, as the sorted plan of [data]
+        "aligned f32": plan_capacities(records, BATCH, headroom=2.0, edge_layout=layout,
+                                       window=w32),
+        "aligned bf16": plan_capacities(records, BATCH, headroom=2.0, edge_layout=layout,
+                                        window=w16),
+        "window f32": plan_capacities(records, BATCH, headroom=2.0, edge_layout="window",
+                                      window=w32),
+        "balanced f32": plan_capacities(records, BATCH, headroom=2.0, edge_layout=layout,
+                                        window=w32, balance=True),
+    }
+    stats, host = {}, {}
+    for tag, plan in plans.items():
+        stats[tag], host[tag] = layout_stats(tag, plan, records)
+    base = viscosity_config(vocab.atom_vocab_size, vocab.bond_vocab_size)
+
+    def model_for(plan_tag, overrides):
+        kw = {k: v for k, v in overrides.items() if k != "round"}
+        cfg = base.replace(onehot_window=plans[plan_tag].window, **kw)
+        model = ViscosityModel(cfg, seed=0)
+        model.load_state_dict(state)
+        if overrides.get("round") == "weights":
+            round_in_every_forward(model)
+        elif overrides.get("round") == "onehot":
+            use_onehot_roundings(model)
+        return model, cfg
+
+    # the CUDA kernels on window-tiled batches (masked self-loop pads at
+    # each window's last node) against their plain versions
+    gen = torch.Generator().manual_seed(4)
+    g = host["aligned f32"][0].cation.to(dev)
+    V = vocab.bond_vocab_size + 1
+    m_table = (torch.randn(V, 32, 32, generator=gen) * 0.2).to(dev)
+    gru = gru_params(gen, 32, dev)
+    h32 = torch.randn(g.node_capacity, 32, generator=gen).to(dev)
+    kernel_errs = {}
+    for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        kernel_errs[str(dt)[6:]] = check_kernels(
+            f"window_aligned cation N={g.node_capacity} E={g.edge_capacity} h {str(dt)[6:]}",
+            h32.to(dt), m_table, gru, g.bond_ids, g.src, g.dst, g.edge_mask, g.node_capacity,
+            tol)
+
+    # serving: every arm against plain gather on the same batches
+    refs, serve, launches = {}, {}, {}
+
+    def reference(plan_tag, kind):
+        if (plan_tag, kind) not in refs:
+            overrides = {"gather f32": {},
+                         "gather bf16, onehot roundings": {"compute_dtype": "bfloat16",
+                                                           "round": "onehot"},
+                         "gather f32, bf16-rounded": {"round": "weights"}}[kind]
+            model, _ = model_for(plan_tag, overrides)
+            kernels.reset_launch_counts()
+            with deterministic():  # no atomics in the reference's sums
+                pred = predict(model, records, plans[plan_tag])
+            if any(kernels.launch_counts().values()):
+                raise AssertionError(f"plain path launched kernels: {kernels.launch_counts()}")
+            if pred.shape != (len(records),) or not np.isfinite(pred).all():
+                raise AssertionError("plain predictions are not finite of the right shape")
+            refs[(plan_tag, kind)] = pred
+        return refs[(plan_tag, kind)]
+
+    for name, plan_tag, overrides, ref, tol, kernel in ONEHOT_SERVE:
+        model, _ = model_for(plan_tag, overrides)
+        n_fwd = stats[plan_tag]["batches"]
+        kernels.reset_launch_counts()
+        pred = predict(model, records, plans[plan_tag])
+        counts = kernels.launch_counts()
+        want = {k: (8 * n_fwd if k == kernel else 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"onehot {name}: launch counts {counts}, expected {want}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        err = close(f"onehot predict {name}", torch.from_numpy(pred),
+                    torch.from_numpy(reference(plan_tag, ref)), *tol)
+        serve[name] = {"max_abs_err": err, "launches": counts, "batches": n_fwd}
+        log(f"[onehot] predict {name} over {len(records)} records in {n_fwd} {plan_tag} "
+            f"batches: pred max|err| {err:.3e} vs plain {ref} on the same batches (rtol/atol "
+            f"{tol[0]}), launches {counts}")
+    # the layouts change the batching, not the function: plain gather f32 per
+    # record on aligned batches against the sorted ones
+    plain, _ = model_for("aligned f32", {})
+    with deterministic():
+        on_sorted = predict(plain, records, sorted_plan)
+    layout_err = close("plain gather f32 aligned vs sorted", torch.from_numpy(refs[(
+        "aligned f32", "gather f32")]), torch.from_numpy(on_sorted), F32_TOL, F32_TOL)
+    log(f"[onehot] plain gather f32 on aligned batches against the sorted batches of the "
+        f"same records: max|err| {layout_err:.3e} (rtol/atol {F32_TOL})")
+
+    # training: 3 steps per arm on the first 3 batches of its plan
+    tcfg = TrainConfig()
+    dev_batches = {tag: [b.to(dev) for b in host[tag][:TRAIN_STEPS]] for tag in plans}
+    arms, train = {}, {}
+    for name, plan_tag, overrides, ref in ONEHOT_TRAIN:
+        model, cfg = model_for(plan_tag, overrides)
+        arms[name] = arm = train_arm(f"onehot {name}", model, cfg, tcfg, dev_batches[plan_tag])
+        for k, v in arm["counts"].items():
+            launches[k] = launches.get(k, 0) + v
+        msg = f"[onehot] train {name}: losses {arm['losses']}, launches {arm['counts']}"
+        if ref is not None:
+            msg += hold_train_arm(f"onehot {name}", arm, arms[ref], ref, cfg.compute_dtype)
+        train[name] = {"losses": arm["losses"], "launches": arm["counts"]}
+        log(msg)
+    remat_err = grads_close("onehot remat", arms["onehot f32 vloop, remat"]["grads"],
+                            arms["onehot f32 vloop"]["grads"], REMAT_TOL)
+    train["remat_vs_plain_max_grad_err"] = remat_err
+    log(f"[onehot] remat's first gradients against the same arm without it: max |err| "
+        f"{remat_err:.3e} of the tensor's max (bound {REMAT_TOL}·(|want| + max|want|))")
+
+    # fit(): twice from the same weights under deterministic algorithms
+    fit_plan = plan_capacities(fit_data["records"], FIT_BATCH, edge_layout=layout, window=w32)
+    n_dev = sum(1 for _ in iter_batches(fit_data["dev"], fit_plan))
+    fit_base = base.replace(message_impl="onehot", onehot_window=w32)
+    fits = []
+    with deterministic():
+        for i in range(2):
+            model = ViscosityModel(fit_base, seed=0)
+            model.load_state_dict(state)
+            res, summary = counted_fit(
+                f"onehot f32 aligned, run {i + 1}", model, fit_base,
+                TrainConfig(epochs=ONEHOT_FIT_EPOCHS, batch_size=FIT_BATCH, seed=0),
+                fit_data["train"], fit_data["dev"], fit_plan, n_dev)
+            fits.append((res, summary))
+    (a, sa), (b, _) = fits
+    for key in ("loss", "val_loss", "dead_fp_cat_frac"):
+        if a.history[key] != b.history[key]:
+            raise AssertionError(f"onehot fit: two runs' {key} differ: {a.history[key]} vs "
+                                 f"{b.history[key]}")
+    if any(not torch.equal(v, b.params[k]) for k, v in a.params.items()):
+        raise AssertionError("onehot fit: two runs' best weights differ")
+    if not a.history["loss"][-1] < a.history["loss"][0]:
+        raise AssertionError(f"onehot fit: the loss did not fall: {a.history['loss']}")
+    log(f"[onehot] fit() twice, {ONEHOT_FIT_EPOCHS} epochs, deterministic: histories and "
+        f"best weights equal bit for bit; loss {a.history['loss']}, val_loss "
+        f"{a.history['val_loss']}; cation N={fit_plan.node_cap} tile {fit_plan.edge_tile}")
+    fit_summary = {k: v for k, v in sa.items() if k != "history"}
+    fit_summary.update(loss=a.history["loss"], val_loss=a.history["val_loss"])
+
+    # times: wall and host first, with CUDA events (the profiler comes later)
+    timed_models = {name: model_for(plan_tag, overrides)[0]
+                    for name, plan_tag, overrides, *_ in ONEHOT_SERVE if name in ONEHOT_TIMED}
+    timed_batch = {name: dev_batches[plan_tag][0]
+                   for name, plan_tag, *_ in ONEHOT_SERVE if name in ONEHOT_TIMED}
+    forward = {}
+    with torch.inference_mode():
+        for name, model in timed_models.items():
+            batch = timed_batch[name]
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            forward[name] = forward_times(lambda: model(batch))
+            forward[name].update(memory_peak_above_base_mb=(
+                torch.cuda.max_memory_allocated() - base) / 2**20, memory_base_mb=base / 2**20)
+    steps = {}
+    for name in ONEHOT_TIMED:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        plan_tag = next(p for n, p, *_ in ONEHOT_TRAIN if n == name)
+        steps[name] = time_train_step(arms[name]["step"], host[plan_tag][0], iters=20, warmup=3)
+        steps[name].update(memory_peak_above_base_mb=(
+            torch.cuda.max_memory_allocated() - base) / 2**20, memory_base_mb=base / 2**20)
+    for name in arms:
+        arms[name]["grads"] = None
+    seconds = time.perf_counter() - t_phase
+    log(f"[onehot] checks and wall-clock timings in {seconds:.1f} s")
+
+    def profile(sorted_forward):
+        """Busy time, idle share and top kernels of the timed forwards and
+        train steps (a profiler session each, as phase 11 takes them), and
+        the fused kernels' device time per forward on aligned batches
+        against ``sorted_forward``, phase 11's profile of the same
+        configuration on sorted batches."""
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for name, model in timed_models.items():
+                batch = timed_batch[name]
+                prof = device_profile(lambda: model(batch), n=20)
+                f = forward[name]
+                f.update(busy_ms=prof["busy_ms"], device_ms=prof["device_ms"],
+                         idle_share=max(0.0, 1 - prof["busy_ms"] / f["wall_ms"]),
+                         fused_kernels_ms=sum(v for k, v in prof["by_kernel"].items()
+                                              if "fused_message" in k),
+                         top={k[:60]: v for k, v in list(prof["by_kernel"].items())[:6]})
+                log(f"[onehot] forward {name}: wall {f['wall_ms']:.4f} ms, host "
+                    f"{f['host_ms']:.4f} ms, device busy {f['busy_ms']:.4f} ms, idle share "
+                    f"{f['idle_share']:.3f}, peak memory {f['memory_peak_above_base_mb']:.1f} MiB "
+                    f"above the {f['memory_base_mb']:.1f} MiB held before; top kernels ms: "
+                    + json.dumps({k: round(v, 5) for k, v in f["top"].items()}))
+        for name in ONEHOT_TIMED:
+            step, batch = arms[name]["step"], timed_batch[name]
+            prof = device_profile(lambda: step(batch), n=10)
+            t = steps[name]
+            t.update(busy_ms=prof["busy_ms"], device_ms=prof["device_ms"],
+                     idle_share=max(0.0, 1 - prof["busy_ms"] / t["step_ms"]),
+                     top={k[:60]: v for k, v in list(prof["by_kernel"].items())[:6]})
+            log(f"[onehot] train step {name}: {t['step_ms']:.4f} ms (median of {t['iters']}), "
+                f"host {t['host_ms']:.4f} ms, {t['edges_per_s']:.6e} message-edges/s "
+                f"({t['message_edges_per_step']} per step), device busy {t['busy_ms']:.4f} ms, "
+                f"idle share {t['idle_share']:.3f}, peak memory "
+                f"{t['memory_peak_above_base_mb']:.1f} MiB above the {t['memory_base_mb']:.1f} "
+                f"MiB held before; top kernels ms: "
+                + json.dumps({k: round(v, 5) for k, v in t["top"].items()}))
+        on_layouts = {
+            "sorted": sum(v for k, v in sorted_forward["top"].items() if "fused_message" in k),
+            "window_aligned": forward["pallas_step bf16 aligned"]["fused_kernels_ms"]}
+        log("[onehot] pallas_step bf16: the fused kernels' device time per forward on sorted "
+            "and on window_aligned batches, ms: " + json.dumps(on_layouts))
+        log(f"[onehot] profiler readings in {time.perf_counter() - t0:.1f} s")
+        return {"forward": forward, "train_step": steps, "kernels_by_layout": on_layouts}
+
+    results = {"plans": stats, "kernels_on_aligned": kernel_errs, "serve": serve,
+               "aligned_vs_sorted_max_abs_err": layout_err, "train": train,
+               "fit": fit_summary, "seconds": seconds}
+    return results, launches, profile
+
+
+# ---------------------------------------------------------------- phase 11
 
 def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1400,18 +1788,22 @@ def main() -> int:
     errs["fused_message_aggregate_dh"] = phase_backward(batch0, V, dev)
     models, batch0, launches, state = phase_main_path(records, plan, vocab, dev)
     train_steps, train_batch, train_launches = phase_train(records, plan, vocab, dev, state)
-    fit_runs, fit_launches, one_epoch_fit = phase_fit()
+    fit_runs, fit_launches, one_epoch_fit, fit_data = phase_fit()
     mp, mp_launches = phase_mp(records, plan, vocab)
     bench = phase_bench()
+    onehot, onehot_launches, onehot_profile = phase_onehot(
+        records, plan, vocab, state, dev, fit_data)
     rows, forward, dK, train, overhead = phase_times(
         batch0, V, models, launches, errs, train_steps, train_batch, train_launches,
-        {"fit": fit_launches, "mp": mp_launches})
+        {"fit": fit_launches, "mp": mp_launches, "onehot": onehot_launches})
     fit_profile = fit_busy_share(one_epoch_fit)
+    onehot["times"] = onehot_profile(forward["pallas_step bf16"])
 
     log(json.dumps({"kernels": rows, "not_kernels": [dK],
                     "forward_ms_per_batch": forward, "train_step": train,
                     "function_overhead": overhead, "fit": fit_runs,
-                    "fit_profile": fit_profile, "mp": mp, "bench": bench, "card": smi}))
+                    "fit_profile": fit_profile, "mp": mp, "bench": bench, "onehot": onehot,
+                    "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,6 +2,7 @@
 
     python -m ionic_mpnn_torch.bench [--batch-size 2048] [--num-steps 4]
         [--iters 30] [--inner 8] [--dtype auto] [--message-impl auto]
+        [--window 0] [--onehot-select auto] [--balance] [--remat]
         [--model viscosity|mp] [--repeats 3] [--device cuda|cpu]
 
 Metric: message-edges/s of the viscosity (or melting-point) model's full
@@ -12,7 +13,10 @@ device, as the JAX package's root ``bench.py`` defines it
 processes, each building its own model and batches; ``samples_edges_per_s``
 lists them. ``--device`` defaults to CUDA and the run fails without it;
 ``--device cpu`` runs the plain versions of the kernels on the host.
-The dense baseline (``vs_baseline``) is not ported.
+``--message-impl onehot`` trains on ``window_aligned`` batches of the
+window ``resolve_onehot_window`` picks (64 for bf16, 128 for f32, unless
+``--window``), as the JAX bench does. The dense baseline
+(``vs_baseline``) is not ported.
 """
 
 from __future__ import annotations
@@ -35,9 +39,19 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default="auto", choices=["auto", "float32", "bfloat16"],
                     help="auto = bfloat16 on CUDA, float32 on the CPU")
     ap.add_argument("--message-impl", default="auto",
-                    choices=["auto", "gather", "pallas_fused", "pallas_step"],
+                    choices=["auto", "gather", "typed", "symmetric", "onehot",
+                             "pallas_fused", "pallas_step"],
                     help="auto = pallas_step (the CUDA message-step kernel) on CUDA, "
                          "gather on the CPU")
+    ap.add_argument("--window", type=int, default=0,
+                    help="onehot node window (0 = auto: 64 for bf16, 128 for f32)")
+    ap.add_argument("--onehot-select", default="auto",
+                    choices=["auto", "lanes", "vloop", "basis"],
+                    help="the onehot typed-select formulation")
+    ap.add_argument("--balance", action="store_true",
+                    help="LPT window balancing of the window_aligned layout")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute the onehot message op in the backward")
     ap.add_argument("--model", default="viscosity", choices=["viscosity", "mp"],
                     help="mp = melting-point config (bond_dim = 1024)")
     ap.add_argument("--repeats", type=int, default=3,
@@ -55,18 +69,22 @@ def _measure(args, device) -> dict:
     r = bench_packed_train_step(
         records, vocab, batch_size=args.batch_size, num_steps=args.num_steps,
         iters=args.iters, compute_dtype=args.dtype, message_impl=args.message_impl,
-        inner=args.inner, model_kind=args.model, device=device)
+        inner=args.inner, model_kind=args.model, window=args.window,
+        onehot_select=args.onehot_select, balanced=args.balance, remat=args.remat,
+        device=device)
     return {"edges_per_s": r.edges_per_s, "steps_per_s": r.steps_per_s,
             "molecules_per_s": r.molecules_per_s, "device": r.device}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
-    from .config import resolve_compute_dtype, resolve_device, resolve_message_impl
+    from .config import (resolve_compute_dtype, resolve_device, resolve_message_impl,
+                         resolve_onehot_window)
 
     device = resolve_device(args.device)
     args.message_impl = resolve_message_impl(args.message_impl, device)
     args.dtype = resolve_compute_dtype(args.dtype, device)
+    args.window = resolve_onehot_window(args.dtype, args.window)
     if args.packed_only or device.type == "cpu" or args.repeats <= 1:
         samples = [_measure(args, device)]
         if args.packed_only:
@@ -80,7 +98,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                  "--batch-size", str(args.batch_size), "--num-steps", str(args.num_steps),
                  "--iters", str(args.iters), "--inner", str(args.inner),
                  "--dtype", args.dtype, "--message-impl", args.message_impl,
-                 "--model", args.model, "--device", str(device)],
+                 "--window", str(args.window), "--onehot-select", args.onehot_select,
+                 "--model", args.model, "--device", str(device)]
+                + (["--balance"] if args.balance else [])
+                + (["--remat"] if args.remat else []),
                 capture_output=True, text=True, timeout=2400,
                 cwd=Path(__file__).resolve().parents[1])
             if proc.returncode != 0:
@@ -99,6 +120,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         "harness": "host",
         "message_impl": args.message_impl,
         "compute_dtype": args.dtype,
+        "onehot_window": args.window,
+        "onehot_select": args.onehot_select,
+        "balanced": args.balance,
+        "remat": args.remat,
         "samples_edges_per_s": [round(s["edges_per_s"], 1) for s in samples],
         "device": med["device"],
     }))

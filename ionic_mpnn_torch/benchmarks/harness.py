@@ -9,10 +9,12 @@ forward and backward.
 
 :func:`bench_packed_train_step` builds the model, optimizer and batches
 from the benchmark's arguments, as the JAX function of that name does
-(its host-packed harness; ``python -m ionic_mpnn_torch.bench`` prints
-it). :func:`time_train_step` times a train step the caller built on one
-packed batch. The JAX harness's roofline fields and its onehot, window,
-tile and remat knobs are not ported.
+(its host-packed harness, with its onehot, window, balance and remat
+options; ``python -m ionic_mpnn_torch.bench`` prints it).
+:func:`time_train_step` times a train step the caller built on one packed
+batch of any layout. Message edges count real edges only, so the rate
+compares across layouts. The JAX harness's roofline fields and its
+tile-probe options (``tight_tile``, ``tile_override``) are not ported.
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..config import TrainConfig, melting_point_config, resolve_device, viscosity_config
+from ..config import (TrainConfig, edge_layout_for, melting_point_config, resolve_device,
+                      viscosity_config)
 from ..data import build_vocab, encode_dataset, iter_batches, plan_capacities, smiles_to_graph
+from ..data.packing import ONEHOT_WINDOW
 from ..data.synthetic import ANION_SMILES, CATION_TEMPLATES
 
 __all__ = ["make_bench_dataset", "BenchResult", "bench_packed_train_step", "time_train_step"]
@@ -144,6 +148,11 @@ def bench_packed_train_step(
     model_kind: str = "viscosity",
     distinct_batches: bool = True,
     scatter_impl: str = "xla",
+    edge_layout: str = "",
+    onehot_select: str = "auto",
+    window: int = 0,
+    balanced: bool = False,
+    remat: bool = False,
     device=None,
 ) -> BenchResult:
     """Message-edges/s of the full train step on one device, as the JAX
@@ -157,13 +166,21 @@ def bench_packed_train_step(
     starts; ``warmup`` calls run first, then ``iters`` timed calls end in
     one wait for the card. The model (``model_kind`` ``"viscosity"`` or
     ``"mp"``) starts from the seed-0 init with Adam 1e-3 and the clip
-    1.0. ``device=None`` means CUDA (raises without it)."""
+    1.0. ``device=None`` means CUDA (raises without it).
+
+    ``edge_layout`` empty plans with ``edge_layout_for(message_impl)``
+    (``"window_aligned"`` for onehot); ``window`` 0 is ``ONEHOT_WINDOW``
+    (128), the model's ``onehot_window`` and the plan's alike;
+    ``balanced`` places aligned molecules by edge load; ``remat``
+    recomputes the onehot op in the backward."""
     from ..models import MeltingPointModel, ViscosityModel
     from ..training import make_train_step
 
     dev = resolve_device(device)
+    window = window or ONEHOT_WINDOW
     kw = dict(num_steps=num_steps, compute_dtype=compute_dtype,
-              message_impl=message_impl, scatter_impl=scatter_impl)
+              message_impl=message_impl, scatter_impl=scatter_impl,
+              onehot_select=onehot_select, onehot_window=window, remat_message=remat)
     if model_kind == "mp":
         cfg = melting_point_config(vocab.atom_vocab_size, vocab.bond_vocab_size, **kw)
         model = MeltingPointModel(cfg, seed=0, device=dev)
@@ -172,7 +189,9 @@ def bench_packed_train_step(
         model = ViscosityModel(cfg, seed=0, device=dev)
     else:
         raise ValueError(f"unknown model_kind {model_kind!r}")
-    plan = plan_capacities(records, batch_size=batch_size)
+    plan = plan_capacities(records, batch_size=batch_size,
+                           edge_layout=edge_layout or edge_layout_for(message_impl),
+                           window=window, balance=balanced)
     head = records[:batch_size]
     if inner > 1 and distinct_batches:
         host = [next(iter_batches(head, plan, shuffle=True, seed=s)) for s in range(inner)]

@@ -9,9 +9,11 @@ splits 80/10/10 (seed-42 random; ``--pair-split`` for the leak-free
 pair-level split), trains the dual-encoder VFT model with early stopping,
 writes ``history_viscosity.pkl`` and ``checkpoints/`` (the best weights,
 the normalizer and ``model_config`` in ``extra``), and prints R² and MAE
-for train, dev and test. It runs on CUDA unless ``--device cpu``. The
-loss-curve and parity plots are not made (the plotting module is not
-ported).
+for train, dev and test. It runs on CUDA unless ``--device cpu``. With
+``--message-impl onehot`` it plans ``window_aligned`` batches
+(``edge_layout_for``) with the window of ``resolve_onehot_window`` (64
+for bf16, 128 for f32, unless ``--window``). The loss-curve and parity
+plots are not made (the plotting module is not ported).
 """
 
 from __future__ import annotations
@@ -43,9 +45,19 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default="auto", choices=["auto", "float32", "bfloat16"],
                     help="auto = bfloat16 on CUDA, float32 on the CPU")
     ap.add_argument("--message-impl", default="auto",
-                    choices=["auto", "gather", "pallas_fused", "pallas_step"],
+                    choices=["auto", "gather", "typed", "symmetric", "onehot",
+                             "pallas_fused", "pallas_step"],
                     help="auto = pallas_step (the CUDA message-step kernel) on CUDA, "
                          "gather on the CPU")
+    ap.add_argument("--window", type=int, default=0,
+                    help="onehot node window (0 = auto: 64 for bf16, 128 for f32)")
+    ap.add_argument("--onehot-select", default="auto",
+                    choices=["auto", "lanes", "vloop", "basis"],
+                    help="the onehot typed-select formulation")
+    ap.add_argument("--balance", action="store_true",
+                    help="LPT window balancing of the window_aligned layout")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute the onehot message op in the backward")
     ap.add_argument("--normalize-y", action="store_true",
                     help="z-score log_eta on train statistics (de-normalized at "
                          "evaluation; the normalizer is saved with the checkpoint)")
@@ -60,8 +72,9 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
 
-    from ..config import (TrainConfig, model_config_to_dict, resolve_compute_dtype,
-                          resolve_device, resolve_message_impl, viscosity_config)
+    from ..config import (TrainConfig, edge_layout_for, model_config_to_dict,
+                          resolve_compute_dtype, resolve_device, resolve_message_impl,
+                          resolve_onehot_window, viscosity_config)
     from ..data import Vocab, plan_capacities
     from ..data.reference_io import load_id_data_npz, load_pickle
     from ..models import ViscosityModel
@@ -85,11 +98,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     test = [records[i] for i in idx_test]
     print(f"split: train={len(train)} dev={len(dev)} test={len(test)}")
 
+    impl = resolve_message_impl(args.message_impl, device)
+    dtype = resolve_compute_dtype(args.dtype, device)
+    window = resolve_onehot_window(dtype, args.window)
     cfg = viscosity_config(
         vocab.atom_vocab_size, vocab.bond_vocab_size,
         num_steps=args.num_steps, parity_mode=args.parity_mode,
-        compute_dtype=resolve_compute_dtype(args.dtype, device),
-        message_impl=resolve_message_impl(args.message_impl, device),
+        compute_dtype=dtype, message_impl=impl, onehot_window=window,
+        onehot_select=args.onehot_select, remat_message=args.remat,
     )
     tcfg = TrainConfig(
         learning_rate=args.lr, epochs=args.epochs, batch_size=args.batch_size,
@@ -100,7 +116,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     # capacities from ALL records so dev/test molecules cannot overflow at eval
     plan = plan_capacities(records, batch_size=tcfg.batch_size,
-                           duplicate_edges=args.parity_mode)
+                           duplicate_edges=args.parity_mode,
+                           edge_layout=edge_layout_for(impl), window=window,
+                           balance=args.balance)
     model = ViscosityModel(cfg, seed=args.seed, device=device)
     result = fit(model, cfg, tcfg, train, dev, plan)
 

@@ -7,11 +7,13 @@ their JAX spellings: in this package ``message_impl="pallas_step"``,
 ``message_impl="pallas_fused"`` and ``scatter_impl="pallas"`` select the
 hand-written CUDA kernels of :mod:`ionic_mpnn_torch.ops.cuda`.
 
-Supported here: ``message_impl`` ``"gather"`` | ``"pallas_fused"`` |
-``"pallas_step"``, ``scatter_impl`` ``"xla"`` | ``"pallas"``,
-``gru_impl="reference"``, ``head`` ``"vft"`` (viscosity) | ``"mlp"``
-(melting point) and ``ep_axis=None``. The model builders raise on any
-other value.
+Supported here: ``message_impl`` ``"gather"`` | ``"typed"`` |
+``"symmetric"`` | ``"onehot"`` | ``"pallas_fused"`` | ``"pallas_step"``,
+``scatter_impl`` ``"xla"`` | ``"pallas"``, ``gru_impl`` ``"reference"`` |
+``"fused"``, ``embed_impl`` ``"auto"`` | ``"gather"`` | ``"onehot"``,
+``onehot_select`` ``"auto"`` | ``"lanes"`` | ``"vloop"`` | ``"basis"``,
+``head`` ``"vft"`` (viscosity) | ``"mlp"`` (melting point) and
+``ep_axis=None``. The model builders raise on any other value.
 
 :class:`TrainConfig` mirrors the JAX dataclass field for field too. The
 train step reads ``loss`` and ``huber_delta``, and ``learning_rate``,
@@ -40,6 +42,8 @@ __all__ = [
     "resolve_message_impl",
     "resolve_compute_dtype",
     "resolve_device",
+    "resolve_onehot_window",
+    "edge_layout_for",
     "torch_dtype",
 ]
 
@@ -64,9 +68,14 @@ def _on_cuda(device) -> bool:
 def resolve_message_impl(impl: str = "auto", device=None) -> str:
     """Resolve ``"auto"``: the fused message-step kernel
     (``"pallas_step"``) on CUDA, ``"gather"`` on the CPU. ``device=None``
-    asks whether CUDA is available. (The JAX package resolves to its
-    one-hot formulation on accelerators; that formulation is not ported
-    yet.)"""
+    asks whether CUDA is available.
+
+    The JAX package resolves ``"auto"`` to ``"onehot"`` on accelerators, a
+    choice it measured on a TPU, where per-row gathers and scatters are
+    slow and matmuls are not. This package carries ``"onehot"`` for
+    parity (JAX checkpoints name it), but keeps the hand-written CUDA step
+    kernel as the CUDA default; ``PERF.md`` holds the two side by side on
+    the H100."""
     if impl != "auto":
         return impl
     return "pallas_step" if _on_cuda(device) else "gather"
@@ -79,6 +88,26 @@ def resolve_compute_dtype(dtype: str = "auto", device=None) -> str:
     if dtype != "auto":
         return dtype
     return "bfloat16" if _on_cuda(device) else "float32"
+
+
+def resolve_onehot_window(compute_dtype: str, window: int = 0,
+                          atom_dim: int = 32) -> int:
+    """The onehot node window, as the JAX package picks it: an explicit
+    ``window`` wins; 256 above D = 32; else 64 for bf16 and 128 for f32.
+    (Those choices were measured on a TPU.)"""
+    if window:
+        return window
+    if atom_dim > 32:
+        return 256
+    return 64 if compute_dtype == "bfloat16" else 128
+
+
+def edge_layout_for(message_impl: str) -> str:
+    """Batch edge layout a message impl needs: ``"window_aligned"`` for
+    ``"onehot"`` (window-tiled edges, and no molecule straddles a window,
+    so the op runs without the 3-window halo); dst-``"sorted"`` COO for
+    everything else. Every impl accepts the window layouts."""
+    return "window_aligned" if message_impl == "onehot" else "sorted"
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -100,17 +129,24 @@ class ModelConfig:
     head: str = "vft"
     parity_mode: bool = False  # reproduce the reference's atom-0 masking quirk
     compute_dtype: str = "float32"
-    # "gather" | "pallas_fused" (CUDA fused message+aggregate kernel) |
-    # "pallas_step" (CUDA kernel: message+aggregate+GatedUpdate)
+    # "gather" | "typed" | "symmetric" | "onehot" (windowed one-hot
+    # matmuls; needs a window edge layout) | "pallas_fused" (CUDA fused
+    # message+aggregate kernel) | "pallas_step" (CUDA kernel:
+    # message+aggregate+GatedUpdate)
     message_impl: str = "gather"
-    # the fields below exist for round-trips with JAX model meta; the
-    # formulations they tune are not ported
-    onehot_window: int = 128
+    onehot_window: int = 128  # node window of "onehot" and the windowed readout
+    # the onehot typed select, one function computed three ways: "vloop"
+    # (V masked (E, D) @ (D, D) products) | "lanes" (one (E, D) @ (D, V·D)
+    # product and a one-hot reduce) | "basis" (contract over the F bond
+    # embedding columns) | "auto" (vloop up to ops.message.VLOOP_MAX_TYPES
+    # table rows, lanes beyond)
     onehot_select: str = "auto"
-    remat_message: bool = False
-    gru_impl: str = "reference"
+    remat_message: bool = False  # recompute the onehot op in the backward
+    gru_impl: str = "reference"  # "fused": z|r|candidate in wider products
     scatter_impl: str = "xla"  # "xla" (index_add_) | "pallas" (CUDA kernel)
-    embed_impl: str = "auto"  # every value gathers here (value-identical)
+    # atom lookup: "gather" | "onehot" ((N, V) one-hot @ table) | "auto"
+    # (onehot when message_impl is onehot and the vocab + 1 <= 128)
+    embed_impl: str = "auto"
     ep_axis: Optional[str] = None
     # VFT head constants (reference models/layers.py:10-42)
     vft_b_clip: Tuple[float, float] = (0.0, 20.0)

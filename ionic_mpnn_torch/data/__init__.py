@@ -9,6 +9,8 @@ from .packing import (
     PackedGraphs,
     pack_graphs,
     pack_ion_pair_batch,
+    window_tile_batch,
+    window_tile_edges,
 )
 from .loader import BatchPlan, plan_capacities, iter_batches
 
@@ -24,6 +26,8 @@ __all__ = [
     "IonPairBatch",
     "pack_graphs",
     "pack_ion_pair_batch",
+    "window_tile_edges",
+    "window_tile_batch",
     "BatchPlan",
     "plan_capacities",
     "iter_batches",

@@ -5,12 +5,16 @@ axis, all directed edges into one edge axis (COO with global node
 indices), plus segment ids mapping nodes → graph slots. Shapes are fixed
 by the node/edge capacities, and edges are sorted by destination node.
 
-This is the ``edge_layout="sorted"`` subset of the JAX package's
-``data/packing.py``, with the same arrays bit for bit. The CUDA kernels
-read the sorted ``dst`` as CSR rows, so :func:`pack_graphs` checks once,
-on the host, that ``dst`` is non-decreasing and raises otherwise. The
-TPU kernels' per-window tile capacity is not checked: the Hopper kernels
-have no such capacity.
+The JAX package's ``data/packing.py``, with the same arrays bit for bit,
+in every edge layout: ``"sorted"`` (dst-sorted COO), ``"window"`` (also
+tiled so that node window ``w`` owns edge slots ``[w·T, (w+1)·T)``) and
+``"window_aligned"`` (the window layout with no molecule straddling a
+window, placed in order or balanced by edge load). The CUDA kernels read
+the sorted ``dst`` as CSR rows, so every batch is checked once, on the
+host, for a non-decreasing ``dst``; the window layouts keep it so (their
+pads are masked self-loops on each window's last node, at the tile's
+tail). The TPU kernels' per-window tile capacity is not checked: the
+Hopper kernels have no such capacity.
 
 The reference-parity quirks carry over: ``duplicate_edges=True`` replays
 the reference's double edge expansion (``train_viscosity.py:85-94``), and
@@ -21,6 +25,7 @@ sends/receives" masking bug (``models/layers.py:74,114-115``).
 from __future__ import annotations
 
 import dataclasses
+import heapq
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -31,9 +36,15 @@ __all__ = [
     "PackedGraphs",
     "IonPairBatch",
     "GraphCapacityError",
+    "assign_windows_balanced",
+    "balanced_offsets",
+    "compute_pool_slots",
     "pack_graphs",
     "pack_ion_pair_batch",
     "round_up",
+    "window_tile_edges",
+    "window_tile_batch",
+    "ONEHOT_WINDOW",
 ]
 
 
@@ -43,6 +54,95 @@ def round_up(x: int, multiple: int) -> int:
 
 class GraphCapacityError(ValueError):
     """Raised when molecules overflow the packing capacity (no silent drops)."""
+
+
+def assign_windows_balanced(
+    n_atoms: np.ndarray,  # (B,) atoms per molecule
+    n_edges: np.ndarray,  # (B,) directed edges per molecule (post-dup)
+    nw: int,  # number of node windows
+    window: int,
+    tile: int,  # per-window edge-slot capacity
+) -> np.ndarray:
+    """LPT assignment of molecules to node windows, balancing EDGES:
+    molecules sorted by edge count (descending, stable) each go to the
+    least-edge-loaded window that still has atom room, so the worst
+    window tracks the mean load. Returns (B,) window ids; raises
+    :class:`GraphCapacityError` when a molecule cannot be placed under the
+    (atom, tile) capacities (the loader then closes the batch earlier)."""
+    B = len(n_atoms)
+    order = np.argsort(-np.asarray(n_edges, np.int64), kind="stable")
+    # each window is in the heap once; (edges_used, atoms_used, w) orders
+    # ties by atoms, then by window id
+    heap = [(0, 0, w) for w in range(nw)]
+    heapq.heapify(heap)
+    out = np.zeros(B, np.int32)
+    for i in order:
+        n = int(n_atoms[i])
+        e = int(n_edges[i])
+        if n > window:
+            raise GraphCapacityError(
+                f"molecule of {n} atoms cannot fit a {window}-node window"
+            )
+        if n == 0:
+            continue
+        deferred = []
+        placed = False
+        while heap:
+            eu, au, w = heapq.heappop(heap)
+            if au + n > window:  # no atom room here; try the next-least
+                deferred.append((eu, au, w))
+                continue
+            if eu + e > tile:
+                # the least-edge-loaded window overflows the tile: no
+                # other window can do better
+                deferred.append((eu, au, w))
+                break
+            heapq.heappush(heap, (eu + e, au + n, w))
+            out[i] = w
+            placed = True
+            break
+        for item in deferred:
+            heapq.heappush(heap, item)
+        if not placed:
+            raise GraphCapacityError(
+                f"balanced placement failed for molecule {int(i)} "
+                f"({n} atoms, {e} edges) under window={window}, tile={tile}"
+            )
+    return out
+
+
+def balanced_offsets(
+    n_atoms: np.ndarray,
+    n_edges: np.ndarray,
+    node_cap: int,
+    window: int,
+    tile: int,
+) -> np.ndarray:
+    """Per-molecule node offsets for balanced placement: the LPT window
+    assignment, then batch order within each window (a grouped cumsum)."""
+    if node_cap % window:
+        raise GraphCapacityError(
+            f"node capacity {node_cap} not a multiple of window {window}"
+        )
+    na = np.asarray(n_atoms, np.int64)
+    win = assign_windows_balanced(na, np.asarray(n_edges, np.int64),
+                                  node_cap // window, window, tile)
+    # a stable sort by window keeps batch order within each window; the
+    # offset inside a window is the cumsum of its earlier molecules
+    ord_ = np.argsort(win, kind="stable")
+    na_o = na[ord_]
+    csum = np.cumsum(na_o) - na_o  # exclusive prefix within the sort
+    win_o = win[ord_]
+    starts = np.zeros(len(ord_), np.int64)
+    if len(ord_):
+        first = np.ones(len(ord_), bool)
+        first[1:] = win_o[1:] != win_o[:-1]
+        group_base = np.where(first, csum, 0)
+        group_base = np.maximum.accumulate(group_base)
+        starts = csum - group_base
+    offsets = np.zeros(len(na), np.int64)
+    offsets[ord_] = win_o.astype(np.int64) * window + starts
+    return offsets
 
 
 def _to_tensor(x, device):
@@ -63,8 +163,8 @@ class PackedGraphs:
     Shapes: N = node capacity, E = edge capacity, B = graph slots. Arrays
     are numpy on the host; :meth:`to` returns the same batch as tensors.
     Pad nodes have ``atom_ids == 0`` and ``node_mask == False``; pad edges
-    have ``edge_mask == False`` and are self-loops spread over the node
-    range. Their bond id is 0, whose message matrix is NOT zero (row 0 of
+    have ``edge_mask == False`` and are self-loops (spread over the node
+    range, or on each window's last node). Their bond id is 0, whose message matrix is NOT zero (row 0 of
     the bond embedding is a trained parameter), so every consumer must
     apply ``edge_mask``.
     """
@@ -78,11 +178,18 @@ class PackedGraphs:
     node_mask: Any  # (N,) bool
     edge_mask: Any  # (E,) bool
     n_graphs: int  # static graph-slot count
-    # True when node_graph is non-decreasing along the node axis (pad rows
-    # forward-filled): the sequential packer always sets it
+    # True when node_graph is non-decreasing along the node axis (pad/gap
+    # rows forward-filled): the sequential and aligned packers set it,
+    # balanced placement cannot (window loads do not follow slot order)
     node_sorted: bool = False
-    edge_layout: str = "sorted"  # the only layout this package packs
-    pool_slot: Optional[Any] = None  # windowed readout only; None here
+    # "sorted" | "window" | "window_aligned" (window ``w`` owns edge slots
+    # [w·T, (w+1)·T) for T = E / (N / window); still dst-sorted COO)
+    edge_layout: str = "sorted"
+    # window_aligned batches placed in order only: graph g's pooled sum is
+    # row pool_slot[g] of the per-window one-hot pool
+    # (ops.segment.graph_sum_pool_windowed); -1 marks an empty slot. None
+    # on every other layout (the readout then sums by segment)
+    pool_slot: Optional[Any] = None  # (B,) int32
 
     @property
     def node_capacity(self) -> int:
@@ -96,6 +203,8 @@ class PackedGraphs:
         """The same batch with every array as a tensor on ``device``."""
         arrays = {name: _to_tensor(getattr(self, name), device)
                   for name in _ARRAY_FIELDS}
+        if self.pool_slot is not None:
+            arrays["pool_slot"] = _to_tensor(self.pool_slot, device)
         return dataclasses.replace(self, **arrays)
 
 
@@ -141,6 +250,8 @@ def pack_graphs(
     n_graphs: Optional[int] = None,
     duplicate_edges: bool = False,
     sort_edges_by_dst: bool = True,
+    node_align: int = 0,
+    balance_tile: int = 0,
 ) -> PackedGraphs:
     """Pack id-encoded molecule dicts into one fixed-capacity batch.
 
@@ -155,6 +266,13 @@ def pack_graphs(
         sort_edges_by_dst: stable-sort the edge list by destination node.
             Without it the edges keep their input order, and the batch is
             accepted only if that order already has non-decreasing ``dst``.
+        node_align: > 0 forbids molecules from straddling ``node_align``-node
+            window boundaries (an offset moves to the next boundary
+            instead): the ``edge_layout="window_aligned"`` contract.
+        balance_tile: > 0 (aligned layouts only) places molecules with
+            :func:`assign_windows_balanced` instead of in order, under a
+            per-window edge tile of ``balance_tile``; raises on an
+            infeasible placement (the loader retries with fewer records).
     """
     B = len(graphs)
     if n_graphs is None:
@@ -171,13 +289,42 @@ def pack_graphs(
     dst_parts: List[np.ndarray] = []
     bond_parts: List[np.ndarray] = []
 
-    offset = 0
+    mult = 2 if duplicate_edges else 1
+    if balance_tile > 0:
+        if node_align <= 1:
+            raise ValueError("balance_tile requires node_align (aligned layout)")
+        if node_cap % node_align:
+            raise GraphCapacityError(
+                f"node capacity {node_cap} not a multiple of window {node_align}"
+            )
+        na = np.asarray([int(g["num_atoms"]) for g in graphs], np.int64)
+        ne = np.asarray(
+            [len(g["edge_indices"]) * mult for g in graphs], np.int64
+        )
+        offsets = balanced_offsets(na, ne, node_cap, node_align, balance_tile)
+    else:
+        offsets = np.zeros(len(graphs), np.int64)
+        offset = 0
+        for g_idx, g in enumerate(graphs):
+            n = int(g["num_atoms"])
+            if node_align > 1 and n:
+                if n > node_align:
+                    raise GraphCapacityError(
+                        f"molecule of {n} atoms cannot fit a {node_align}-node "
+                        f"aligned window"
+                    )
+                if offset % node_align + n > node_align:
+                    offset = round_up(offset, node_align)
+            if offset + n > node_cap:
+                raise GraphCapacityError(
+                    f"node capacity {node_cap} exceeded at graph {g_idx} ({offset}+{n})"
+                )
+            offsets[g_idx] = offset
+            offset += n
+
     for g_idx, g in enumerate(graphs):
         n = int(g["num_atoms"])
-        if offset + n > node_cap:
-            raise GraphCapacityError(
-                f"node capacity {node_cap} exceeded at graph {g_idx} ({offset}+{n})"
-            )
+        offset = int(offsets[g_idx])
         atom_ids[offset : offset + n] = np.asarray(g["atom_ids"], np.int32) + 1
         node_graph[offset : offset + n] = g_idx
         node_local[offset : offset + n] = np.arange(n, dtype=np.int32)
@@ -192,7 +339,6 @@ def pack_graphs(
             src_parts.append(edges[:, 0] + offset)
             dst_parts.append(edges[:, 1] + offset)
             bond_parts.append(bonds_g)
-        offset += n
 
     srcs = np.concatenate(src_parts) if src_parts else np.zeros(0, np.int32)
     dsts = np.concatenate(dst_parts) if dst_parts else np.zeros(0, np.int32)
@@ -228,9 +374,11 @@ def pack_graphs(
         edge_mask = edge_mask[order]
     check_dst_sorted(dst)
 
-    # forward-fill pad/gap rows so node_graph is non-decreasing (the rows
-    # are masked; sequential placement keeps real ids ascending)
-    np.maximum.accumulate(node_graph, out=node_graph)
+    node_sorted = balance_tile <= 0
+    if node_sorted:
+        # forward-fill pad/gap rows so node_graph is non-decreasing (the
+        # rows are masked; placement in order keeps real ids ascending)
+        np.maximum.accumulate(node_graph, out=node_graph)
 
     return PackedGraphs(
         atom_ids=atom_ids,
@@ -242,7 +390,7 @@ def pack_graphs(
         node_mask=node_mask,
         edge_mask=edge_mask,
         n_graphs=int(n_graphs),
-        node_sorted=True,
+        node_sorted=node_sorted,
     )
 
 
@@ -258,8 +406,11 @@ def pack_ion_pair_batch(
     target_key: str = "log_eta",
     with_temperature: bool = True,
     duplicate_edges: bool = False,
+    node_align: int = 0,
+    balance_tile: int = 0,
     anion_node_cap: int = 0,
     anion_edge_cap: int = 0,
+    anion_balance_tile: int = 0,
 ) -> IonPairBatch:
     """Pack up to ``batch_size`` id-data records (reference ``*_id_data.pkl``
     row format) into one :class:`IonPairBatch`; short batches are padded
@@ -271,9 +422,12 @@ def pack_ion_pair_batch(
         raise GraphCapacityError(f"{n_real} records > batch size {B}")
     cat_graphs = [r["cation"] for r in records] + [_empty_graph()] * (B - n_real)
     an_graphs = [r["anion"] for r in records] + [_empty_graph()] * (B - n_real)
-    cation = pack_graphs(cat_graphs, node_cap, edge_cap, B, duplicate_edges)
+    cation = pack_graphs(cat_graphs, node_cap, edge_cap, B, duplicate_edges,
+                         node_align=node_align, balance_tile=balance_tile)
     anion = pack_graphs(an_graphs, anion_node_cap or node_cap,
-                        anion_edge_cap or edge_cap, B, duplicate_edges)
+                        anion_edge_cap or edge_cap, B, duplicate_edges,
+                        node_align=node_align,
+                        balance_tile=anion_balance_tile or balance_tile)
     temperature = np.zeros((B, 1), np.float32)
     y = np.zeros(B, np.float32)
     mask = np.zeros(B, np.float32)
@@ -283,3 +437,153 @@ def pack_ion_pair_batch(
         y[i] = float(r[target_key])
         mask[i] = 1.0
     return IonPairBatch(cation=cation, anion=anion, temperature=temperature, y=y, sample_mask=mask)
+
+
+# ---------------------------------------------------------------------------
+# Window-tiled edge layout (for the one-hot message path)
+# ---------------------------------------------------------------------------
+
+ONEHOT_WINDOW = 128  # node window for message_impl="onehot"
+
+
+def compute_pool_slots(
+    node_graph: np.ndarray,
+    node_mask: np.ndarray,
+    window: int,
+    n_graphs: int,
+) -> np.ndarray:
+    """Per-graph windowed-readout row ``w(g)·W + (g − node_graph[w(g)·W])``.
+
+    Valid only when no molecule straddles a window (window_aligned
+    packing in order): graph ``g``'s complete masked node sum is then row
+    ``pool_slot[g]`` of the per-window one-hot pool
+    (:func:`ionic_mpnn_torch.ops.segment.graph_sum_pool_windowed`). Empty
+    graph slots get −1."""
+    ng = np.asarray(node_graph).astype(np.int64)
+    nm = np.asarray(node_mask)
+    slots = np.full(n_graphs, -1, np.int32)
+    real = np.flatnonzero(nm)
+    if not len(real):
+        return slots
+    gids = ng[real]
+    # first real node row per graph (reversed assignment: earliest wins)
+    first = np.full(n_graphs, -1, np.int64)
+    first[gids[::-1]] = real[::-1]
+    has = first >= 0
+    w = first[has] // window
+    base = ng[w * window]  # first graph id addressed by each window
+    local = np.arange(n_graphs, dtype=np.int64)[has] - base
+    if len(local) and (local.min() < 0 or local.max() >= window):
+        raise GraphCapacityError(
+            "windowed readout addressing violated — batch is not "
+            "window-aligned (a molecule straddles a window or windows "
+            "start with gap rows)"
+        )
+    slots[has] = (w * window + local).astype(np.int32)
+    return slots
+
+
+def window_tile_edges(
+    g: PackedGraphs, tile: int, window: int = ONEHOT_WINDOW,
+    aligned: bool = False,
+) -> PackedGraphs:
+    """Re-lay a dst-sorted packed batch into fixed per-window edge tiles.
+
+    Window ``w`` owns nodes ``[w*window, (w+1)*window)``; its real edges
+    (``dst`` in that range, contiguous because the input is dst-sorted)
+    move to slots ``[w*tile, w*tile + count)``, order kept; the remaining
+    slots are masked self-loop pads on the window's last node, at the
+    tile's tail, so the result is still globally dst-sorted COO (every
+    impl and every CUDA kernel accepts it). Raises
+    :class:`GraphCapacityError` if a window holds more than ``tile`` real
+    edges, if ``aligned`` and an edge crosses a window boundary, or if not
+    ``aligned`` and an edge spans a window or more (the halo's reach);
+    never truncates."""
+    node_cap = g.node_capacity
+    if node_cap % window:
+        raise GraphCapacityError(
+            f"node capacity {node_cap} not a multiple of window {window}"
+        )
+    nw = node_cap // window
+    dst = np.asarray(g.dst)
+    mask = np.asarray(g.edge_mask)
+    real = np.flatnonzero(mask)
+    w_of = dst[real] // window
+    counts = np.bincount(w_of, minlength=nw)
+    if len(real):
+        if aligned:
+            if np.any(np.asarray(g.src)[real] // window != w_of):
+                raise GraphCapacityError(
+                    "edge crosses a window boundary — batch was not packed "
+                    "with node_align=window (edge_layout='window_aligned')"
+                )
+        else:
+            # the halo reaches src within ±window of dst
+            span = int(np.abs(np.asarray(g.src)[real].astype(np.int64)
+                              - dst[real].astype(np.int64)).max())
+            if span >= window:
+                raise GraphCapacityError(
+                    f"edge src/dst span {span} >= onehot window {window} — "
+                    f"a molecule exceeds the window locality contract"
+                )
+    if counts.max(initial=0) > tile:
+        raise GraphCapacityError(
+            f"window tile capacity {tile} exceeded (max {int(counts.max())} "
+            f"real edges in one {window}-node window); raise the plan's "
+            f"edge_tile"
+        )
+    starts = np.zeros(nw + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    # real edges are dst-sorted, so already grouped by window in order
+    within = np.arange(len(real), dtype=np.int64) - starts[w_of]
+    new_pos = w_of * tile + within
+
+    E2 = nw * tile
+    # pads: masked self-loops on each window's LAST node, after the
+    # window's real edges: dst stays globally sorted, |src - dst| = 0
+    pad_node = (
+        np.repeat(np.arange(nw, dtype=np.int32), tile) * window + window - 1
+    )
+    src = pad_node.copy()
+    dst2 = pad_node.copy()
+    bond_ids = np.zeros(E2, np.int32)
+    edge_mask = np.zeros(E2, bool)
+    src[new_pos] = np.asarray(g.src)[real]
+    dst2[new_pos] = dst[real]
+    bond_ids[new_pos] = np.asarray(g.bond_ids)[real]
+    edge_mask[new_pos] = True
+    check_dst_sorted(dst2)
+    return PackedGraphs(
+        atom_ids=g.atom_ids,
+        bond_ids=bond_ids,
+        src=src,
+        dst=dst2,
+        node_graph=g.node_graph,
+        node_local=g.node_local,
+        node_mask=g.node_mask,
+        edge_mask=edge_mask,
+        n_graphs=g.n_graphs,
+        edge_layout="window_aligned" if aligned else "window",
+        node_sorted=g.node_sorted,
+        # the windowed readout is exact only when no molecule straddles a
+        # window and windows follow slot order (aligned, not balanced)
+        pool_slot=(compute_pool_slots(g.node_graph, g.node_mask, window,
+                                      g.n_graphs)
+                   if aligned and g.node_sorted else None),
+    )
+
+
+def window_tile_batch(
+    batch: IonPairBatch, tile: int, window: int = ONEHOT_WINDOW,
+    aligned: bool = False, anion_tile: int = 0,
+) -> IonPairBatch:
+    """:func:`window_tile_edges` on both ions of a batch (``anion_tile``
+    sizes that side's tiles; 0 = ``tile``)."""
+    return IonPairBatch(
+        cation=window_tile_edges(batch.cation, tile, window, aligned),
+        anion=window_tile_edges(batch.anion, anion_tile or tile, window,
+                                aligned),
+        temperature=batch.temperature,
+        y=batch.y,
+        sample_mask=batch.sample_mask,
+    )

@@ -6,7 +6,9 @@ assembly (``train_viscosity.py:150-201``):
   * atom/bond embedding tables are SHARED between the cation and anion
     encoders, and nothing else is: each encoder owns ``num_steps`` fresh
     (BondMatrixMessage, GatedUpdate) pairs,
-  * readout = masked global sum pool → Dense(fp_size, relu),
+  * readout = masked global sum pool → Dense(fp_size, relu); on
+    window_aligned batches (``pool_slot`` set) the windowed one-hot pool,
+    for every message impl, as in JAX,
   * mixing = Dense(mixing_size, relu) per ion, summed elementwise.
 
 Submodule names follow the flax param tree (``bmm_{i}``, ``gru_{i}``,
@@ -19,19 +21,21 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig, torch_dtype
 from ..data.packing import PackedGraphs
 from ..ops.cuda.fused_step import fused_mp_step
 from ..ops.cuda.segment_sum import csr_rowptr
-from ..ops.message import bond_type_matrices, parity_edge_mask
-from ..ops.segment import graph_sum_pool
+from ..ops.message import bond_type_matrices, onehot_operands, parity_edge_mask
+from ..ops.segment import graph_sum_pool, graph_sum_pool_windowed
 from .layers import BondMatrixMessage, GatedUpdate, dense, keras_embed_init_
 
 __all__ = ["IonEncoder", "DualEncoderTrunk", "check_config"]
 
-_MESSAGE_IMPLS = ("gather", "pallas_fused", "pallas_step")
+_MESSAGE_IMPLS = ("gather", "typed", "symmetric", "onehot", "pallas_fused",
+                  "pallas_step")
 
 
 def check_config(cfg: ModelConfig) -> None:
@@ -42,8 +46,12 @@ def check_config(cfg: ModelConfig) -> None:
             f"{', '.join(_MESSAGE_IMPLS)})")
     if cfg.scatter_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown scatter_impl {cfg.scatter_impl!r}")
-    if cfg.gru_impl != "reference":
+    if cfg.gru_impl not in ("reference", "fused"):
         raise NotImplementedError(f"gru_impl={cfg.gru_impl!r} is not ported")
+    if cfg.embed_impl not in ("auto", "gather", "onehot"):
+        raise ValueError(f"unknown embed_impl {cfg.embed_impl!r}")
+    if cfg.onehot_select not in ("auto", "lanes", "vloop", "basis"):
+        raise ValueError(f"unknown onehot_select {cfg.onehot_select!r}")
     if cfg.ep_axis is not None:
         raise NotImplementedError("edge partitioning (ep_axis) is not ported")
     if cfg.head not in ("vft", "mlp"):
@@ -63,25 +71,53 @@ class IonEncoder(nn.Module):
             self.add_module(f"bmm_{step}", BondMatrixMessage(
                 cfg.atom_dim, cfg.bond_dim, generator, compute_dtype=self.dtype,
                 impl="gather" if cfg.message_impl == "pallas_step" else cfg.message_impl,
-                scatter=cfg.scatter_impl))
+                scatter=cfg.scatter_impl, window=cfg.onehot_window,
+                select=cfg.onehot_select, remat=cfg.remat_message))
             self.add_module(f"gru_{step}", GatedUpdate(
                 cfg.atom_dim, generator,
                 # None for f32 keeps the exact f32 promotion of the flax module
-                compute_dtype=None if self.dtype == torch.float32 else self.dtype))
+                compute_dtype=None if self.dtype == torch.float32 else self.dtype,
+                impl=cfg.gru_impl))
         self.fp_dense = dense(cfg.atom_dim, cfg.fp_size, generator)
+
+    def embed_impl(self) -> str:
+        """``cfg.embed_impl`` resolved: ``"auto"`` is ``"onehot"`` for the
+        onehot message impl while the atom vocab + 1 <= 128."""
+        cfg = self.cfg
+        if cfg.embed_impl != "auto":
+            return cfg.embed_impl
+        return ("onehot" if cfg.message_impl == "onehot"
+                and cfg.atom_vocab_size + 1 <= 128 else "gather")
 
     def forward(self, graphs: PackedGraphs, atom_table: torch.Tensor,
                 bond_table: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         N = graphs.node_capacity
-        h = atom_table.index_select(0, graphs.atom_ids.long()).to(self.dtype)
+        if self.embed_impl() == "onehot":
+            # value-identical to the gather; the table's gradient is a
+            # product, summed in f32 and rounded to the compute dtype (the
+            # cotangent of the table's cast), per encoder
+            oh = F.one_hot(graphs.atom_ids.long(), atom_table.shape[0])
+            h = (oh.float() @ atom_table.to(self.dtype).float()).to(self.dtype)
+        else:
+            h = atom_table.index_select(0, graphs.atom_ids.long()).to(self.dtype)
         edge_mask = graphs.edge_mask
         if cfg.parity_mode:
             edge_mask = parity_edge_mask(graphs.src, graphs.dst, graphs.node_local,
                                          edge_mask)
-        kernels = cfg.message_impl != "gather" or cfg.scatter_impl == "pallas"
+        kernels = (cfg.message_impl in ("pallas_fused", "pallas_step")
+                   or (cfg.message_impl == "gather" and cfg.scatter_impl == "pallas"))
         # CSR rows of the sorted dst, shared by every step's kernel
         rowptr = csr_rowptr(graphs.dst, N) if kernels and h.is_cuda else None
+        # window_aligned batches need no 3-window src halo
+        halo = graphs.edge_layout != "window_aligned"
+        operands = None
+        if cfg.message_impl == "onehot":
+            # built once per forward and shared by every step (XLA's CSE
+            # does this in the JAX package)
+            operands = onehot_operands(graphs.bond_ids, graphs.src, graphs.dst,
+                                       edge_mask, N, bond_table.shape[0],
+                                       cfg.onehot_window, halo, self.dtype)
 
         for step in range(cfg.num_steps):
             bmm = getattr(self, f"bmm_{step}")
@@ -93,11 +129,17 @@ class IonEncoder(nn.Module):
                                   graphs.src, graphs.dst, edge_mask, N, rowptr=rowptr)
                 continue
             agg = bmm(h, bond_table, graphs.bond_ids, graphs.src, graphs.dst,
-                      edge_mask, rowptr=rowptr)
+                      edge_mask, rowptr=rowptr, halo=halo, operands=operands)
             h = gru(h, agg)
 
-        pooled = graph_sum_pool(h, graphs.node_graph, graphs.n_graphs,
-                                graphs.node_mask, node_sorted=graphs.node_sorted)
+        if graphs.pool_slot is not None:
+            # aligned batches: the windowed one-hot readout (f32 out)
+            pooled = graph_sum_pool_windowed(h, graphs.node_graph, graphs.node_mask,
+                                             graphs.pool_slot, cfg.onehot_window,
+                                             graphs.n_graphs)
+        else:
+            pooled = graph_sum_pool(h, graphs.node_graph, graphs.n_graphs,
+                                    graphs.node_mask, node_sorted=graphs.node_sorted)
         return torch.relu(self.fp_dense(pooled.float()))
 
 

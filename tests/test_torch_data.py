@@ -97,5 +97,7 @@ def test_batch_to_device_gives_tensors(bench64):
 
 
 def test_window_layouts_are_refused(bench64):
-    with pytest.raises(NotImplementedError):
-        tdata.plan_capacities(bench64[0][0], 16, edge_layout="window_aligned")
+    """A window layout refuses what it cannot hold: a molecule larger than
+    the aligned window (the layouts themselves are ported)."""
+    with pytest.raises(ValueError, match="exceeds the alignment window"):
+        tdata.plan_capacities(bench64[0][0], 16, edge_layout="window_aligned", window=8)

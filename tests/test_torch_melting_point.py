@@ -180,6 +180,7 @@ def test_fit_with_normalized_targets_matches_jax(setup, jax_fit, impl):
 
 BENCH_FIELDS = {"metric", "value", "unit", "steps_per_s", "molecules_per_s", "batch_size",
                 "num_steps", "model", "harness", "message_impl", "compute_dtype",
+                "onehot_window", "onehot_select", "balanced", "remat",
                 "samples_edges_per_s", "device"}
 
 

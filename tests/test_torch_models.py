@@ -158,6 +158,6 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(setup):
 
 def test_unported_options_raise(setup):
     t_cfg = model_config_from_dict(j_to_dict(setup["cfg"]))
-    for kw in ({"message_impl": "onehot"}, {"gru_impl": "fused"}, {"ep_axis": "edge"}):
+    for kw in ({"ep_axis": "edge"}, {"head": "transfer"}, {"message_impl": "dense"}):
         with pytest.raises(NotImplementedError):
             TModel(t_cfg.replace(**kw), device="cpu")
