@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card and
-check them.
+"""Drive the PyTorch port's serving and training paths, and its reproduction
+chain of CLIs, on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -105,8 +105,28 @@ Phases, in order (any failure raises and the script exits non-zero):
    batches, with message-edges/s and peak memory; their profiler readings
    (busy time, idle share, top kernels; a session each) and pallas_step's
    fused-kernel device time per forward on aligned against sorted batches
-   come last, after phase 11.
-11. Times. Wall times first (CUDA events, before torch.profiler attaches):
+   come last, after phase 13.
+11. Transfer: the transfer model at full width (phase 5's viscosity trunk
+   and weights, head 256/128/64, dropout 0) on the three bench batches
+   planned without temperature, with a seed-1 teacher's melting points.
+   ``predict`` in ``pallas_step`` f32 against plain ``gather`` f32 in eval
+   mode (rtol/atol 1e-4, 8 ``fused_mp_step`` per forward); then one
+   stage-1 (head only) and one stage-2 (plus steps 2-3 and the mixing
+   projections) train step on both from the same weights: losses and
+   gradients within phase 6's f32 bounds, every frozen tensor bit for bit
+   unchanged, the BatchNorm running statistics at 1e-4, and exactly 8
+   ``fused_mp_step`` and 0 ``fused_message_aggregate`` in stage 1, 8 and 6
+   (2 of them ``dh``) in stage 2.
+12. Chain: the reproduction path as users run it, each CLI a process of
+   its own (``python -m ionic_mpnn_torch.cli.*``, no JAX) in a temporary
+   directory: ``prepare_data --synthetic`` at the reference scale (7,666
+   viscosity rows, 400 melting-point draws), ``train_viscosity``,
+   ``train_melting_point`` and ``train_transfer`` (on train_viscosity's
+   checkpoint) for 2 epochs each, then ``evaluate``. Each exits 0, writes
+   its files and reports CUDA kernel launches; ``evaluate`` repeats each
+   training CLI's R² and MAE. Per CLI its seconds and R² lines, and per
+   transfer stage its epoch seconds and train steps/s.
+13. Times. Wall times first (CUDA events, before torch.profiler attaches):
    each wrapper call at the cation shape (median of 60), each forward per
    batch (median of 50), the host time each kernel's autograd Function would
    add to a launch in inference mode (the wrapper's direct launch and the
@@ -1547,9 +1567,9 @@ def phase_onehot(records, sorted_plan, vocab, state, dev, fit_data):
 
     def profile(sorted_forward):
         """Busy time, idle share and top kernels of the timed forwards and
-        train steps (a profiler session each, as phase 11 takes them), and
+        train steps (a profiler session each, as phase 13 takes them), and
         the fused kernels' device time per forward on aligned batches
-        against ``sorted_forward``, phase 11's profile of the same
+        against ``sorted_forward``, phase 13's profile of the same
         configuration on sorted batches."""
         t0 = time.perf_counter()
         with torch.inference_mode():
@@ -1596,6 +1616,260 @@ def phase_onehot(records, sorted_plan, vocab, state, dev, fit_data):
 
 
 # ---------------------------------------------------------------- phase 11
+
+# Launches of one transfer-model train step (4 message steps, pallas_step),
+# reckoned from the code: the forward runs 8 fused_mp_step whatever is
+# frozen. Stage 1 freezes the trunk, so no message step records a gradient
+# and none goes through the FusedMPStep Function: no backward launch. Stage
+# 2 unfreezes steps 2-3 of each ion: step 2's input state is frozen, so
+# its backward runs the remat alone; step 3's also needs dh. Per ion 3
+# fused_message_aggregate of which 1 dh.
+TRANSFER_LAUNCHES = {
+    1: {"sorted_segment_sum": 0, "fused_message_aggregate": 0, "fused_mp_step": 8,
+        "fused_message_aggregate_dh": 0},
+    2: {"sorted_segment_sum": 0, "fused_message_aggregate": 6, "fused_mp_step": 8,
+        "fused_message_aggregate_dh": 2},
+}
+BN_TOL = 1e-4  # the BatchNorm running statistics against plain's
+
+
+def phase_transfer(records, vocab, state):
+    """The transfer model at full width (the viscosity trunk of [main]'s
+    weights, head 256/128/64, dropout 0) on the bench batches planned
+    without temperature, with a teacher's melting points: the pallas_step
+    f32 forward against plain gather f32 in eval mode, then one stage-1 and
+    one stage-2 train step (Huber, partitioned Adam) on both from the same
+    weights: losses and gradients within TRAIN_TOL, frozen tensors bit
+    for bit unchanged, BatchNorm statistics at BN_TOL, launch counts exact."""
+    from ionic_mpnn_torch.config import TrainConfig, viscosity_config
+    from ionic_mpnn_torch.data import iter_batches, plan_capacities
+    from ionic_mpnn_torch.models import (TransferMPModel, load_trunk_params,
+                                         transfer_stage_labels)
+    from ionic_mpnn_torch.ops import cuda as kernels
+    from ionic_mpnn_torch.training import make_partitioned_optimizer, make_train_step, predict
+
+    t_phase = time.perf_counter()
+    base = viscosity_config(vocab.atom_vocab_size, vocab.bond_vocab_size,
+                            transfer_dropout=0.0).replace(head="transfer")
+    plan = plan_capacities([dict(r, mp=0.0) for r in records], BATCH, headroom=2.0,
+                           with_temperature=False, target_key="mp")
+    teacher = TransferMPModel(base, seed=1)
+    load_trunk_params(teacher, state)
+    records = teacher_records([dict(r, mp=0.0) for r in records], plan, teacher, "mp")
+    batches = list(iter_batches(records, plan))
+    if len(batches) != N_BATCHES:
+        raise AssertionError(f"transfer: {len(batches)} batches, expected {N_BATCHES}")
+
+    def model_for(impl):
+        cfg = base.replace(message_impl=impl)
+        model = TransferMPModel(cfg, seed=0)
+        load_trunk_params(model, state)
+        return model, cfg
+
+    plain, plain_cfg = model_for("gather")
+    kernel, kernel_cfg = model_for("pallas_step")
+    kernel.load_state_dict(plain.state_dict())
+    want = predict(plain, records, plan)
+    kernels.reset_launch_counts()
+    got = predict(kernel, records, plan)
+    counts = kernels.launch_counts()
+    expect = {k: N_BATCHES * TRANSFER_LAUNCHES[1].get(k, 0) if k == "fused_mp_step" else 0
+              for k in counts}
+    if counts != expect:
+        raise AssertionError(f"transfer predict: launch counts {counts}, expected {expect}")
+    launches = dict(counts)
+    err = close("transfer predict pallas_step f32", torch.from_numpy(got),
+                torch.from_numpy(want), *MODEL_TOL)
+    log(f"[transfer] predict over {len(records)} records in {N_BATCHES} batches (eval "
+        f"mode): fused_mp_step launched {counts['fused_mp_step']} times, pred max|err| "
+        f"{err:.3e} vs plain gather f32 (rtol/atol {MODEL_TOL[0]})")
+
+    tcfg = TrainConfig(loss="huber", huber_delta=1.0)
+    grad_tol, loss_tols = TRAIN_TOL["float32"]
+    out = {"predict_max_abs_err": err, "steps": {}}
+    for stage, batch in ((1, batches[0]), (2, batches[1])):
+        results = {}
+        for name, model, cfg in (("plain", plain, plain_cfg), ("kernel", kernel, kernel_cfg)):
+            labels = transfer_stage_labels(model, stage)
+            opt = make_partitioned_optimizer(model, labels, 1e-3 if stage == 1 else 1e-4)
+            step = make_train_step(model, cfg, tcfg, opt)
+            before = {k: p.detach().clone() for k, p in model.named_parameters()}
+            kernels.reset_launch_counts()
+            loss = float(step(batch)["loss"])
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            frozen = [k for k, v in labels.items() if v == "frozen"]
+            params = dict(model.named_parameters())
+            moved = [k for k in frozen if not torch.equal(params[k].detach(), before[k])]
+            if moved:
+                raise AssertionError(f"transfer stage {stage} {name}: frozen tensors moved: "
+                                     f"{moved[:5]}")
+            grads = {k: p.grad.detach().clone() for k, p in params.items()
+                     if labels[k] == "trainable"}
+            if not all(torch.isfinite(g).all() for g in grads.values()) or not np.isfinite(loss):
+                raise AssertionError(f"transfer stage {stage} {name}: non-finite step")
+            results[name] = {"loss": loss, "counts": counts, "grads": grads,
+                             "stats": {k: v.clone() for k, v in model.named_buffers()},
+                             "trainable": len(grads), "frozen": len(frozen)}
+        want_counts = {k: TRANSFER_LAUNCHES[stage].get(k, 0) for k in results["kernel"]["counts"]}
+        if results["kernel"]["counts"] != want_counts:
+            raise AssertionError(f"transfer stage {stage}: launch counts "
+                                 f"{results['kernel']['counts']}, expected {want_counts}")
+        if any(results["plain"]["counts"].values()):
+            raise AssertionError(f"transfer stage {stage}: plain launched kernels")
+        for k, v in results["kernel"]["counts"].items():
+            launches[k] += v
+        a, b = results["kernel"]["loss"], results["plain"]["loss"]
+        if abs(a - b) > loss_tols[stage - 1] * abs(b):
+            raise AssertionError(f"transfer stage {stage}: loss {a!r} vs plain {b!r}")
+        g_err = grads_close(f"transfer stage {stage}", results["kernel"]["grads"],
+                            results["plain"]["grads"], grad_tol)
+        bn_err = max(close(f"transfer stage {stage} {k}", v, results["plain"]["stats"][k],
+                           BN_TOL, BN_TOL)
+                     for k, v in results["kernel"]["stats"].items())
+        out["steps"][f"stage {stage}"] = {
+            "loss": a, "plain_loss": b, "grad_err": g_err, "bn_err": bn_err,
+            "launches": results["kernel"]["counts"],
+            "trainable_tensors": results["kernel"]["trainable"],
+            "frozen_tensors": results["kernel"]["frozen"]}
+        log(f"[transfer] stage {stage} train step: loss {a!r} (plain {b!r}), "
+            f"{results['kernel']['trainable']} trainable / {results['kernel']['frozen']} "
+            f"frozen tensors, frozen bit-identical, max gradient |err| {g_err:.3e} of the "
+            f"tensor's max, BatchNorm statistics max|err| {bn_err:.3e}, launches "
+            f"{results['kernel']['counts']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[transfer] phase {out['seconds']:.1f} s")
+    return out, launches
+
+
+# ---------------------------------------------------------------- phase 12
+
+CHAIN_EPOCHS = 2
+CHAIN_TIMEOUT = 600
+# runs the module named by its first argument as `python -m` would, after
+# making every import of JAX, its libraries and the JAX package fail
+CHAIN_NO_JAX = (
+    "import runpy, sys\n"
+    "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ionic_mpnn_tpu'):\n"
+    "    sys.modules[name] = None\n"
+    "module = sys.argv.pop(1)\n"
+    "runpy.run_module(module, run_name='__main__', alter_sys=True)\n")
+
+
+def chain_metrics(text):
+    """``{split: (r2, mae)}`` from a CLI's ``Split: R2=x, MAE=y`` lines."""
+    out = {}
+    for m in re.finditer(r"^\s*(Train|Dev|Test): R2=(\S+), MAE=(\S+)", text, re.M):
+        out[m.group(1)] = (float(m.group(2).rstrip(",")), float(m.group(3)))
+    return out
+
+
+def phase_chain():
+    """The reproduction chain as users run it, each CLI a process of its own
+    (``python -m ionic_mpnn_torch.cli.*``, with every import of JAX made to
+    fail, whether or not the machine has it): prepare_data
+    --synthetic at the reference scale, train_viscosity, train_melting_point,
+    train_transfer on train_viscosity's checkpoint, evaluate. Each must exit
+    0, write its files, report launches of the CUDA kernels, and evaluate's
+    metrics must repeat each training CLI's."""
+    import importlib.util
+    import tempfile
+
+    t_phase = time.perf_counter()
+    log(f"[chain] jax installed here: {importlib.util.find_spec('jax') is not None}; "
+        f"every CLI process below blocks its import")
+    out = {"steps": {}}
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data, res = Path(tmp) / "data", Path(tmp) / "results"
+        vocab = ["--vocab", str(data / "vocab.pkl")]
+        epochs = ["--epochs", str(CHAIN_EPOCHS)]
+        steps = [
+            ("prepare_data", ["--data-dir", str(data), "--synthetic"],
+             [data / f for f in ("CA.smi", "VISCOSITY.txt", "MP.txt", "vocab.pkl",
+                                 "viscosity_graph_data.pkl", "mp_graph_data.pkl",
+                                 "viscosity_id_data.pkl", "mp_id_data.pkl",
+                                 "viscosity_id_data.npz", "mp_id_data.npz")]),
+            ("train_viscosity", ["--data", str(data / "viscosity_id_data.pkl"), *vocab,
+                                 "--out-dir", str(res / "viscosity"), *epochs],
+             [res / "viscosity" / "history_viscosity.pkl", res / "viscosity" / "checkpoints"]),
+            ("train_melting_point", ["--data", str(data / "mp_id_data.pkl"), *vocab,
+                                     "--out-dir", str(res / "melting_point"), *epochs],
+             [res / "melting_point" / f for f in ("history_mp.pkl", "checkpoints",
+                                                  "mp_norm_params.json")]),
+            ("train_transfer", ["--data", str(data / "mp_id_data.pkl"), *vocab,
+                                "--viscosity-checkpoint",
+                                str(res / "viscosity" / "checkpoints"),
+                                "--out-dir", str(res / "transfer"), *epochs],
+             [res / "transfer" / f for f in ("history_transfer.pkl", "checkpoints",
+                                             "scaler.json")]),
+            ("evaluate", ["--data-dir", str(data), "--results-dir", str(res),
+                          "--out-dir", str(res / "eval")], [res / "eval" / "metrics.json"]),
+        ]
+        for name, args, files in steps:
+            # python -m, with JAX and the JAX package unimportable
+            cmd = [sys.executable, "-c", CHAIN_NO_JAX, f"ionic_mpnn_torch.cli.{name}", *args]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                                  timeout=CHAIN_TIMEOUT)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"chain: {name} exited {proc.returncode}:\n"
+                                     f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+            missing = [str(f) for f in files if not f.exists()]
+            if missing:
+                raise AssertionError(f"chain: {name} did not write {missing}")
+            step = {"seconds": seconds}
+            m = re.search(r"^kernel launches (\{.*\})$", proc.stdout, re.M)
+            if name != "prepare_data":
+                if m is None:
+                    raise AssertionError(f"chain: {name} printed no launch counts")
+                step["launches"] = json.loads(m.group(1))
+                if not step["launches"]["fused_mp_step"] > 0:
+                    raise AssertionError(f"chain: {name} ran no CUDA kernel: "
+                                         f"{step['launches']}")
+                for k, v in step["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            if name.startswith("train_"):
+                step["metrics"] = chain_metrics(proc.stdout)
+                if set(step["metrics"]) != {"Train", "Dev", "Test"} or not all(
+                        np.isfinite(v).all() for v in step["metrics"].values()):
+                    raise AssertionError(f"chain: {name} printed {step['metrics']}")
+            if name == "train_transfer":
+                step["stages"] = [line for line in proc.stdout.splitlines()
+                                  if re.match(r"stage \d: ", line)]
+                if len(step["stages"]) != 2:
+                    raise AssertionError(f"chain: train_transfer stages {step['stages']}")
+                if not step["launches"]["fused_message_aggregate_dh"] > 0:
+                    raise AssertionError("chain: stage 2 ran no dh launch")
+            if name == "evaluate":
+                got = json.loads((res / "eval" / "metrics.json").read_text())
+                for task, cli in (("viscosity", "train_viscosity"),
+                                  ("melting_point", "train_melting_point"),
+                                  ("transfer", "train_transfer")):
+                    for split, (r2, mae_) in out["steps"][cli]["metrics"].items():
+                        g = got[task][split]
+                        # the CLIs print 4 (R2) and 2 or 4 (MAE) decimals; the
+                        # readout's atomics may move the last one
+                        if (abs(g["r2"] - r2) > 1e-3 * (1 + abs(r2))
+                                or abs(g["mae"] - mae_) > 1e-2 + 1e-3 * abs(mae_)):
+                            raise AssertionError(f"chain: evaluate {task} {split} {g} vs "
+                                                 f"{cli}'s R2={r2} MAE={mae_}")
+                step["metrics"] = got
+            out["steps"][name] = step
+            lines = [line.strip() for line in proc.stdout.splitlines()
+                     if "R2=" in line or line.startswith(("stage ", "parsed ", "==", "split",
+                                                          "Epoch ", "==="))]
+            log(f"[chain] {name}: exit 0 in {seconds:.2f} s; launches "
+                f"{step.get('launches')}")
+            for line in lines:
+                log(f"[chain]   {line}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[chain] phase {out['seconds']:.1f} s")
+    return out, launches
+
+
+# ---------------------------------------------------------------- phase 13
 
 def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1793,9 +2067,12 @@ def main() -> int:
     bench = phase_bench()
     onehot, onehot_launches, onehot_profile = phase_onehot(
         records, plan, vocab, state, dev, fit_data)
+    transfer, transfer_launches = phase_transfer(records, vocab, state)
+    chain, chain_launches = phase_chain()
     rows, forward, dK, train, overhead = phase_times(
         batch0, V, models, launches, errs, train_steps, train_batch, train_launches,
-        {"fit": fit_launches, "mp": mp_launches, "onehot": onehot_launches})
+        {"fit": fit_launches, "mp": mp_launches, "onehot": onehot_launches,
+         "transfer": transfer_launches, "chain": chain_launches})
     fit_profile = fit_busy_share(one_epoch_fit)
     onehot["times"] = onehot_profile(forward["pallas_step bf16"])
 
@@ -1803,7 +2080,7 @@ def main() -> int:
                     "forward_ms_per_batch": forward, "train_step": train,
                     "function_overhead": overhead, "fit": fit_runs,
                     "fit_profile": fit_profile, "mp": mp, "bench": bench, "onehot": onehot,
-                    "card": smi}))
+                    "transfer": transfer, "chain": chain, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

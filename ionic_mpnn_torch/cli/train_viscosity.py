@@ -9,7 +9,8 @@ splits 80/10/10 (seed-42 random; ``--pair-split`` for the leak-free
 pair-level split), trains the dual-encoder VFT model with early stopping,
 writes ``history_viscosity.pkl`` and ``checkpoints/`` (the best weights,
 the normalizer and ``model_config`` in ``extra``), and prints R² and MAE
-for train, dev and test. It runs on CUDA unless ``--device cpu``. With
+for train, dev and test, and, last, the CUDA kernels' launch counts. It
+runs on CUDA unless ``--device cpu``. With
 ``--message-impl onehot`` it plans ``window_aligned`` batches
 (``edge_layout_for``) with the window of ``resolve_onehot_window`` (64
 for bf16, 128 for f32, unless ``--window``). The loss-curve and parity
@@ -19,6 +20,7 @@ plots are not made (the plotting module is not ported).
 from __future__ import annotations
 
 import argparse
+import json
 import pickle
 import sys
 from pathlib import Path
@@ -78,6 +80,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..data import Vocab, plan_capacities
     from ..data.reference_io import load_id_data_npz, load_pickle
     from ..models import ViscosityModel
+    from ..ops.cuda import launch_counts
     from ..training import (evaluate_splits, fit, pair_level_split, random_split,
                             save_checkpoint)
 
@@ -136,6 +139,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     for name, m in metrics.items():
         print(f"{name}: R2={m['r2']:.4f}, MAE={m['mae']:.4f}")
     print(f"artifacts → {out_dir}")
+    print("kernel launches " + json.dumps(launch_counts()))
     return 0
 
 

@@ -12,8 +12,10 @@ Supported here: ``message_impl`` ``"gather"`` | ``"typed"`` |
 ``scatter_impl`` ``"xla"`` | ``"pallas"``, ``gru_impl`` ``"reference"`` |
 ``"fused"``, ``embed_impl`` ``"auto"`` | ``"gather"`` | ``"onehot"``,
 ``onehot_select`` ``"auto"`` | ``"lanes"`` | ``"vloop"`` | ``"basis"``,
-``head`` ``"vft"`` (viscosity) | ``"mlp"`` (melting point) and
-``ep_axis=None``. The model builders raise on any other value.
+``head`` ``"vft"`` (viscosity) | ``"mlp"`` (melting point) |
+``"transfer"`` (the transfer model; ``transfer_dims`` and
+``transfer_dropout`` set its head) and ``ep_axis=None``. The model
+builders raise on any other value.
 
 :class:`TrainConfig` mirrors the JAX dataclass field for field too. The
 train step reads ``loss`` and ``huber_delta``, and ``learning_rate``,

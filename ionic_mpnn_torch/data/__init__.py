@@ -1,6 +1,6 @@
 """Data tier: SMILES → graphs → vocab ids → packed batches."""
 
-from .featurize import smiles_to_graph
+from .featurize import have_rdkit, smiles_to_graph
 from .vocab import Vocab, build_vocab
 from .encode import encode_graph, encode_dataset, EncodeReport
 from .packing import (
@@ -16,6 +16,7 @@ from .loader import BatchPlan, plan_capacities, iter_batches
 
 __all__ = [
     "smiles_to_graph",
+    "have_rdkit",
     "Vocab",
     "build_vocab",
     "encode_graph",

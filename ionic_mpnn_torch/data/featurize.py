@@ -13,8 +13,10 @@ Re-implements the reference featurizer's exact output contract
   * invalid SMILES raise ``ValueError`` (``featurize.py:41-42``).
 
 This package has one backend, the pure-Python parser in
-:mod:`.chem.smiles` (the JAX package's built-in path); it does not use
-RDKit.
+:mod:`.chem.smiles` (the JAX package's built-in path); it has no RDKit
+backend, so :func:`have_rdkit` is False, ``backend="auto"`` and
+``"python"`` take the parser, and ``"rdkit"`` raises as the JAX package
+does where RDKit is missing (JAX ``featurize.py:110-125``).
 """
 
 from __future__ import annotations
@@ -23,10 +25,15 @@ from typing import Any, Dict, List, Tuple
 
 from .chem import smiles as _smi
 
-__all__ = ["smiles_to_graph"]
+__all__ = ["smiles_to_graph", "have_rdkit"]
 
 AtomFeature = Tuple[str, int, int, int, str]
 BondFeature = Tuple[str, bool, bool]
+
+
+def have_rdkit() -> bool:
+    """Whether an RDKit backend is available: never, in this package."""
+    return False
 
 
 def _graph_from_fallback(smiles_str: str) -> Dict[str, Any]:
@@ -65,9 +72,12 @@ def _graph_from_fallback(smiles_str: str) -> Dict[str, Any]:
     }
 
 
-def smiles_to_graph(smiles_str: str) -> Dict[str, Any]:
+def smiles_to_graph(smiles_str: str, backend: str = "auto") -> Dict[str, Any]:
     """Convert a SMILES string (e.g. ``"CC(=O)[O-]"``) into the reference
     graph-dict format: keys ``smiles, atom_features, bond_features,
     edge_indices, num_atoms`` — the exact shape the reference pickles
-    downstream."""
+    downstream. ``backend``: ``"auto"`` or ``"python"`` (the built-in
+    parser); ``"rdkit"`` raises ``RuntimeError``."""
+    if backend == "rdkit":
+        raise RuntimeError("RDKit backend requested but rdkit is not installed")
     return _graph_from_fallback(smiles_str)

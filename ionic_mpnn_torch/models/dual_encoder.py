@@ -54,7 +54,7 @@ def check_config(cfg: ModelConfig) -> None:
         raise ValueError(f"unknown onehot_select {cfg.onehot_select!r}")
     if cfg.ep_axis is not None:
         raise NotImplementedError("edge partitioning (ep_axis) is not ported")
-    if cfg.head not in ("vft", "mlp"):
+    if cfg.head not in ("vft", "mlp", "transfer"):
         raise NotImplementedError(f"head={cfg.head!r} is not ported")
     torch_dtype(cfg.compute_dtype)
 

@@ -10,7 +10,9 @@ Ports of the JAX package's ``models/layers.py``:
     (eps 1e-3) and the extra residual (``models/layers.py:128-156``),
     impl ``"reference"`` or ``"fused"``,
   * :class:`VFTHead` — softplus/clip parameter constraints and the physics
-    form ``log10(eta) = A + B/(T/100 + C + 1e-6)``.
+    form ``log10(eta) = A + B/(T/100 + C + 1e-6)``,
+  * :class:`BatchNorm` and :class:`Dropout` — flax's ``nn.BatchNorm`` and
+    ``nn.Dropout`` as the transfer model's head uses them.
 
 Parameters start from Keras defaults drawn from an explicit
 ``torch.Generator``: glorot-uniform kernels, zero biases, uniform(±0.05)
@@ -38,8 +40,8 @@ from ..ops.message import (
     message_pass_aggregate_typed,
 )
 
-__all__ = ["BondMatrixMessage", "GatedUpdate", "VFTHead", "dense",
-           "glorot_uniform_", "keras_embed_init_"]
+__all__ = ["BondMatrixMessage", "GatedUpdate", "VFTHead", "BatchNorm", "Dropout",
+           "dense", "glorot_uniform_", "keras_embed_init_"]
 
 
 def glorot_uniform_(t: torch.Tensor, fan_in: int, fan_out: int,
@@ -245,3 +247,79 @@ class VFTHead(nn.Module):
         c = torch.clamp(F.softplus(params[:, 2:3]), *self.c_clip)
         log_eta = a + b / (temperature / self.t_scale + c + self.eps)
         return log_eta[:, 0]
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the batch axis of (B, C) inputs, which
+    ``nn.BatchNorm1d`` is not: in training it normalizes by the batch's
+    statistics and updates ``running = momentum · running + (1 − momentum)
+    · batch`` (flax's momentum 0.99 is torch's 0.01) with the *biased*
+    batch variance; in eval mode it uses the running statistics.
+
+    The variance is flax 0.12's ``use_fast_variance`` form, ``max(0,
+    E[x²] − E[x]²)``, in f32; the output is ``(x − mean) · (rsqrt(var +
+    eps) · weight) + bias``, in flax's order. Every row counts, pad rows
+    included, as in flax, which takes no mask here. ``weight``/``bias``
+    are flax's ``scale``/``bias``, ``running_mean``/``running_var`` its
+    ``batch_stats`` ``mean``/``var`` (:mod:`ionic_mpnn_torch.params`)."""
+
+    def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-3):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            xf = x.float()
+            mean = xf.mean(dim=0)
+            var = torch.clamp(xf.square().mean(dim=0) - mean.square(), min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training each unit is kept with probability
+    ``1 − rate`` and scaled by ``1 / (1 − rate)``; eval mode and rate 0
+    pass the input through, rate 1 gives zeros.
+
+    The mask comes from ``torch.bernoulli`` on this module's own
+    ``torch.Generator`` on the input's device, seeded by :meth:`manual_seed`
+    (``fit`` seeds it from ``TrainConfig.seed``); the global RNG is never
+    drawn from. JAX's masks come from its own PRNG, so the two packages'
+    masks differ."""
+
+    def __init__(self, rate: float, seed: int = 0):
+        super().__init__()
+        self.rate = rate
+        self.seed = seed
+        self._gen: Optional[torch.Generator] = None
+
+    def manual_seed(self, seed: int) -> None:
+        """Restart the mask stream from ``seed``."""
+        self.seed = seed
+        self._gen = None
+
+    def generator(self, device: torch.device) -> torch.Generator:
+        """The mask generator on ``device``, made from the seed on first use
+        there."""
+        if self._gen is None or self._gen.device != device:
+            self._gen = torch.Generator(device=device).manual_seed(self.seed)
+        return self._gen
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        mask = torch.bernoulli(torch.full_like(x, keep), generator=self.generator(x.device))
+        return torch.where(mask.bool(), x / keep, torch.zeros_like(x))

@@ -5,10 +5,14 @@ Layout, as the JAX package's (``training/checkpoint.py``)::
     <directory>/step_XXXXXXXX/state      torch.save of the payload
     <directory>/step_XXXXXXXX/meta.json  {"step", "normalizer"?, "extra"?}
 
-The payload holds ``params`` (a ``state_dict``), and where given
+The payload holds ``params`` (a ``state_dict`` without buffers), and
+where given ``batch_stats`` (the BatchNorm running statistics, JAX's
+``batch_stats``; :func:`split_batch_stats` parts a ``state_dict``),
 ``opt_state`` (:meth:`~.optim.Optimizer.state_dict`) and the
-``extra_arrays`` (``fit`` stores ``best_params`` there). Every tensor is a
-CPU copy taken when :meth:`CheckpointWriter.save` is called.
+``extra_arrays`` (``fit`` stores ``best_params`` there, and
+``best_stats`` for a model with running statistics, as JAX's ``fit``
+does). Every tensor is a CPU copy taken when
+:meth:`CheckpointWriter.save` is called.
 
 A save commits atomically: both files are written into a temporary
 directory beside the step's, which is then renamed to ``step_XXXXXXXX``.
@@ -41,7 +45,17 @@ __all__ = [
     "save_checkpoint",
     "restore_checkpoint",
     "latest_step",
+    "split_batch_stats",
 ]
+
+
+def split_batch_stats(model: torch.nn.Module, state: Dict[str, Any]):
+    """``(params, batch_stats)``: ``state`` (a ``state_dict`` of ``model``)
+    parted into its parameters and its buffers (the running statistics);
+    ``{**params, **batch_stats}`` gives it back."""
+    buffers = {name for name, _ in model.named_buffers()}
+    params = {k: v for k, v in state.items() if k not in buffers}
+    return params, {k: v for k, v in state.items() if k in buffers}
 
 
 def _host_copy(tree: Any) -> Any:
@@ -98,6 +112,7 @@ class CheckpointWriter:
         directory,
         step: int,
         params: Any,
+        batch_stats: Any = None,
         opt_state: Any = None,
         normalizer: Optional[Normalizer] = None,
         extra: Optional[Dict[str, Any]] = None,
@@ -108,6 +123,8 @@ class CheckpointWriter:
         directory.mkdir(parents=True, exist_ok=True)
         path = _step_dir(directory, step)
         payload = {"params": params}
+        if batch_stats:
+            payload["batch_stats"] = batch_stats
         if opt_state is not None:
             payload["opt_state"] = opt_state
         payload.update(extra_arrays or {})
@@ -149,6 +166,7 @@ def save_checkpoint(
     directory,
     step: int,
     params: Any,
+    batch_stats: Any = None,
     opt_state: Any = None,
     normalizer: Optional[Normalizer] = None,
     extra: Optional[Dict[str, Any]] = None,
@@ -157,7 +175,8 @@ def save_checkpoint(
     """One synchronous save (``fit`` keeps an asynchronous
     :class:`CheckpointWriter` instead)."""
     with CheckpointWriter(async_save=False) as w:
-        return w.save(directory, step, params, opt_state, normalizer, extra, extra_arrays)
+        return w.save(directory, step, params, batch_stats, opt_state, normalizer, extra,
+                      extra_arrays)
 
 
 def latest_step(directory) -> Optional[int]:

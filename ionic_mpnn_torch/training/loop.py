@@ -20,7 +20,10 @@ for a host that sets the pace: nothing waits for the card inside an
 epoch. The step losses stay on the device, the dev eval queues behind the
 epoch's steps, and the losses and every eval output come back in one
 device-to-host copy per epoch; the best weights are kept as clones on the
-device.
+device. A model with BatchNorm (the transfer model) carries its running
+statistics through the best-weight clones and the checkpoint
+(``batch_stats`` / ``best_stats``), and ``fit`` seeds its dropout masks
+from ``TrainConfig.seed``, so a fit from the same seed repeats.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 from ..config import ModelConfig, TrainConfig, resolve_device
 from ..data.loader import BatchPlan, iter_batches
 from ..data.packing import IonPairBatch
+from ..models.layers import Dropout
 from . import checkpoint as ckpt
 from .metrics import mae, r2_score
 from .normalizer import Normalizer
@@ -178,7 +182,9 @@ def predict(
     plan: BatchPlan,
     device=None,
 ) -> np.ndarray:
-    """Predict over records in order; returns (len(records),) predictions.
+    """Predict over records in order; returns (len(records),) predictions,
+    with the model in eval mode (BatchNorm on its running statistics, no
+    dropout).
 
     ``device=None`` means CUDA (raises without it unless ``device="cpu"``);
     the model's parameters must already live there."""
@@ -187,7 +193,8 @@ def predict(
     if param.device.type != device.type:
         raise ValueError(f"model is on {param.device}, predict asked for {device}")
     preds: List[np.ndarray] = []
-    with torch.inference_mode():  # the model has no train-time-only layers
+    model.eval()
+    with torch.inference_mode():
         for batch in iter_batches(records, plan, shuffle=False):
             p = model(batch.to(param.device))["pred"].float().cpu().numpy()
             preds.append(p[batch.sample_mask > 0])
@@ -197,8 +204,8 @@ def predict(
 @dataclass
 class FitResult:
     """What :func:`fit` returns. ``params`` is the ``state_dict`` of the best
-    weights (clones on the model's device), which the model holds when
-    ``fit`` returns. ``segments`` gives, for each epoch this call ran, the
+    weights (clones on the model's device; BatchNorm running statistics
+    included), which the model holds when ``fit`` returns. ``segments`` gives, for each epoch this call ran, the
     seconds of ``dispatch`` (packing and enqueueing the train steps),
     ``fetch+eval(sync)`` (enqueueing the dev eval and the one copy to the
     host, which waits for the card) and ``host_reduce`` (the host's
@@ -264,8 +271,12 @@ def fit(
     With ``train_cfg.checkpoint_dir`` it saves every ``checkpoint_every``
     epochs, on early stopping and at the last epoch, and a later call with
     the same directory resumes after the latest committed epoch (the
-    pre-resume ``epoch_seconds`` read NaN). ``IONIC_FIT_TIMERS=1`` prints
-    each epoch's :data:`SEGMENTS` to stderr."""
+    pre-resume ``epoch_seconds`` read NaN); the checkpoint holds the
+    dropout generators' states, so a resumed fit repeats an uninterrupted
+    one. Each :class:`~ionic_mpnn_torch.models.layers.Dropout` of the
+    model is reseeded from ``train_cfg.seed`` (plus its index) when the
+    call starts. ``IONIC_FIT_TIMERS=1`` prints each epoch's
+    :data:`SEGMENTS` to stderr."""
     if not train_records:
         raise ValueError("fit needs at least one train record")
     device = next(model.parameters()).device
@@ -281,6 +292,9 @@ def fit(
     dev_batches = [b.to(device) for b in iter_batches(dev_records, plan, shuffle=False)]
     step = make_train_step(model, model_cfg, train_cfg, optimizer)
     eval_step = make_eval_step(model, model_cfg, train_cfg)
+    dropouts = [m for m in model.modules() if isinstance(m, Dropout)]
+    for i, d in enumerate(dropouts):
+        d.manual_seed(train_cfg.seed + i)
 
     epochs = train_cfg.epochs
     history: Dict[str, List[float]] = {"loss": [], "val_loss": [], "epoch_seconds": []}
@@ -296,10 +310,13 @@ def fit(
     if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
         restored = ckpt.restore_checkpoint(ckpt_dir)
         extra = restored["extra"]
-        model.load_state_dict(restored["params"])
+        model.load_state_dict({**restored["params"], **restored.get("batch_stats", {})})
         step.optimizer.load_state_dict(restored["opt_state"])
         step.steps = int(extra["global_step"])
-        best_params = {k: v.to(device) for k, v in restored["best_params"].items()}
+        best_params = {k: v.to(device) for k, v in {
+            **restored["best_params"], **restored.get("best_stats", {})}.items()}
+        for d, rng in zip(dropouts, restored.get("dropout_rng", [])):
+            d.generator(device).set_state(rng)
         best_val = extra["best_val"]
         patience = extra["patience"]
         # wall times of the epochs before the resume are unknown: NaN keeps
@@ -320,9 +337,16 @@ def fit(
                  "loss": history["loss"], "val_loss": history["val_loss"]}
         if "dead_fp_cat_frac" in history:
             extra["dead_fp_cat_frac"] = history["dead_fp_cat_frac"]
-        writer.save(ckpt_dir, epoch, model.state_dict(),
+        params, stats = ckpt.split_batch_stats(model, model.state_dict())
+        best, best_stats = ckpt.split_batch_stats(model, best_params)
+        arrays = {"best_params": best}
+        if best_stats:
+            arrays["best_stats"] = best_stats
+        if dropouts:
+            arrays["dropout_rng"] = [d.generator(device).get_state() for d in dropouts]
+        writer.save(ckpt_dir, epoch, params, batch_stats=stats,
                     opt_state=step.optimizer.state_dict(), normalizer=normalizer,
-                    extra=extra, extra_arrays={"best_params": best_params})
+                    extra=extra, extra_arrays=arrays)
 
     timers = os.environ.get("IONIC_FIT_TIMERS") == "1"
     segments: List[Dict[str, float]] = []

@@ -12,17 +12,18 @@ the Adam update). The warm-up is ``optax.linear_schedule(lr/25, lr,
 warmup_steps)`` evaluated at the update count before its increment, so
 the first update uses lr/25.
 
-The partitioned optimizer of the transfer model is not ported yet.
+:func:`make_partitioned_optimizer` is the transfer model's stage-wise
+optimizer (JAX ``optim.py:81-93``).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List
+from typing import Iterable, List, Mapping, Optional
 
 import torch
 
-__all__ = ["Optimizer", "make_optimizer", "clip_by_per_variable_norm_",
-           "clip_by_global_norm_"]
+__all__ = ["Optimizer", "make_optimizer", "make_partitioned_optimizer",
+           "clip_by_per_variable_norm_", "clip_by_global_norm_"]
 
 
 def clip_by_per_variable_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
@@ -113,3 +114,36 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], learning_rate: float = 
     leave at 0; see the JAX ``make_optimizer``)."""
     return Optimizer(params, learning_rate, clipnorm, weight_decay, clip_mode,
                      warmup_steps)
+
+
+def make_partitioned_optimizer(model: torch.nn.Module, labels: Mapping[str, str],
+                               learning_rate: float,
+                               clipnorm: Optional[float] = None) -> Optimizer:
+    """Adam (with the per-tensor clip only if ``clipnorm`` is set; no
+    warm-up) over the parameters ``labels`` marks ``"trainable"``; the
+    ``"frozen"`` ones never move. ``labels`` names every parameter of
+    ``model`` (:func:`~ionic_mpnn_torch.models.transfer.
+    transfer_stage_labels`).
+
+    That is optax's ``multi_transform`` of ``make_optimizer`` and
+    ``set_to_zero`` (the JAX signature defaults ``clipnorm`` to 1.0; its
+    one caller, the transfer pipeline, passes None). Here the frozen
+    parameters get ``requires_grad_(False)`` and the trainable ones
+    ``requires_grad_(True)``, so a stage-2 optimizer turns stage 1's frozen
+    tensors back on, and autograd computes no gradient that optax would
+    zero. A frozen trunk's message steps then see no input that needs a
+    gradient and launch their CUDA kernels without an autograd Function
+    (``ops/cuda/_lib.py::needs_grad``)."""
+    named = dict(model.named_parameters())
+    if set(labels) != set(named):
+        raise ValueError(f"labels do not name the model's parameters: missing "
+                         f"{sorted(set(named) - set(labels))}, unknown "
+                         f"{sorted(set(labels) - set(named))}")
+    trainable = []
+    for name, p in named.items():
+        if labels[name] not in ("trainable", "frozen"):
+            raise ValueError(f"{name}: label {labels[name]!r}")
+        p.requires_grad_(labels[name] == "trainable")
+        if p.requires_grad:
+            trainable.append(p)
+    return Optimizer(trainable, learning_rate, clipnorm)

@@ -158,6 +158,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(setup):
 
 def test_unported_options_raise(setup):
     t_cfg = model_config_from_dict(j_to_dict(setup["cfg"]))
-    for kw in ({"ep_axis": "edge"}, {"head": "transfer"}, {"message_impl": "dense"}):
+    # head="transfer" is ported (the transfer model); a head no package has is not
+    for kw in ({"ep_axis": "edge"}, {"head": "linear"}, {"message_impl": "dense"}):
         with pytest.raises(NotImplementedError):
             TModel(t_cfg.replace(**kw), device="cpu")
