@@ -51,6 +51,11 @@ Phases, in order (any failure raises and the script exits non-zero):
    8 ``fused_mp_step`` + 16 ``fused_message_aggregate`` (8 remat, 8 dh) for
    ``pallas_step``, 16 ``fused_message_aggregate`` (8 forward, 8 dh) for
    ``pallas_fused``, 8 ``sorted_segment_sum`` for the pallas scatter.
+   On CUDA every train step, dev eval and ``predict`` forward of these
+   phases and the later ones runs as a replayed CUDA graph (the port's
+   default); each graph's kernel launches count once per replay (the
+   counts its capture recorded), so every exact count below counts the
+   kernels the card ran.
 7. fit(): the viscosity model at full width, batch 32, on 3,200 bench
    records whose targets are a seed-1 teacher's predictions on the card,
    split 2560 / 320 / 320 by ``random_split``, from the same weights. Under
@@ -72,6 +77,26 @@ Phases, in order (any failure raises and the script exits non-zero):
    plus dev batches × epochs × 8 for the forward's kernel. Per epoch it
    prints the seconds of ``dispatch``, ``fetch+eval(sync)`` and
    ``host_reduce``; per run the median epoch time and train steps/s.
+   [graphs], under deterministic algorithms: per arm (``pallas_step`` f32
+   and bf16, ``pallas_fused`` f32, ``gather`` with the pallas scatter,
+   plain ``gather`` f32, onehot f32 on aligned batches) the same 8 train
+   steps at batch 512 (groups of 3, 3 and a remainder of 2) eagerly, as
+   one-step graph replays and through the K = 3 graph: losses, parameters,
+   both moments and the update count equal bit for bit, launches exact.
+   ``fit()`` of ``pallas_step`` f32 (2 epochs) with K = 8, K = 1 and eager:
+   histories and best weights equal bit for bit. The transfer model's
+   stage 2 with dropout 0.3: four steps draw four different masks, and two
+   graphed fits from one seed are equal. Times, graphed against eager, in
+   this call: the K = 8 ``pallas_step`` bf16 step at batch 2048 (wall, host,
+   busy, idle share, message-edges/s, peak memory), ``predict``'s forward
+   per batch, and the default configuration's ``fit()`` epochs. Last, after
+   phase 13, the profiler: our kernels in one replayed group against the
+   capture's count, and the steps' busy time.
+   [native]: the port's C++ packer builds with g++; its batches equal the
+   Python packer's array for array in the sorted, window, window_aligned
+   and balanced layouts; ``fit()`` with it equals ``fit()`` with the Python
+   packer bit for bit with K = 8 (group mode) and K = 1; the dispatch
+   seconds of each.
 8. Melting-point model at full width (bond_dim 1024): ``predict`` over the
    3 bench batches in ``pallas_step`` f32 against plain ``gather`` f32 at
    rtol/atol 1e-4 with 8 launches per forward, then 2 epochs of
@@ -152,6 +177,7 @@ from __future__ import annotations
 import contextlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -855,6 +881,9 @@ def train_arm(tag, model, cfg, tcfg, batches):
             raise AssertionError(f"train {tag}: gradient of {k} is "
                                  f"{'missing' if p.grad is None else 'not finite'}")
         grads[param_name(k)] = p.grad.detach().clone()
+    # the graph of that backward holds the parameters' gradient accumulators
+    # on this stream; a capture must not meet them (training/graphs.py)
+    del loss
     step = make_train_step(model, cfg, tcfg)  # its optimizer from tcfg
     kernels.reset_launch_counts()
     losses = [step(b)["loss"] for b in batches]
@@ -994,7 +1023,10 @@ class Lockstep(torch.nn.Module):
     forward returns the kernel model's output and measures the plain one's
     on the same weights and batch: the predictions' excess over MODEL_TOL
     (at most 1 passes) and, in training, plain's gradient of the train
-    step's loss, which :class:`LockstepOptimizer` compares before the update."""
+    step's loss, which :class:`LockstepOptimizer` compares before the update.
+    Every measurement and the forward counts are device tensors updated in
+    place, so the checks run inside fit()'s CUDA graphs, replay after
+    replay; they are read once, after fit()."""
 
     def __init__(self, kernel, plain, fp_l2):
         super().__init__()
@@ -1004,8 +1036,18 @@ class Lockstep(torch.nn.Module):
             setattr(plain.get_submodule(path), leaf, p)
         self.params = list(kernel.parameters())
         self.plain_grads = None
-        self.worst = {"pred": 0.0, "grad": 0.0}
-        self.forwards = {"train": 0, "eval": 0}
+        dev = self.params[0].device
+        self.worst_t = {k: torch.zeros((), device=dev) for k in ("pred", "grad")}
+        self.forwards_t = {k: torch.zeros((), dtype=torch.int64, device=dev)
+                           for k in ("train", "eval")}
+
+    @property
+    def worst(self):
+        return {k: v.item() for k, v in self.worst_t.items()}
+
+    @property
+    def forwards(self):
+        return {k: int(v.item()) for k, v in self.forwards_t.items()}
 
     def forward(self, batch):
         from ionic_mpnn_torch.training import data_loss, l2_penalty
@@ -1020,9 +1062,10 @@ class Lockstep(torch.nn.Module):
             ref = self.plain(batch)
         got, want = out["pred"].detach().float(), ref["pred"].detach().float()
         rtol, atol = MODEL_TOL
-        excess = ((got - want).abs() / (atol + rtol * want.abs())).max().item()
-        self.worst["pred"] = max(self.worst["pred"], excess)
-        self.forwards["train" if self.training else "eval"] += 1
+        excess = ((got - want).abs() / (atol + rtol * want.abs())).max()
+        with torch.no_grad():
+            torch.maximum(self.worst_t["pred"], excess, out=self.worst_t["pred"])
+            self.forwards_t["train" if self.training else "eval"].add_(1)
         return out
 
 
@@ -1032,13 +1075,13 @@ def lockstep_optimizer(shadow, **kw):
     from ionic_mpnn_torch.training import Optimizer
 
     class LockstepOptimizer(Optimizer):
+        @torch.no_grad()
         def step(self):
             tol = TRAIN_TOL["float32"][0]
             for p, want in zip(shadow.params, shadow.plain_grads):
-                got = torch.zeros_like(p) if p.grad is None else p.grad
                 bound = tol * (want.abs() + want.abs().max())
-                excess = ((got - want).abs() / bound.clamp(min=1e-30)).max().item()
-                shadow.worst["grad"] = max(shadow.worst["grad"], excess)
+                excess = ((p.grad - want).abs() / bound.clamp(min=1e-30)).max()
+                torch.maximum(shadow.worst_t["grad"], excess, out=shadow.worst_t["grad"])
             super().step()
 
     return LockstepOptimizer(shadow.parameters(), **kw)
@@ -1182,7 +1225,9 @@ def phase_fit():
         model, cfg = model_for(impl, dtype=dtype)
         return lambda: fit(model, cfg, tcfg(1), train, dev_split, plan, verbose=False)
 
-    fit_data = {"records": records, "train": train, "dev": dev_split}
+    fit_data = {"records": records, "train": train, "dev": dev_split, "plan": plan,
+                "n_dev": n_dev, "model_for": model_for, "tcfg": tcfg, "first": first,
+                "default": runs[f"default ({impl} {dtype})"], "run": run}
     return runs, launches, one_epoch_fit, fit_data
 
 
@@ -1212,6 +1257,398 @@ def fit_busy_share(one_epoch_fit):
         f"busy {out['busy_ms']:.2f} ms (busy share {out['busy_share']:.4f}, "
         f"{out['busy_ms'] / res.steps:.4f} ms per train step); top kernels ms: "
         + json.dumps({k: round(v, 3) for k, v in out["top"].items()}))
+    return out
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """fit() with its train and eval steps eager, as JAX's
+    ``jit_compile=False``: the step factories that fit() calls, patched in
+    this process (fit() itself takes no such parameter)."""
+    import functools
+
+    import ionic_mpnn_torch.training.loop as loop
+
+    train, evaluate = loop.make_train_step, loop.make_eval_step
+    loop.make_train_step = functools.partial(train, jit_compile=False)
+    loop.make_eval_step = functools.partial(evaluate, jit_compile=False)
+    try:
+        yield
+    finally:
+        loop.make_train_step, loop.make_eval_step = train, evaluate
+
+
+def same_fit(tag, a, b):
+    """Two fit() results equal bit for bit: history and best weights."""
+    keys = set(a.history) - {"epoch_seconds"}
+    if keys != set(b.history) - {"epoch_seconds"} or "loss" not in keys:
+        raise AssertionError(f"{tag}: history keys {sorted(a.history)} / {sorted(b.history)}")
+    for key in sorted(keys):
+        if a.history[key] != b.history[key]:
+            raise AssertionError(f"{tag}: {key} {a.history[key]} != {b.history[key]}")
+    if a.steps != b.steps or a.best_val_loss != b.best_val_loss:
+        raise AssertionError(f"{tag}: steps / best val_loss {a.steps} {a.best_val_loss!r} != "
+                             f"{b.steps} {b.best_val_loss!r}")
+    bad = [k for k, v in a.params.items() if not torch.equal(v, b.params[k])]
+    if bad:
+        raise AssertionError(f"{tag}: best weights differ in {bad[:5]}")
+
+
+def epoch_summary(res):
+    """Median epoch seconds, train steps/s and the dispatch share of the
+    epochs after the first (the first holds the captures)."""
+    later = range(1, len(res.segments)) if len(res.segments) > 1 else range(1)
+    secs = [res.history["epoch_seconds"][-len(res.segments) + i] for i in later]
+    disp = [res.segments[i]["dispatch"] for i in later]
+    steps_per_epoch = res.steps / res.epochs_run
+    return {"epoch_s": statistics.median(secs), "first_epoch_s": res.history["epoch_seconds"][
+        -len(res.segments)], "train_steps_per_s": steps_per_epoch * len(secs) / sum(secs),
+        "dispatch_s": statistics.median(disp), "dispatch_share": sum(disp) / sum(secs),
+        "loader": res.loader, "steps_per_call": res.steps_per_call}
+
+
+# arms of [graphs]: (name, message_impl, scatter_impl, compute_dtype, plan)
+GRAPH_ARMS = [
+    ("pallas_step f32", "pallas_step", "xla", "float32", "sorted"),
+    ("pallas_step bf16", "pallas_step", "xla", "bfloat16", "sorted"),
+    ("pallas_fused f32", "pallas_fused", "xla", "float32", "sorted"),
+    ("gather+pallas scatter f32", "gather", "pallas", "float32", "sorted"),
+    ("gather f32 (plain)", "gather", "xla", "float32", "sorted"),
+    ("onehot f32 aligned", "onehot", "xla", "float32", "aligned"),
+]
+GRAPH_BATCH = 512  # three batches of records[:1536], and a remainder of two
+GRAPH_K = 3
+GRAPH_TIMED_K = 8  # the default K: 8 distinct packings of the bench batch
+DROPOUT = 0.3
+CARD = "cuda"
+
+
+def optimizer_state(step):
+    o = step.optimizer
+    return ([p.detach().clone() for p in o.params], [m.clone() for m in o.mu],
+            [v.clone() for v in o.nu], int(o.count))
+
+
+def kernel_records(fn):
+    """Our kernels' launches in the card's own records (torch.profiler) of
+    one call of ``fn``, by wrapper name: a fused kernel with the GRU
+    epilogue is a fused_mp_step launch, without it a
+    fused_message_aggregate launch (the backward's dh included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {"sorted_segment_sum": 0, "fused_message_aggregate": 0, "fused_mp_step": 0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "segment_sum_kernel" in e.name:
+            counts["sorted_segment_sum"] += 1
+        elif "fused_message_tc_kernel" in e.name or "fused_message_rows_kernel" in e.name:
+            counts["fused_mp_step" if "true>" in e.name else "fused_message_aggregate"] += 1
+    return counts
+
+
+def phase_graphs(records, vocab, fit_data, state):
+    """CUDA graphs against the eager path, under deterministic algorithms:
+    per arm the same 8 train steps (groups of 3, 3 and a remainder of 2)
+    eagerly, as one-step replays and through the K = 3 graph, bit for bit;
+    fit() of pallas_step f32 with K = 8, K = 1 and eager; the transfer
+    model's stage 2 with dropout; then times, graphed against eager, in this
+    call. Returns its results, its launches and the profiler's part, which
+    runs last."""
+    from ionic_mpnn_torch.benchmarks.harness import _count_message_edges, _time_calls
+    from ionic_mpnn_torch.config import TrainConfig, viscosity_config
+    from ionic_mpnn_torch.data import iter_batches, plan_capacities
+    from ionic_mpnn_torch.data.loader import plan_template
+    from ionic_mpnn_torch.data.packing import StaticBatches
+    from ionic_mpnn_torch.models import (TransferMPModel, ViscosityModel, load_trunk_params,
+                                         transfer_stage_labels)
+    from ionic_mpnn_torch.models.layers import Dropout
+    from ionic_mpnn_torch.ops import cuda as kernels
+    from ionic_mpnn_torch.training import fit, make_partitioned_optimizer, make_train_step
+    from ionic_mpnn_torch.training.graphs import Replay
+
+    t_phase = time.perf_counter()
+    out, launches = {"steps": {}}, {}
+    head = records[:GRAPH_K * GRAPH_BATCH]
+    # headroom 2 so the records pack as three (nearly) full batches
+    plans = {"sorted": plan_capacities(head, GRAPH_BATCH, headroom=2.0),
+             "aligned": plan_capacities(head, GRAPH_BATCH, headroom=2.0,
+                                        edge_layout="window_aligned")}
+    host = {k: list(iter_batches(head, p))[:GRAPH_K] for k, p in plans.items()}
+    base = viscosity_config(vocab.atom_vocab_size, vocab.bond_vocab_size)
+    kept = {}
+    with deterministic():
+        for name, impl, scatter, dtype, plan_tag in GRAPH_ARMS:
+            b = host[plan_tag]
+            if len(b) != GRAPH_K:
+                raise AssertionError(f"[graphs] {len(b)} batches of {GRAPH_BATCH}")
+            groups = [b, b, b[:2]]
+            cfg = base.replace(message_impl=impl, scatter_impl=scatter, compute_dtype=dtype)
+            per_step = kernel_launches(impl, scatter)[0]
+            runs = {}
+            for mode, k, jit in (("eager", GRAPH_K, False), ("one-step replays", 1, True),
+                                 ("K = 3 graph", GRAPH_K, True)):
+                model = ViscosityModel(cfg, seed=0)
+                model.load_state_dict(state)
+                step = make_train_step(model, cfg, TrainConfig(steps_per_call=k),
+                                       jit_compile=jit)
+                kernels.reset_launch_counts()
+                losses = [step.run(grp) if k > 1 else torch.cat([step.run([x]) for x in grp])
+                          for grp in groups]
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                want = {kk: 8 * per_step.get(kk, 0) for kk in counts}
+                if counts != want:
+                    raise AssertionError(f"[graphs] {name} {mode}: launches {counts}, "
+                                         f"expected {want}")
+                for kk, v in counts.items():
+                    launches[kk] = launches.get(kk, 0) + v
+                runs[mode] = (torch.cat(losses).cpu(), optimizer_state(step), step)
+            ref_losses, (ref_p, ref_mu, ref_nu, ref_count), _ = runs["eager"]
+            for mode in ("one-step replays", "K = 3 graph"):
+                losses, (p, mu, nu, count), _ = runs[mode]
+                diff = ([f"loss"] if not torch.equal(losses, ref_losses) else [])
+                diff += [f"param {i}" for i, (x, y) in enumerate(zip(p, ref_p))
+                         if not torch.equal(x, y)]
+                diff += [f"mu {i}" for i, (x, y) in enumerate(zip(mu, ref_mu))
+                         if not torch.equal(x, y)]
+                diff += [f"nu {i}" for i, (x, y) in enumerate(zip(nu, ref_nu))
+                         if not torch.equal(x, y)]
+                if count != ref_count or count != 8:
+                    diff.append(f"count {count} vs {ref_count}")
+                if diff:
+                    raise AssertionError(f"[graphs] {name}: {mode} differ from eager in "
+                                         f"{diff[:6]}")
+            out["steps"][name] = {"losses": ref_losses.tolist(), "launches_per_step": per_step}
+            log(f"[graphs] {name} ({plan_tag}, batch {GRAPH_BATCH}): 8 train steps eager, as "
+                f"one-step replays and through the K = {GRAPH_K} graph (groups 3, 3, remainder "
+                f"2): losses, {len(ref_p)} parameters, both moments and the count (8) equal "
+                f"bit for bit; launches exact ({per_step} per step); losses "
+                f"{[round(x, 6) for x in ref_losses.tolist()]}")
+            if name in ("pallas_step f32", "gather+pallas scatter f32"):
+                kept[name] = (runs["K = 3 graph"][2], b)
+
+    # fit(): K = 8 (the default), K = 1 and eager, from the same weights
+    fd = fit_data
+    with deterministic():
+        k1 = fd["run"]("pallas_step f32 (deterministic) K = 1", fd["model_for"]("pallas_step"),
+                       fd["tcfg"](2, steps_per_call=1))
+        with eager_steps():
+            eager = fd["run"]("pallas_step f32 (deterministic) eager",
+                              fd["model_for"]("pallas_step"), fd["tcfg"](2))
+    fd["k1"] = k1
+    first = fd["first"]
+    if (first.steps_per_call, k1.steps_per_call) != (8, 1):
+        raise AssertionError(f"[graphs] K {first.steps_per_call} / {k1.steps_per_call}")
+    same_fit("[graphs] fit K = 1 against K = 8", k1, first)
+    same_fit("[graphs] fit eager against K = 8", eager, first)
+    log(f"[graphs] fit() pallas_step f32, 2 epochs, deterministic: K = 8 (graphs), K = 1 "
+        f"(graphs) and eager: loss {first.history['loss']}, val_loss "
+        f"{first.history['val_loss']}, dead_fp_cat_frac and best weights equal bit for bit "
+        f"(the graphed resume and the lockstep are [fit]'s)")
+    out["fit"] = {"K=8": epoch_summary(first), "K=1": epoch_summary(k1),
+                  "eager": epoch_summary(eager)}
+
+    # the transfer model's stage 2 with dropout: masks change from replay
+    # to replay, and two graphed fits from one seed repeat
+    tr = [dict(r, mp=r["log_eta"]) for r in fd["records"][:640]]
+    tplan = plan_capacities(tr, FIT_BATCH, with_temperature=False, target_key="mp")
+    tcfg_ = base.replace(head="transfer", transfer_dropout=DROPOUT, message_impl="pallas_step")
+
+    def transfer_model():
+        model = TransferMPModel(tcfg_, seed=0)
+        load_trunk_params(model, state)
+        return model
+
+    model = transfer_model()
+    drop = next(m for m in model.modules() if isinstance(m, Dropout) and m.rate == DROPOUT)
+    drop.manual_seed(5)
+    seen = {}
+
+    def keep(mod, inputs, output):
+        with torch.no_grad():
+            if "mask" not in seen:
+                seen["mask"] = torch.zeros(output.shape, dtype=torch.bool, device=output.device)
+            seen["mask"].copy_(output != 0)
+
+    hook = drop.register_forward_hook(keep)
+    step = make_train_step(model, tcfg_, TrainConfig(loss="huber", steps_per_call=1),
+                           make_partitioned_optimizer(model, transfer_stage_labels(model, 2),
+                                                      1e-4))
+    tb = next(iter_batches(tr, tplan))
+    masks = []
+    with deterministic():
+        for _ in range(4):  # the first call runs eagerly, then three replays
+            step(tb)
+            masks.append(seen["mask"].clone())
+    hook.remove()
+    if any(torch.equal(masks[i], masks[i + 1]) for i in range(3)):
+        raise AssertionError("[graphs] dropout: two consecutive steps drew the same mask")
+    keep_frac = [float(m.float().mean()) for m in masks]
+    fits = []
+    with deterministic():  # the readout's index_add_ without atomics
+        for _ in range(2):
+            model = transfer_model()
+            fits.append(fit(model, tcfg_, TrainConfig(
+                loss="huber", huber_delta=1.0, epochs=2, batch_size=FIT_BATCH, normalize_y=True,
+                normalize_guard="eps", learning_rate=1e-4, seed=0), tr[:512], tr[512:], tplan,
+                optimizer=make_partitioned_optimizer(model, transfer_stage_labels(model, 2),
+                                                     1e-4), verbose=False))
+    same_fit("[graphs] transfer stage 2 with dropout, two graphed fits", fits[0], fits[1])
+    log(f"[graphs] transfer stage 2, dropout {DROPOUT}: 4 steps (1 eager, 3 replays) drew 4 "
+        f"different masks (kept {[round(x, 4) for x in keep_frac]} of the units); two graphed "
+        f"fits (K = {fits[0].steps_per_call}, 2 epochs, seed 0) equal bit for bit: loss "
+        f"{fits[0].history['loss']}")
+    out["dropout"] = {"kept": keep_frac, "fit_loss": fits[0].history["loss"]}
+
+    # times, graphed against eager, batch 2048: the K = 8 step over 8
+    # distinct packings of the bench batch, as the bench runs it
+    bplan = plan_capacities(records, BATCH, headroom=2.0)
+    hb = [next(iter_batches(records[:BATCH], bplan, shuffle=True, seed=s))
+          for s in range(GRAPH_TIMED_K)]
+    me = int(np.mean([_count_message_edges(b, base.num_steps) for b in hb]))
+    cfg = base.replace(message_impl="pallas_step", compute_dtype="bfloat16")
+    timed, calls = {}, {}
+    for mode, jit in (("graphed", True), ("eager", False)):
+        model = ViscosityModel(cfg, seed=0)
+        step = make_train_step(model, cfg, TrainConfig(steps_per_call=GRAPH_TIMED_K),
+                               jit_compile=jit)
+        g = step.graphs(hb[0])
+        g.slots.copy_into(hb)
+        call = (lambda s=step, g=g: s.run_slots(g, GRAPH_TIMED_K)[:, 0])
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        r = _time_calls(call, torch.device(CARD), GRAPH_TIMED_K, me, BATCH, iters=10,
+                        warmup=2, sync_each=True)
+        r["wall_ms"] = r["call_ms"] / GRAPH_TIMED_K
+        r["memory_peak_above_base_mb"] = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+        timed[mode], calls[mode] = r, call
+        log(f"[graphs] train step pallas_step bf16, batch {BATCH}, {mode} (K = "
+            f"{GRAPH_TIMED_K} per call): wall {r['wall_ms']:.4f} ms per step (a call "
+            f"{r['call_ms']:.4f} ms, median of 10), host {r['host_ms']:.4f} ms to enqueue a "
+            f"step, {r['edges_per_s']:.6e} message-edges/s, peak memory "
+            f"{r['memory_peak_above_base_mb']:.1f} MiB above {base_mem / 2**20:.1f} MiB")
+    out["train_step"] = timed
+
+    # the forward of predict per batch of 2048: its graph's replay against eager
+    fwd_model = ViscosityModel(cfg, seed=0)
+    fwd_model.eval()
+    slots = StaticBatches(plan_template(bplan), 1, CARD)
+    slots.copy_into([hb[0]])
+
+    def forward():
+        with torch.inference_mode():
+            return fwd_model(slots.batches[0])["pred"]
+
+    replay = Replay(forward, CARD, True, torch.cuda.graph_pool_handle())
+    out["forward"] = {"graphed": forward_times(replay), "eager": forward_times(forward)}
+    log(f"[graphs] predict's forward, pallas_step bf16, per batch of {BATCH} (CUDA events, "
+        f"median of 50): " + json.dumps(out["forward"]))
+    # fit() epochs of the default configuration, graphed ([fit]'s run) and eager
+    with eager_steps():
+        m, c = fd["model_for"]("pallas_step", dtype="bfloat16")
+        eager_default = fd["run"]("default (pallas_step bfloat16) eager", (m, c), fd["tcfg"](2))
+    default = fd["default"]
+    out["fit_default"] = {"graphed": {k: default[k] for k in ("median_epoch_s",
+                                                              "train_steps_per_s",
+                                                              "segments_s")},
+                          "eager": epoch_summary(eager_default)}
+    log("[graphs] fit() default configuration at batch 32: " + json.dumps(out["fit_default"]))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[graphs] checks and wall-clock timings in {out['seconds']:.1f} s")
+
+    def profile():
+        """The card's records: kernels per replayed group against the
+        capture's count, and the timed steps' busy time."""
+        for name, (step, b) in kept.items():
+            g = step.graphs(b[0])
+            got = kernel_records(lambda: step.run(b))
+            want = {k: v for k, v in g.group.launches.items()
+                    if k != "fused_message_aggregate_dh"}
+            if got != want:
+                raise AssertionError(f"[graphs] {name}: the profiler saw {got} kernels in "
+                                     f"one replay of the K = {GRAPH_K} graph, the capture "
+                                     f"counted {want}")
+            log(f"[graphs] {name}: one replay of the K = {GRAPH_K} graph ran {got} of our "
+                f"kernels in the card's records, as its capture counted")
+        for mode, call in calls.items():
+            prof = device_profile(call, n=3, warmup=1)
+            t = timed[mode]
+            busy = prof["busy_ms"] / GRAPH_TIMED_K
+            t.update(busy_ms=busy, idle_share=max(0.0, 1 - busy / t["wall_ms"]))
+            log(f"[graphs] train step pallas_step bf16 {mode}: device busy {busy:.4f} ms per "
+                f"step, idle share {t['idle_share']:.3f} of its {t['wall_ms']:.4f} ms wall")
+        return out
+
+    return out, launches, profile
+
+
+# ---------------------------------------------------------------- [native]
+
+def phase_native(fit_data, graphs_k1):
+    """The port's C++ packer on the card machine: built with g++, its
+    batches equal to the Python packer's in every layout, and fit() with
+    it equal to fit() with the Python packer, K = 8 (group mode) and K = 1."""
+    from ionic_mpnn_torch import native
+    from ionic_mpnn_torch.data import iter_batches, plan_capacities
+    from ionic_mpnn_torch.data.columnar import ColumnarIonPairs, iter_batches_fast
+    from ionic_mpnn_torch.data.packing import _batch_arrays
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError("[native] the C++ packer did not build (no g++?)")
+    lib = Path(native.get_packer_lib()._name)
+    log(f"[native] g++ {shutil.which('g++')}: {lib.name} loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    recs = fit_data["records"]
+    data = ColumnarIonPairs.from_records(recs)
+    layouts = {}
+    for name, kw in (("sorted", {}), ("window", {"edge_layout": "window"}),
+                     ("window_aligned", {"edge_layout": "window_aligned"}),
+                     ("balanced", {"edge_layout": "window_aligned", "balance": True})):
+        plan = plan_capacities(recs, FIT_BATCH, **kw)
+        t0 = time.perf_counter()
+        py = list(iter_batches(recs, plan, shuffle=True, seed=1))
+        t_py = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nat = list(iter_batches_fast(data, plan, shuffle=True, seed=1))
+        t_nat = time.perf_counter() - t0
+        if len(py) != len(nat):
+            raise AssertionError(f"[native] {name}: {len(nat)} batches, Python {len(py)}")
+        for a, b in zip(py, nat):
+            A, B = _batch_arrays(a), _batch_arrays(b)
+            if A.keys() != B.keys() or any(not np.array_equal(A[k], B[k]) for k in A):
+                raise AssertionError(f"[native] {name}: a batch differs from the Python "
+                                     f"packer's")
+        layouts[name] = {"batches": len(py), "python_s": t_py, "native_s": t_nat}
+        log(f"[native] {name}: {len(py)} batches of {FIT_BATCH} over {len(recs)} records equal "
+            f"array for array; packing {t_py:.4f} s in Python, {t_nat:.4f} s native")
+    fd = fit_data
+    with deterministic():
+        py8 = fd["run"]("pallas_step f32 (deterministic) Python loader K = 8",
+                        fd["model_for"]("pallas_step"), fd["tcfg"](2, use_native_loader=False))
+        py1 = fd["run"]("pallas_step f32 (deterministic) Python loader K = 1",
+                        fd["model_for"]("pallas_step"),
+                        fd["tcfg"](2, use_native_loader=False, steps_per_call=1))
+    nat8 = fd["first"]
+    for tag, nat, py in (("K = 8", nat8, py8), ("K = 1", graphs_k1, py1)):
+        if (nat.loader, py.loader) != ("native", "python"):
+            raise AssertionError(f"[native] {tag}: loaders {nat.loader} / {py.loader}")
+        same_fit(f"[native] fit {tag}, native against Python loader", nat, py)
+    fits = {f"{loader} K = {r.steps_per_call}": epoch_summary(r)
+            for loader, r in (("native", nat8), ("python", py8), ("native", graphs_k1),
+                              ("python", py1))}
+    log("[native] fit() with the native loader equals the Python loader bit for bit, K = 8 "
+        "(group mode) and K = 1; dispatch per epoch: "
+        + json.dumps({k: round(v["dispatch_s"], 4) for k, v in fits.items()}))
+    out = {"library": lib.name, "layouts": layouts, "fit": fits,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"[native] phase {out['seconds']:.1f} s")
     return out
 
 
@@ -2063,6 +2500,8 @@ def main() -> int:
     models, batch0, launches, state = phase_main_path(records, plan, vocab, dev)
     train_steps, train_batch, train_launches = phase_train(records, plan, vocab, dev, state)
     fit_runs, fit_launches, one_epoch_fit, fit_data = phase_fit()
+    graphs, graphs_launches, graphs_profile = phase_graphs(records, vocab, fit_data, state)
+    native = phase_native(fit_data, fit_data["k1"])
     mp, mp_launches = phase_mp(records, plan, vocab)
     bench = phase_bench()
     onehot, onehot_launches, onehot_profile = phase_onehot(
@@ -2071,15 +2510,17 @@ def main() -> int:
     chain, chain_launches = phase_chain()
     rows, forward, dK, train, overhead = phase_times(
         batch0, V, models, launches, errs, train_steps, train_batch, train_launches,
-        {"fit": fit_launches, "mp": mp_launches, "onehot": onehot_launches,
-         "transfer": transfer_launches, "chain": chain_launches})
+        {"fit": fit_launches, "graphs": graphs_launches, "mp": mp_launches,
+         "onehot": onehot_launches, "transfer": transfer_launches, "chain": chain_launches})
     fit_profile = fit_busy_share(one_epoch_fit)
     onehot["times"] = onehot_profile(forward["pallas_step bf16"])
+    graphs = graphs_profile()
 
     log(json.dumps({"kernels": rows, "not_kernels": [dK],
                     "forward_ms_per_batch": forward, "train_step": train,
                     "function_overhead": overhead, "fit": fit_runs,
-                    "fit_profile": fit_profile, "mp": mp, "bench": bench, "onehot": onehot,
+                    "fit_profile": fit_profile, "graphs": graphs, "native": native,
+                    "mp": mp, "bench": bench, "onehot": onehot,
                     "transfer": transfer, "chain": chain, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

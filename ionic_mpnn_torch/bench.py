@@ -8,7 +8,9 @@
 Metric: message-edges/s of the viscosity (or melting-point) model's full
 train step (forward, backward, clip, Adam) on host-packed batches on one
 device, as the JAX package's root ``bench.py`` defines it
-(:func:`~ionic_mpnn_torch.benchmarks.bench_packed_train_step`). With
+(:func:`~ionic_mpnn_torch.benchmarks.bench_packed_train_step`). A timed
+call is ``--inner`` steps over as many distinct packings: on CUDA one
+replay of the K-step CUDA graph (K = ``--inner``), the JAX bench's scan. With
 ``--repeats`` > 1 on CUDA the value is the median of that many fresh
 processes, each building its own model and batches; ``samples_edges_per_s``
 lists them. ``--device`` defaults to CUDA and the run fails without it;
@@ -35,7 +37,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--num-steps", type=int, default=4)
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--inner", type=int, default=8,
-                    help="train steps per timed call, over distinct packings")
+                    help="train steps per timed call (one graph replay on CUDA), "
+                         "over distinct packings")
     ap.add_argument("--dtype", default="auto", choices=["auto", "float32", "bfloat16"],
                     help="auto = bfloat16 on CUDA, float32 on the CPU")
     ap.add_argument("--message-impl", default="auto",

@@ -22,7 +22,7 @@ from __future__ import annotations
 import statistics
 import time
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
@@ -74,55 +74,79 @@ def _count_message_edges(batch, num_steps: int) -> int:
     return e * num_steps
 
 
-def time_train_step(step, host_batch, iters: int = 20, warmup: int = 3) -> Dict[str, Any]:
-    """The training metric of one packed batch: ``step`` (from
-    :func:`~ionic_mpnn_torch.training.make_train_step`) run on
-    ``host_batch`` in this process, one step per call (the JAX harness's
-    ``inner=1``), after ``warmup`` steps.
+def _time_calls(call: Callable[[], torch.Tensor], device: torch.device, steps_per_call: int,
+                edges_per_step: float, pairs_per_step: float, iters: int, warmup: int,
+                sync_each: bool) -> Dict[str, Any]:
+    """The timing core of both harness entries: ``warmup`` calls of
+    ``call`` (each runs ``steps_per_call`` train steps and returns a
+    device tensor of losses), then ``iters`` timed calls.
 
-    On CUDA each step is timed with CUDA events around the call.
-    ``edges_per_s`` is all message edges of the ``iters`` steps over the
-    sum of their times (the whole window); ``step_ms`` is the median of the
-    same times; ``host_ms`` is the median host time to enqueue a step (the
-    call's return, before the wait for the card). On the CPU the host clock
-    times the steps and the result says so in ``device``."""
-    dev = step.device
-    me_per_step = _count_message_edges(host_batch, step.num_steps)
-    batch = host_batch.to(dev)
+    ``wall_s`` is the host clock over the timed calls, from a synchronized
+    card to the end of one wait for it after the last call (with
+    ``sync_each``, a wait after every call: each call timed alone). The
+    rates are the steps', message edges' and molecules' counts over
+    ``wall_s``. On CUDA each call also sits between two CUDA events:
+    ``call_ms`` is the median of those intervals and ``step_ms`` the same
+    per step; ``host_ms`` is the median host time to enqueue one step (the
+    call's return, before any wait). On the CPU the host clock times each
+    call, and ``device`` says "cpu"."""
+    cuda = device.type == "cuda"
+    last = None
     for _ in range(warmup):
-        step(batch)
-    times_ms, host_ms = [], []
+        last = call()
+    if cuda:
+        torch.cuda.synchronize(device)
+    events, call_ms, host_ms = [], [], []
+    t0 = time.perf_counter()
     for _ in range(iters):
-        if dev.type == "cuda":
+        if cuda:
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            t0 = time.perf_counter()
-            last = step(batch)
-            host_ms.append(1e3 * (time.perf_counter() - t0))
+        h0 = time.perf_counter()
+        last = call()
+        host_ms.append(1e3 * (time.perf_counter() - h0))
+        if cuda:
             b.record()
-            b.synchronize()
-            times_ms.append(a.elapsed_time(b))
+            events.append((a, b))
+            if sync_each:
+                b.synchronize()
         else:
-            t0 = time.perf_counter()
-            last = step(batch)
-            times_ms.append(1e3 * (time.perf_counter() - t0))
-            host_ms.append(times_ms[-1])
-    loss = float(last["loss"])
+            call_ms.append(host_ms[-1])
+    loss = float(last.reshape(-1)[-1])  # waits for the card: the calls are a chain
+    wall_s = time.perf_counter() - t0
+    if cuda:
+        call_ms = [a.elapsed_time(b) for a, b in events]
     if not np.isfinite(loss):
         raise RuntimeError(f"train step loss is {loss}")
-    wall_s = sum(times_ms) / 1e3
-    n_pairs = int(np.asarray(host_batch.sample_mask).sum())
+    steps = iters * steps_per_call
     return {
-        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-        "iters": iters, "step_ms": statistics.median(times_ms),
-        "host_ms": statistics.median(host_ms), "wall_s": wall_s,
-        "message_edges_per_step": me_per_step,
-        "edges_per_s": me_per_step * iters / wall_s,
-        "steps_per_s": iters / wall_s,
-        "molecules_per_s": 2 * n_pairs * iters / wall_s,
+        "device": torch.cuda.get_device_name(device) if cuda else "cpu",
+        "iters": iters, "steps_per_call": steps_per_call,
+        "call_ms": statistics.median(call_ms),
+        "step_ms": statistics.median(call_ms) / steps_per_call,
+        "host_ms": statistics.median(host_ms) / steps_per_call,
+        "wall_s": wall_s, "message_edges_per_step": edges_per_step,
+        "edges_per_s": edges_per_step * steps / wall_s,
+        "steps_per_s": steps / wall_s,
+        "molecules_per_s": 2 * pairs_per_step * steps / wall_s,
         "loss": loss,
     }
+
+
+def time_train_step(step, host_batch, iters: int = 20, warmup: int = 3) -> Dict[str, Any]:
+    """The training metric of one packed batch: ``step`` (from
+    :func:`~ionic_mpnn_torch.training.make_train_step`) on ``host_batch``,
+    one step per call (the JAX harness's ``inner=1``), each call timed
+    alone (:func:`_time_calls` with a wait after every call). The batch is
+    copied into the plan's slot once, before the clock starts; on CUDA a
+    call is one replay of the one-step graph."""
+    me_per_step = _count_message_edges(host_batch, step.num_steps)
+    g = step.graphs(host_batch)
+    g.slots.copy_into([host_batch])
+    n_pairs = float(np.asarray(host_batch.sample_mask).sum())
+    return _time_calls(lambda: step.run_slots(g, 1)[:, 0], step.device, 1, me_per_step, n_pairs,
+                       iters, warmup, sync_each=True)
 
 
 @dataclass
@@ -159,12 +183,14 @@ def bench_packed_train_step(
     ``bench_packed_train_step`` measures it (host-packed batches).
 
     The batch is ``records[:batch_size]``, packed with capacities planned
-    on all ``records``. A timed call runs ``inner`` steps: with
-    ``distinct_batches``, over ``inner`` different shuffled packings of
-    that batch (seeds ``0..inner-1``), else ``inner`` times over the
-    unshuffled one. Every batch is moved to the device before the clock
-    starts; ``warmup`` calls run first, then ``iters`` timed calls end in
-    one wait for the card. The model (``model_kind`` ``"viscosity"`` or
+    on all ``records``. A timed call runs ``inner`` steps
+    (``steps_per_call=inner``: on CUDA one replay of the K-step graph, the
+    JAX harness's scan): with ``distinct_batches``, over ``inner``
+    different shuffled packings of that batch (seeds ``0..inner-1``), else
+    ``inner`` times over the unshuffled one. Every batch is copied into the
+    step's slots before the clock starts; ``warmup`` calls run first, then
+    ``iters`` timed calls end in one wait for the card
+    (:func:`_time_calls`). The model (``model_kind`` ``"viscosity"`` or
     ``"mp"``) starts from the seed-0 init with Adam 1e-3 and the clip
     1.0. ``device=None`` means CUDA (raises without it).
 
@@ -199,31 +225,11 @@ def bench_packed_train_step(
     else:
         host = [next(iter_batches(head, plan))] * inner
         me_per_step = _count_message_edges(host[0], num_steps)
-    batches = [b.to(dev) for b in host]
-    step = make_train_step(model, cfg, TrainConfig())
-
-    def call():
-        for b in batches:
-            last = step(b)["loss"]
-        return last
-
-    for _ in range(warmup):
-        call()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        last = call()
-    loss = float(last)  # waits for the card: the steps are a chain
-    dt = time.perf_counter() - t0
-    if not np.isfinite(loss):
-        raise RuntimeError(f"train step loss is {loss}")
-    total_steps = iters * inner
-    return BenchResult(
-        edges_per_s=me_per_step * total_steps / dt,
-        steps_per_s=total_steps / dt,
-        molecules_per_s=2 * batch_size * total_steps / dt,
-        message_edges_per_step=me_per_step,
-        wall_s=dt,
-        device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-    )
+    step = make_train_step(model, cfg, TrainConfig(steps_per_call=inner))
+    g = step.graphs(host[0])
+    g.slots.copy_into(host)  # on the device before the clock starts
+    r = _time_calls(lambda: step.run_slots(g, inner)[:, 0], dev, inner, me_per_step, batch_size,
+                    iters, warmup, sync_each=False)
+    return BenchResult(edges_per_s=r["edges_per_s"], steps_per_s=r["steps_per_s"],
+                       molecules_per_s=r["molecules_per_s"], message_edges_per_step=me_per_step,
+                       wall_s=r["wall_s"], device=r["device"])

@@ -39,8 +39,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--atom-dim", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps-per-call", type=int, default=0,
-                    help="accepted for the JAX CLI's flags; the port's fit() takes "
-                         "one step per launch, so it changes nothing")
+                    help="train steps per host call, one CUDA graph replay "
+                         "(0 = 8 on CUDA, 1 on the CPU)")
     ap.add_argument("--parity-mode", action="store_true")
     ap.add_argument("--message-impl", default="auto",
                     choices=["auto", "gather", "typed", "symmetric", "onehot",

@@ -40,8 +40,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weight init and of the per-epoch shuffles")
     ap.add_argument("--steps-per-call", type=int, default=0,
-                    help="accepted for the JAX CLI's flags; the port's fit() takes "
-                         "one step per launch, so it changes nothing")
+                    help="train steps per host call, one CUDA graph replay "
+                         "(0 = 8 on CUDA, 1 on the CPU)")
     ap.add_argument("--pair-split", action="store_true", help="leak-free pair-level split")
     ap.add_argument("--parity-mode", action="store_true", help="reproduce reference quirks")
     ap.add_argument("--dtype", default="auto", choices=["auto", "float32", "bfloat16"],

@@ -18,10 +18,12 @@ Supported here: ``message_impl`` ``"gather"`` | ``"typed"`` |
 builders raise on any other value.
 
 :class:`TrainConfig` mirrors the JAX dataclass field for field too. The
-train step reads ``loss`` and ``huber_delta``, and ``learning_rate``,
-``clipnorm``, ``weight_decay`` and ``warmup_steps`` when it builds the
-optimizer itself; ``fit`` reads the rest, except ``use_native_loader``,
-``device_epochs`` and ``paired_epochs``, whose paths are not ported.
+train step reads ``loss``, ``huber_delta`` and ``steps_per_call`` (K train
+steps per host call, a replayed CUDA graph; :func:`resolve_steps_per_call`),
+and ``learning_rate``, ``clipnorm``, ``weight_decay`` and ``warmup_steps``
+when it builds the optimizer itself; ``fit`` reads the rest, and
+``use_native_loader`` picks the C++ packer there. ``device_epochs`` and
+``paired_epochs`` change nothing: their path is not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ __all__ = [
     "resolve_message_impl",
     "resolve_compute_dtype",
     "resolve_device",
+    "resolve_steps_per_call",
     "resolve_onehot_window",
     "edge_layout_for",
     "torch_dtype",
@@ -59,6 +62,15 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def resolve_steps_per_call(steps_per_call: int, device) -> int:
+    """K, the train steps per host call, as the JAX ``fit`` resolves it
+    (``training/loop.py:341-347``): ``<= 0`` gives 8 on CUDA and 1 on the
+    CPU; any K >= 1 is kept."""
+    if steps_per_call <= 0:
+        return 8 if torch.device(device).type == "cuda" else 1
+    return int(steps_per_call)
 
 
 def _on_cuda(device) -> bool:
@@ -221,7 +233,7 @@ class TrainConfig:
     batch_size: int = 32
     early_stopping_patience: int = 50
     seed: int = 0
-    steps_per_call: int = 0  # kept for the JAX fields; fit() ignores it
+    steps_per_call: int = 0  # K train steps per host call; <= 0: 8 on CUDA, 1 on the CPU
     use_native_loader: bool = True
     device_epochs: Any = "auto"  # "auto" | True | False
     paired_epochs: Any = "auto"  # "auto" | True | False

@@ -24,7 +24,7 @@ from .packing import (
     window_tile_batch,
 )
 
-__all__ = ["BatchPlan", "plan_capacities", "iter_batches"]
+__all__ = ["BatchPlan", "plan_capacities", "iter_batches", "plan_template"]
 
 
 @dataclass(frozen=True)
@@ -222,6 +222,23 @@ def plan_capacities(
         anion_edge_cap=anion_edge_cap,
         anion_edge_tile=anion_edge_tile,
     )
+
+
+def plan_template(plan: BatchPlan) -> IonPairBatch:
+    """The plan's empty batch (no record, ``sample_mask`` all 0), packed
+    and tiled as every batch of the plan is: the shapes and static fields
+    that each of them shares (``packing.batch_signature``)."""
+    batch = pack_ion_pair_batch(
+        [], batch_size=plan.batch_size, node_cap=plan.node_cap, edge_cap=plan.edge_cap,
+        target_key=plan.target_key, with_temperature=plan.with_temperature,
+        duplicate_edges=plan.duplicate_edges, node_align=plan.node_align,
+        balance_tile=plan.balance_tile, anion_node_cap=plan.anion_node_cap,
+        anion_edge_cap=plan.anion_edge_cap, anion_balance_tile=plan.side_caps("anion")[3])
+    if plan.edge_layout in ("window", "window_aligned"):
+        batch = window_tile_batch(batch, plan.edge_tile, plan.window,
+                                  aligned=plan.edge_layout == "window_aligned",
+                                  anion_tile=plan.anion_edge_tile)
+    return batch
 
 
 def iter_batches(

@@ -45,6 +45,8 @@ __all__ = [
     "window_tile_edges",
     "window_tile_batch",
     "ONEHOT_WINDOW",
+    "StaticBatches",
+    "batch_signature",
 ]
 
 
@@ -230,6 +232,150 @@ class IonPairBatch:
             y=_to_tensor(self.y, device),
             sample_mask=_to_tensor(self.sample_mask, device),
         )
+
+
+def _side_signature(g: PackedGraphs) -> tuple:
+    return (g.n_graphs, g.edge_layout, g.node_sorted,
+            tuple(tuple(getattr(g, f).shape) for f in _ARRAY_FIELDS),
+            None if g.pool_slot is None else tuple(g.pool_slot.shape))
+
+
+def batch_signature(batch: IonPairBatch) -> tuple:
+    """What every batch of one plan shares: per ion ``n_graphs``,
+    ``edge_layout``, ``node_sorted``, whether ``pool_slot`` is None, and the
+    shape of every array (the window tiling fixes the edge arrays'), then
+    the shapes of ``temperature``, ``y`` and ``sample_mask``."""
+    return (_side_signature(batch.cation), _side_signature(batch.anion),
+            tuple(batch.temperature.shape), tuple(batch.y.shape),
+            tuple(batch.sample_mask.shape))
+
+
+def _batch_arrays(batch: IonPairBatch) -> Dict[tuple, Any]:
+    """Every array of a batch by its path, ``("cation", "src")`` or
+    ``("y",)``; a None ``pool_slot`` has no entry."""
+    out: Dict[tuple, Any] = {}
+    for side in ("cation", "anion"):
+        g = getattr(batch, side)
+        for f in _ARRAY_FIELDS + ("pool_slot",):
+            if getattr(g, f) is not None:
+                out[(side, f)] = getattr(g, f)
+    for f in ("temperature", "y", "sample_mask"):
+        out[(f,)] = getattr(batch, f)
+    return out
+
+
+def _torch_dtype(x) -> torch.dtype:
+    if isinstance(x, torch.Tensor):
+        return x.dtype
+    return torch.from_numpy(np.zeros(0, np.asarray(x).dtype)).dtype
+
+
+class StaticBatches:
+    """``slots`` batches of one plan, allocated once on ``device``: each
+    array is a ``(slots, ...)`` tensor and :attr:`batches` holds the
+    :class:`IonPairBatch` views of its rows, whose addresses never change
+    (a CUDA graph reads them on every replay).
+
+    Host batches reach the device through two staging buffers of the same
+    shape, pinned on CUDA, that alternate: :meth:`staging` hands out the
+    next one once the card has finished the copy that last read it (a CUDA
+    event guards each), and :meth:`upload` queues one non-blocking copy per
+    array of its first rows. :meth:`copy_into` does both for a list of
+    batches; the native packer writes into :meth:`staging`'s arrays
+    directly. Every batch must have the plan's :func:`batch_signature`
+    (the template's): anything else is refused."""
+
+    def __init__(self, template: IonPairBatch, slots: int, device):
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        self.template = template
+        self.signature = batch_signature(template)
+        self.slots = slots
+        self.device = torch.device(device)
+        shapes = {k: (tuple(v.shape), _torch_dtype(v))
+                  for k, v in _batch_arrays(template).items()}
+        pin = self.device.type == "cuda"
+        self.arrays = {k: torch.zeros((slots,) + s, dtype=d, device=self.device)
+                       for k, (s, d) in shapes.items()}
+        self._staging = [{k: torch.zeros((slots,) + s, dtype=d, pin_memory=pin)
+                          for k, (s, d) in shapes.items()} for _ in range(2)]
+        self._events: List[Optional[Any]] = [None, None]
+        self._next = 0
+        self._filled: Optional[int] = None  # the staging buffer handed out last
+        self.batches = [self._batch({k: v[i] for k, v in self.arrays.items()})
+                        for i in range(slots)]
+
+    def _batch(self, arrays: Dict[tuple, Any]) -> IonPairBatch:
+        t = self.template
+
+        def side(name):
+            g = getattr(t, name)
+            fields = {f: arrays[(name, f)] for f in _ARRAY_FIELDS}
+            return dataclasses.replace(g, pool_slot=arrays.get((name, "pool_slot")),
+                                       **fields)
+
+        return IonPairBatch(cation=side("cation"), anion=side("anion"),
+                            temperature=arrays[("temperature",)], y=arrays[("y",)],
+                            sample_mask=arrays[("sample_mask",)])
+
+    def check(self, batch: IonPairBatch) -> None:
+        """Raise unless ``batch`` has the plan's static fields and shapes."""
+        got = batch_signature(batch)
+        if got != self.signature:
+            raise ValueError(f"batch does not match the plan's static fields and "
+                             f"shapes: {got} != {self.signature}")
+
+    def staging(self) -> IonPairBatch:
+        """The next staging buffer as a ``(slots, ...)``-stacked batch of
+        numpy arrays, free to write (its last copy to the card is done)."""
+        i = self._next
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+        self._filled = i
+        return self._batch({k: v.numpy() for k, v in self._staging[i].items()})
+
+    def upload(self, n: int) -> None:
+        """Queue the copy of the first ``n`` rows of the buffer that
+        :meth:`staging` handed out to slots ``0..n-1``."""
+        if self._filled is None:
+            raise RuntimeError("upload() without a staging() buffer to copy")
+        if not 0 < n <= self.slots:
+            raise ValueError(f"{n} batches for {self.slots} slots")
+        i, self._filled = self._filled, None
+        for k, dst in self.arrays.items():
+            dst[:n].copy_(self._staging[i][k][:n], non_blocking=True)
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+            self._events[i] = event
+        self._next = 1 - i
+
+    def copy_into(self, batches: Sequence[IonPairBatch]) -> None:
+        """Put ``batches`` into slots ``0..len-1``: host batches through the
+        staging buffers, batches already on the card by device copies."""
+        if not 0 < len(batches) <= self.slots:
+            raise ValueError(f"{len(batches)} batches for {self.slots} slots")
+        for b in batches:
+            self.check(b)
+        on_device = [isinstance(b.y, torch.Tensor) and b.y.device.type != "cpu"
+                     for b in batches]
+        if all(on_device):
+            for k_slot, b in enumerate(batches):
+                for k, v in _batch_arrays(b).items():
+                    self.arrays[k][k_slot].copy_(v, non_blocking=True)
+            return
+        if any(on_device):
+            raise ValueError("copy_into takes host batches or device batches, not both")
+        stage = _batch_arrays(self.staging())
+        for k_slot, b in enumerate(batches):
+            for k, v in _batch_arrays(b).items():
+                np.copyto(stage[k][k_slot], np.asarray(v))
+        self.upload(len(batches))
+
+    def move(self, src: int, dst: int) -> None:
+        """Copy slot ``src`` into slot ``dst`` on the device."""
+        for v in self.arrays.values():
+            v[dst].copy_(v[src], non_blocking=True)
 
 
 def check_dst_sorted(dst: np.ndarray) -> None:

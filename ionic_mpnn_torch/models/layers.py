@@ -130,7 +130,9 @@ class BondMatrixMessage(nn.Module):
 
             args = (h, m_table, self.bond_transform.to(dt), bond_table.to(dt))
             if self.remat and torch.is_grad_enabled():
-                return checkpoint(op, *args, use_reentrant=False)
+                # the op draws no random numbers, so there is no RNG state
+                # to stash (reading it would fail inside a CUDA graph capture)
+                return checkpoint(op, *args, use_reentrant=False, preserve_rng_state=False)
             return op(*args)
         if self.impl == "typed":
             return message_pass_aggregate_typed(h, bond_ids, src, dst, m_table, edge_mask)

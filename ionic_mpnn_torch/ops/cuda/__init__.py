@@ -18,12 +18,17 @@ whose ``apply`` costs host time on each call. The backward of
 table (counted as a ``fused_message_aggregate`` launch); the backward of
 ``fused_mp_step`` launches that kernel twice (the remat of ``agg`` and
 the ``dh``); the segment sum's backward is a gather.
+
+A CUDA graph launches its kernels when it replays, not when it is
+captured: the graph helpers (``training/graphs.py``) take back the counts
+a capture raised, keep them as the graph's per-replay launches, and add
+them once per replay (:func:`set_launch_counts`, :func:`add_launch_counts`).
 """
 
 from . import fused_message, fused_step, segment_sum
 
 __all__ = ["fused_message", "fused_step", "segment_sum", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "set_launch_counts", "add_launch_counts"]
 
 _MODULES = {
     "sorted_segment_sum": segment_sum,
@@ -45,3 +50,17 @@ def reset_launch_counts() -> None:
     for mod in _MODULES.values():
         mod.launches = 0
     fused_message.dh_launches = 0
+
+
+def set_launch_counts(counts: dict) -> None:
+    """Set the counters to ``counts`` (a :func:`launch_counts` dict)."""
+    for name, mod in _MODULES.items():
+        mod.launches = counts[name]
+    fused_message.dh_launches = counts["fused_message_aggregate_dh"]
+
+
+def add_launch_counts(per_call: dict) -> None:
+    """Add ``per_call`` (a :func:`launch_counts` dict) to the counters: the
+    launches of one replay of a graph."""
+    now = launch_counts()
+    set_launch_counts({k: now[k] + per_call[k] for k in now})

@@ -10,20 +10,28 @@ the ``fp_dense`` / ``head_dense`` kernels, ``backward()`` through every
 CUDA kernel's autograd Function, the clip and the Adam step of
 :mod:`.optim`. It runs where the model's parameters live (CUDA unless the
 model was built on the CPU) and updates the model and the optimizer in
-place.
+place. On CUDA the step, the dev eval and ``predict``'s forward run as
+CUDA graphs (:mod:`.graphs`), the counterpart of JAX's ``jit``: K steps
+per host call over K static batch slots (``TrainConfig.steps_per_call``,
+as JAX's ``make_scan_train_step``), one replay per group of K batches.
+``jit_compile=False`` (as JAX's flag) gives the eager step; the CPU runs
+the same code eagerly.
 
 ``fit`` is the JAX package's single-device host-loader path: per-epoch
-shuffled greedy packing (seed ``seed + epoch``), the dev eval, early stopping with the best weights restored,
-``normalize_y`` and checkpoint/resume. Its data-parallel mesh path,
-device-resident epochs and native packer are not ported. It is written
-for a host that sets the pace: nothing waits for the card inside an
-epoch. The step losses stay on the device, the dev eval queues behind the
-epoch's steps, and the losses and every eval output come back in one
+shuffled greedy packing (seed ``seed + epoch``) by the native C++ packer
+(``use_native_loader``, when ``g++`` builds it; its group mode writes K
+batches straight into the pinned staging of the K slots) or the Python
+one, the dev eval, early stopping with the best weights restored,
+``normalize_y`` and checkpoint/resume. Its data-parallel mesh path and
+device-resident epochs are not ported. Nothing waits for the card inside
+an epoch: the step losses stay on the device, the dev eval queues behind
+the epoch's steps, and the losses and every eval output come back in one
 device-to-host copy per epoch; the best weights are kept as clones on the
-device. A model with BatchNorm (the transfer model) carries its running
-statistics through the best-weight clones and the checkpoint
-(``batch_stats`` / ``best_stats``), and ``fit`` seeds its dropout masks
-from ``TrainConfig.seed``, so a fit from the same seed repeats.
+device, and every restore copies into the tensors the graphs read. A
+model with BatchNorm (the transfer model) carries its running statistics
+through the best-weight clones and the checkpoint (``batch_stats`` /
+``best_stats``), and ``fit`` seeds its dropout masks from
+``TrainConfig.seed``, so a fit from the same seed repeats.
 """
 
 from __future__ import annotations
@@ -32,22 +40,23 @@ import os
 import sys
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..config import ModelConfig, TrainConfig, resolve_device
-from ..data.loader import BatchPlan, iter_batches
-from ..data.packing import IonPairBatch
+from ..config import ModelConfig, TrainConfig, resolve_device, resolve_steps_per_call
+from ..data.loader import BatchPlan, iter_batches, plan_template
+from ..data.packing import IonPairBatch, StaticBatches, _to_tensor, batch_signature
 from ..models.layers import Dropout
 from . import checkpoint as ckpt
+from .graphs import Replay, StepGraphs
 from .metrics import mae, r2_score
 from .normalizer import Normalizer
 from .optim import Optimizer, make_optimizer
 
 __all__ = ["make_train_step", "make_eval_step", "l2_penalty", "data_loss", "predict",
-           "FitResult", "fit", "evaluate_splits"]
+           "FitResult", "fit", "evaluate_splits", "TrainStep", "EvalStep"]
 
 _REGULARIZED_KERNELS = ("fp_dense", "head_dense")
 
@@ -80,13 +89,39 @@ def data_loss(pred: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, kind: str
     return (per * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
+def _dropout_generators(model: torch.nn.Module, device) -> List[torch.Generator]:
+    """The mask generators of the model's active dropout modules (made now,
+    so that a capture registers the ones its replays draw from)."""
+    return [m.generator(device) for m in model.modules()
+            if isinstance(m, Dropout) and 0.0 < m.rate < 1.0]
+
+
+def _host_mask_sum(batch: IonPairBatch) -> float:
+    mask = batch.sample_mask
+    if isinstance(mask, torch.Tensor):
+        if mask.device.type != "cpu":
+            raise ValueError("scan takes host batches (the skip reads the mask)")
+        mask = mask.numpy()
+    return float(np.sum(mask))
+
+
 class TrainStep:
-    """One optimizer step per call: ``step(batch) -> {"loss", "data_loss"}``
-    (device scalars; reading them syncs). ``steps`` counts the updates
-    taken. Built by :func:`make_train_step`."""
+    """The train step. ``step(batch) -> {"loss", "data_loss"}`` takes one
+    optimizer step (device scalars; reading them syncs); :meth:`run` takes
+    up to ``K`` (:attr:`K`, ``TrainConfig.steps_per_call`` resolved) in one
+    call, and :meth:`scan` any number, in calls of K. ``steps`` counts the
+    updates taken. Built by :func:`make_train_step`.
+
+    On CUDA with ``graphed`` each plan (batches of one
+    :func:`~ionic_mpnn_torch.data.packing.batch_signature`) gets K static
+    batch slots and its :class:`~.graphs.StepGraphs`: a group of K batches
+    costs one copy per array and one replay, a shorter group one replay of
+    the one-step graph per batch. The first call of each graph runs
+    eagerly as a real step, then captures it. Otherwise (the CPU, or
+    ``jit_compile=False``) the same steps run eagerly."""
 
     def __init__(self, model: torch.nn.Module, model_cfg: ModelConfig,
-                 train_cfg: TrainConfig, optimizer: Optimizer):
+                 train_cfg: TrainConfig, optimizer: Optimizer, graphed: bool = True):
         self.model = model
         self.optimizer = optimizer
         self.loss_kind = train_cfg.loss
@@ -94,10 +129,14 @@ class TrainStep:
         self.l2 = model_cfg.fp_l2
         self.num_steps = model_cfg.num_steps  # message steps, for the edge count
         self.device = next(model.parameters()).device
+        self.K = resolve_steps_per_call(train_cfg.steps_per_call, self.device)
+        self.graphed = graphed and self.device.type == "cuda"
         self.steps = 0
+        self._plans: Dict[tuple, StepGraphs] = {}
+        self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
 
-    def __call__(self, batch: IonPairBatch) -> Dict[str, torch.Tensor]:
-        batch = batch.to(self.device)
+    def _body(self, batch: IonPairBatch) -> torch.Tensor:
+        """One step on a device batch; ``(loss, data_loss)`` as a (2,) tensor."""
         self.model.train()
         self.optimizer.zero_grad()
         out = self.model(batch)
@@ -105,67 +144,105 @@ class TrainStep:
         loss = data + l2_penalty(self.model, self.l2)
         loss.backward()
         self.optimizer.step()
-        self.steps += 1
-        return {"loss": loss.detach(), "data_loss": data.detach()}
+        return torch.stack([loss.detach(), data.detach()])
 
-    def scan(self, batches: Iterable[IonPairBatch]) -> Dict[str, Any]:
-        """K steps in one call (``make_scan_train_step``):
-        ``{"loss_sum": Σ loss·n, "n": Σ n, "losses": [loss], "ns": [n]}``
-        with n the real samples of each batch and ``losses`` the steps'
-        device scalars. A batch whose ``sample_mask`` sums to 0 (group
-        padding) is skipped: parameters, Adam state and ``steps`` stay
-        bit-identical. The skip is decided from the host copy of the mask,
-        so the batches must be host (numpy) batches; nothing waits for the
-        device."""
-        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        losses: List[torch.Tensor] = []
-        ns: List[float] = []
+    def graphs(self, batch: IonPairBatch) -> StepGraphs:
+        """The slots and graphs of ``batch``'s plan, made on first use."""
+        key = batch_signature(batch)
+        if key not in self._plans:
+            self._plans[key] = StepGraphs(
+                self._body, batch, self.K, self.device, self.graphed, self._pool,
+                lambda: _dropout_generators(self.model, self.device))
+        return self._plans[key]
+
+    def __call__(self, batch: IonPairBatch) -> Dict[str, torch.Tensor]:
+        g = self.graphs(batch)
+        g.slots.copy_into([batch])
+        out = self.run_slots(g, 1)[0]
+        return {"loss": out[0], "data_loss": out[1]}
+
+    def run(self, batches: Sequence[IonPairBatch]) -> torch.Tensor:
+        """One step per batch, in order, in one call (at most K batches of
+        one plan, host or device): the steps' losses, an (n,) device tensor."""
+        g = self.graphs(batches[0])
+        g.slots.copy_into(batches)
+        return self.run_slots(g, len(batches))[:, 0]
+
+    def run_slots(self, g: StepGraphs, n: int) -> torch.Tensor:
+        """The steps of the batches already in ``g``'s slots ``0..n-1`` (the
+        native group mode uploads them straight from its staging): their
+        ``(loss, data_loss)``, an (n, 2) device tensor."""
+        out = g.run(n)
+        self.steps += n
+        return out
+
+    def scan(self, batches: Sequence[IonPairBatch]) -> Dict[str, Any]:
+        """The steps of ``batches`` in calls of K (``make_scan_train_step``):
+        ``{"loss_sum": Σ loss·n, "n": Σ n, "losses": (steps,) tensor, "ns":
+        [n]}`` with n the real samples of each batch. A batch whose
+        ``sample_mask`` sums to 0 (JAX's group padding) is skipped:
+        parameters, optimizer state and ``steps`` stay bit-identical. The
+        skip is decided from the host copy of the mask, so the batches must
+        be host (numpy) batches; nothing waits for the device."""
+        kept, ns = [], []
         for batch in batches:
-            mask = batch.sample_mask
-            if isinstance(mask, torch.Tensor):
-                if mask.device.type != "cpu":
-                    raise ValueError("scan takes host batches (the skip reads the mask)")
-                mask = mask.numpy()
-            n = float(np.sum(mask))
-            if n == 0:
-                continue
-            losses.append(self(batch)["loss"])
-            ns.append(n)
-            loss_sum = loss_sum + losses[-1] * n
+            n = _host_mask_sum(batch)
+            if n:
+                kept.append(batch)
+                ns.append(n)
+        parts = [self.run(kept[i:i + self.K]) for i in range(0, len(kept), self.K)]
+        losses = (torch.cat(parts) if parts
+                  else torch.zeros(0, dtype=torch.float32, device=self.device))
+        weights = _to_tensor(np.asarray(ns, np.float32), self.device)  # a pinned upload
+        loss_sum = (losses * weights).sum()
         return {"loss_sum": loss_sum, "n": sum(ns), "losses": losses, "ns": ns}
 
 
 def make_train_step(model: torch.nn.Module, model_cfg: ModelConfig,
-                    train_cfg: TrainConfig, optimizer: Optional[Optimizer] = None
-                    ) -> TrainStep:
+                    train_cfg: TrainConfig, optimizer: Optional[Optimizer] = None,
+                    jit_compile: bool = True) -> TrainStep:
     """The train step of ``model``. Without ``optimizer`` it builds one from
     ``train_cfg``: :func:`~.optim.make_optimizer` with its
-    ``learning_rate``, ``clipnorm``, ``weight_decay`` and ``warmup_steps``."""
+    ``learning_rate``, ``clipnorm``, ``weight_decay`` and ``warmup_steps``.
+    ``jit_compile`` (JAX ``make_train_step``'s flag): on CUDA, the steps run
+    as replayed CUDA graphs; False runs them eagerly."""
     if optimizer is None:
         optimizer = make_optimizer(model.parameters(), train_cfg.learning_rate,
                                    train_cfg.clipnorm, train_cfg.weight_decay,
                                    warmup_steps=train_cfg.warmup_steps)
-    return TrainStep(model, model_cfg, train_cfg, optimizer)
+    return TrainStep(model, model_cfg, train_cfg, optimizer, graphed=jit_compile)
 
 
-def make_eval_step(model: torch.nn.Module, model_cfg: ModelConfig, train_cfg: TrainConfig
-                   ) -> Callable[[IonPairBatch], Dict[str, torch.Tensor]]:
+class EvalStep:
     """``eval_step(batch)`` on the model's current weights, without a
     gradient: device tensors ``loss_sum`` (data loss · n), ``reg`` (the L2
     term), ``n`` (real samples), ``pred`` and, for models that return
     ``fp_cat``, ``fp_cat_colmax``: the per-column max of the relu'd cation
     fingerprint over the real samples, the dead-unit canary (a column that
-    never fires in the dev set is dead)."""
-    loss_kind, delta, l2 = train_cfg.loss, train_cfg.huber_delta, model_cfg.fp_l2
-    device = next(model.parameters()).device
+    never fires in the dev set is dead).
 
-    def step(batch: IonPairBatch) -> Dict[str, torch.Tensor]:
-        batch = batch.to(device)
+    :meth:`run` evaluates a list of device batches in one call: on CUDA
+    with ``graphed`` one graph over all of them, captured at the first call
+    for that list (which must keep its tensors) and replayed after; its
+    outputs are the graph's, which the next call overwrites."""
+
+    def __init__(self, model: torch.nn.Module, model_cfg: ModelConfig,
+                 train_cfg: TrainConfig, graphed: bool = True):
+        self.model = model
+        self.loss_kind, self.delta, self.l2 = train_cfg.loss, train_cfg.huber_delta, model_cfg.fp_l2
+        self.device = next(model.parameters()).device
+        self.graphed = graphed and self.device.type == "cuda"
+        self._replay: Optional[Replay] = None
+        self._batches: Optional[Sequence[IonPairBatch]] = None
+
+    def _body(self, batch: IonPairBatch) -> Dict[str, torch.Tensor]:
+        model = self.model
         model.eval()
         with torch.inference_mode():
             out = model(batch)
-            data = data_loss(out["pred"], batch.y, batch.sample_mask, loss_kind, delta)
-            loss = data + l2_penalty(model, l2)
+            data = data_loss(out["pred"], batch.y, batch.sample_mask, self.loss_kind,
+                             self.delta)
+            loss = data + l2_penalty(model, self.l2)
             n = batch.sample_mask.sum()
             res = {"loss_sum": data * n, "reg": loss - data, "n": n, "pred": out["pred"]}
             if "fp_cat" in out:
@@ -173,7 +250,24 @@ def make_eval_step(model: torch.nn.Module, model_cfg: ModelConfig, train_cfg: Tr
                 res["fp_cat_colmax"] = (out["fp_cat"] * m).amax(dim=0)
         return res
 
-    return step
+    def __call__(self, batch: IonPairBatch) -> Dict[str, torch.Tensor]:
+        return self._body(batch.to(self.device))
+
+    def run(self, batches: Sequence[IonPairBatch]) -> List[Dict[str, torch.Tensor]]:
+        if not self.graphed or not batches:
+            return [self(b) for b in batches]
+        if batches is not self._batches:
+            self._batches = batches
+            self._replay = Replay(lambda: [self._body(b) for b in batches], self.device, True)
+        self.model.eval()
+        return self._replay()
+
+
+def make_eval_step(model: torch.nn.Module, model_cfg: ModelConfig, train_cfg: TrainConfig,
+                   jit_compile: bool = True) -> EvalStep:
+    """The eval step of ``model`` (:class:`EvalStep`); ``jit_compile`` as
+    :func:`make_train_step`'s."""
+    return EvalStep(model, model_cfg, train_cfg, graphed=jit_compile)
 
 
 def predict(
@@ -187,18 +281,31 @@ def predict(
     dropout).
 
     ``device=None`` means CUDA (raises without it unless ``device="cpu"``);
-    the model's parameters must already live there."""
+    the model's parameters must already live there. The forward reads one
+    static batch slot of the plan; on CUDA it is one graph, replayed per
+    batch (JAX jits it per batch shape). The predictions stay on the device
+    and come back in one copy at the end."""
     device = resolve_device(device)
     param = next(model.parameters())
     if param.device.type != device.type:
         raise ValueError(f"model is on {param.device}, predict asked for {device}")
-    preds: List[np.ndarray] = []
     model.eval()
-    with torch.inference_mode():
-        for batch in iter_batches(records, plan, shuffle=False):
-            p = model(batch.to(param.device))["pred"].float().cpu().numpy()
-            preds.append(p[batch.sample_mask > 0])
-    return np.concatenate(preds) if preds else np.zeros(0, np.float32)
+    slots = StaticBatches(plan_template(plan), 1, param.device)
+
+    def forward():
+        with torch.inference_mode():
+            return model(slots.batches[0])["pred"].float()
+
+    fwd = Replay(forward, param.device, graphed=True)
+    preds: List[torch.Tensor] = []
+    masks: List[np.ndarray] = []
+    for batch in iter_batches(records, plan, shuffle=False):
+        slots.copy_into([batch])
+        preds.append(fwd().clone())
+        masks.append(np.asarray(batch.sample_mask) > 0)
+    if not preds:
+        return np.zeros(0, np.float32)
+    return torch.stack(preds).cpu().numpy()[np.stack(masks)]
 
 
 @dataclass
@@ -210,7 +317,9 @@ class FitResult:
     ``fetch+eval(sync)`` (enqueueing the dev eval and the one copy to the
     host, which waits for the card) and ``host_reduce`` (the host's
     reductions). ``steps`` is the number of train steps taken in all,
-    resumed ones included."""
+    resumed ones included. ``loader`` is the packer that made the batches,
+    ``"native"`` or ``"python"``, and ``steps_per_call`` the K that grouped
+    the train steps."""
 
     params: Dict[str, torch.Tensor]
     history: Dict[str, List[float]]
@@ -220,6 +329,8 @@ class FitResult:
     stopped_early: bool
     segments: List[Dict[str, float]]
     steps: int
+    loader: str = "python"
+    steps_per_call: int = 1
 
 
 SEGMENTS = ("dispatch", "fetch+eval(sync)", "host_reduce")
@@ -240,17 +351,18 @@ def _clone_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def _fetch(losses: List[torch.Tensor], outs: List[Dict[str, torch.Tensor]]):
-    """The step losses and every eval output in ONE device-to-host copy:
-    ``(losses as an f32 numpy vector, outs as dicts of numpy arrays)``."""
+    """The step losses (1-D device tensors, one per call) and every eval
+    output in ONE device-to-host copy: ``(losses as an f32 numpy vector,
+    outs as dicts of numpy arrays)``."""
     leaves = [(i, k, v) for i, o in enumerate(outs) for k, v in o.items()]
-    flat = torch.cat([torch.stack(losses).float()]
-                     + [v.reshape(-1).float() for _, _, v in leaves]).cpu().numpy()
+    loss_vec = torch.cat([x.reshape(-1).float() for x in losses])
+    flat = torch.cat([loss_vec] + [v.reshape(-1).float() for _, _, v in leaves]).cpu().numpy()
     host: List[Dict[str, np.ndarray]] = [{} for _ in outs]
-    at = len(losses)
+    at = loss_vec.numel()
     for i, k, v in leaves:
         host[i][k] = flat[at:at + v.numel()].reshape(tuple(v.shape))
         at += v.numel()
-    return flat[:len(losses)], host
+    return flat[:loss_vec.numel()], host
 
 
 def fit(
@@ -276,7 +388,14 @@ def fit(
     one. Each :class:`~ionic_mpnn_torch.models.layers.Dropout` of the
     model is reseeded from ``train_cfg.seed`` (plus its index) when the
     call starts. ``IONIC_FIT_TIMERS=1`` prints each epoch's
-    :data:`SEGMENTS` to stderr."""
+    :data:`SEGMENTS` to stderr.
+
+    The train steps run in calls of K (``steps_per_call``; <= 0 gives 8 on
+    CUDA, 1 on the CPU): on CUDA a group of K batches is one replay of the
+    K-step graph and a remainder of r batches r replays of the one-step
+    graph; the history is the same for every K. The dev eval is one graph
+    over the dev batches, replayed each epoch. ``FitResult.loader`` says
+    which packer made the batches."""
     if not train_records:
         raise ValueError("fit needs at least one train record")
     device = next(model.parameters()).device
@@ -288,10 +407,35 @@ def fit(
     else:
         normalizer = Normalizer.identity()
 
+    # Host-side batching: the C++ packer (batch for batch the Python
+    # packer's, tested) when use_native_loader is set and g++ builds it
+    # (JAX loop.py:291-304); JAX falls back to Python packing otherwise
+    train_iter: Any = iter_batches
+    train_source: Any = train_records
+    dev_iter: Any = iter_batches
+    dev_source: Any = dev_records
+    loader = "python"
+    if train_cfg.use_native_loader:
+        from .. import native
+
+        if native.native_available():
+            from ..data.columnar import ColumnarIonPairs, iter_batches_fast
+
+            loader = "native"
+            train_iter = dev_iter = iter_batches_fast
+            train_source = ColumnarIonPairs.from_records(train_records,
+                                                         target_key=plan.target_key)
+            dev_source = ColumnarIonPairs.from_records(dev_records,
+                                                       target_key=plan.target_key)
     # the dev split never shuffles: pack it once and move it to the card once
-    dev_batches = [b.to(device) for b in iter_batches(dev_records, plan, shuffle=False)]
+    dev_batches = [b.to(device) for b in dev_iter(dev_source, plan, shuffle=False)]
     step = make_train_step(model, model_cfg, train_cfg, optimizer)
     eval_step = make_eval_step(model, model_cfg, train_cfg)
+    K = step.K
+    # Native group mode (JAX loop.py:649-665): the C++ packer writes each
+    # group's K batches straight into the pinned staging of the plan's K
+    # slots; one copy per array and one replay per group
+    group_graphs = step.graphs(plan_template(plan)) if loader == "native" and K > 1 else None
     dropouts = [m for m in model.modules() if isinstance(m, Dropout)]
     for i, d in enumerate(dropouts):
         d.manual_seed(train_cfg.seed + i)
@@ -354,16 +498,33 @@ def fit(
         for epoch in range(start_epoch, epochs + 1):
             epochs_run = epoch
             t0 = time.perf_counter()
-            # one scan over the epoch: the port launches each step on its
-            # own, so train_cfg.steps_per_call (the JAX package's K steps
-            # per XLA call) has nothing to group
-            out = step.scan(iter_batches(train_records, plan, shuffle=True,
-                                         seed=train_cfg.seed + epoch))
-            losses, ns = out["losses"], out["ns"]
+            losses: List[torch.Tensor] = []
+            ns: List[float] = []
+            seed = train_cfg.seed + epoch
+            if group_graphs is not None:
+                from ..data.columnar import iter_batch_groups_fast
+
+                for stacked, _ in iter_batch_groups_fast(train_source, plan, K, shuffle=True,
+                                                         seed=seed, staging=group_graphs.slots):
+                    n = len(stacked.sample_mask)
+                    group_graphs.slots.upload(n)
+                    losses.append(step.run_slots(group_graphs, n)[:, 0])
+                    ns.extend(float(x) for x in np.sum(stacked.sample_mask, axis=1))
+            else:
+                group: List[IonPairBatch] = []
+                for batch in train_iter(train_source, plan, shuffle=True, seed=seed):
+                    group.append(batch)
+                    if len(group) == K:
+                        losses.append(step.run(group))
+                        ns.extend(_host_mask_sum(b) for b in group)
+                        group = []
+                if group:
+                    losses.append(step.run(group))
+                    ns.extend(_host_mask_sum(b) for b in group)
             t_disp = time.perf_counter()
             # the eval queues behind the epoch's steps; one copy brings back
             # the step losses and every eval output, and waits for the card
-            outs = [eval_step(b) for b in dev_batches]
+            outs = eval_step.run(dev_batches)
             losses_h, outs_h = _fetch(losses, outs)
             t_fetch = time.perf_counter()
 
@@ -417,7 +578,8 @@ def fit(
     model.load_state_dict(best_params)
     return FitResult(params=best_params, history=history, normalizer=normalizer,
                      best_val_loss=best_val, epochs_run=epochs_run,
-                     stopped_early=stopped_early, segments=segments, steps=step.steps)
+                     stopped_early=stopped_early, segments=segments, steps=step.steps,
+                     loader=loader, steps_per_call=K)
 
 
 def evaluate_splits(
