@@ -147,10 +147,35 @@ Phases, in order (any failure raises and the script exits non-zero):
    directory: ``prepare_data --synthetic`` at the reference scale (7,666
    viscosity rows, 400 melting-point draws), ``train_viscosity``,
    ``train_melting_point`` and ``train_transfer`` (on train_viscosity's
-   checkpoint) for 2 epochs each, then ``evaluate``. Each exits 0, writes
+   checkpoint) for 2 epochs each, then ``evaluate``, then ``screen`` on
+   train_viscosity's checkpoint in candidate mode and with
+   ``--grid-cations`` (the brute-force device sweep). Each exits 0, writes
    its files and reports CUDA kernel launches; ``evaluate`` repeats each
    training CLI's R² and MAE. Per CLI its seconds and R² lines, and per
    transfer stage its epoch seconds and train steps/s.
+   [screen]: screening (``ionic_mpnn_torch/inference.py``) at the
+   viscosity model's published width with seeded random weights, batch
+   2048, ``pallas_step`` in the card's default compute dtype, on the
+   screening library (all 2,688 enumerated cations, the 25 screening
+   anions; a vocab built from it, so only perchlorate, which the built-in
+   parser refuses, is skipped). A batch packed on the card
+   (``ops/grid_pack.py``) equals the native packer's on its real nodes and
+   edges, and the two forwards agree (f32 at 1e-4, bf16 at 2e-2). On a
+   50,400-candidate sub-grid, top 100: the device and host sweeps,
+   ``pallas_step`` f32 against plain ``gather`` f32, and the factorized
+   sweep against the brute force agree at 1e-4 on every shared candidate and
+   differ in their sets only by candidates within 1e-4 of the k-th score
+   (the readout's atomic sums move the last bits between two runs); so do
+   the factorized sweep in the default dtype and a brute-force sweep of its
+   own formulation (``gather``). Short sweeps in ``pallas_fused`` and ``gather`` with the
+   pallas scatter against plain. Every sweep's launches are exact (8 per
+   batch, K = 8 batches per graph replay). Then the BASELINE config-5 sweep,
+   2,688 × 24 × 156 = 10,063,872 candidates, brute force on the card: pairs/s
+   overall and steady, replays, peak memory; per batch inside it the replay
+   / K, the pack alone and the forward alone; the host path on 193,536
+   candidates (pairs/s, the producer wait); the factorized sweep over the
+   10M grid (seconds). Its profiler reading (busy share over a few
+   replays) comes last, after phase 13.
 13. Times. Wall times first (CUDA events, before torch.profiler attaches):
    each wrapper call at the cation shape (median of 60), each forward per
    batch (median of 50), the host time each kernel's autograd Function would
@@ -2206,9 +2231,11 @@ def phase_chain():
     (``python -m ionic_mpnn_torch.cli.*``, with every import of JAX made to
     fail, whether or not the machine has it): prepare_data
     --synthetic at the reference scale, train_viscosity, train_melting_point,
-    train_transfer on train_viscosity's checkpoint, evaluate. Each must exit
-    0, write its files, report launches of the CUDA kernels, and evaluate's
-    metrics must repeat each training CLI's."""
+    train_transfer on train_viscosity's checkpoint, evaluate, then screen on
+    train_viscosity's checkpoint in candidate mode and with --grid-cations
+    (the brute-force device sweep). Each must exit 0, write its files, report
+    launches of the CUDA kernels, and evaluate's metrics must repeat each
+    training CLI's."""
     import importlib.util
     import tempfile
 
@@ -2221,6 +2248,7 @@ def phase_chain():
         data, res = Path(tmp) / "data", Path(tmp) / "results"
         vocab = ["--vocab", str(data / "vocab.pkl")]
         epochs = ["--epochs", str(CHAIN_EPOCHS)]
+        screen = [*vocab, "--checkpoint", str(res / "viscosity" / "checkpoints")]
         steps = [
             ("prepare_data", ["--data-dir", str(data), "--synthetic"],
              [data / f for f in ("CA.smi", "VISCOSITY.txt", "MP.txt", "vocab.pkl",
@@ -2242,10 +2270,19 @@ def phase_chain():
                                              "scaler.json")]),
             ("evaluate", ["--data-dir", str(data), "--results-dir", str(res),
                           "--out-dir", str(res / "eval")], [res / "eval" / "metrics.json"]),
+            # screening on train_viscosity's checkpoint: the template pairs, then
+            # the enumerated cations x the screening anions through the device sweep
+            ("screen", [*screen, "--out", str(res / "screen" / "candidates.csv")],
+             [res / "screen" / "candidates.csv"]),
+            ("screen --grid-cations", [*screen, "--grid-cations", str(SCREEN_CATIONS),
+                                       "--temperatures", "298.15,323.15", "--brute-force",
+                                       "--out", str(res / "screen" / "grid.csv")],
+             [res / "screen" / "grid.csv"]),
         ]
         for name, args, files in steps:
             # python -m, with JAX and the JAX package unimportable
-            cmd = [sys.executable, "-c", CHAIN_NO_JAX, f"ionic_mpnn_torch.cli.{name}", *args]
+            module = f"ionic_mpnn_torch.cli.{name.split()[0]}"
+            cmd = [sys.executable, "-c", CHAIN_NO_JAX, module, *args]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
                                   timeout=CHAIN_TIMEOUT)
@@ -2296,7 +2333,8 @@ def phase_chain():
             out["steps"][name] = step
             lines = [line.strip() for line in proc.stdout.splitlines()
                      if "R2=" in line or line.startswith(("stage ", "parsed ", "==", "split",
-                                                          "Epoch ", "==="))]
+                                                          "Epoch ", "===", "grid sweep",
+                                                          "screened in", "T grid"))]
             log(f"[chain] {name}: exit 0 in {seconds:.2f} s; launches "
                 f"{step.get('launches')}")
             for line in lines:
@@ -2304,6 +2342,369 @@ def phase_chain():
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[chain] phase {out['seconds']:.1f} s")
     return out, launches
+
+
+# ---------------------------------------------------------------- [screen]
+
+SCREEN_BATCH = 2048
+SCREEN_K = 8  # batches per replay of the device sweep's graph
+SCREEN_TOP_K = 100
+SCREEN_CATIONS = 2688  # every cation enumerate_cations yields
+SCREEN_TARGET = 10_000_000  # the CLI's --target-candidates rule sizes the T grid
+SUB_GRID = (700, 3)  # cations and temperatures of the ~50k sub-grid (x 24 anions)
+SHORT_GRID = (256, 1)  # the short sweeps in the other kernel configurations
+HOST_GRID_T = 3  # the host path's grid: 2688 x 24 x 3 = 193,536 candidates
+UNPARSED_ANION = "[O-]Cl(=O)(=O)=O"  # perchlorate: the built-in parser refuses it
+
+
+def screen_library():
+    """The screening library (every enumerated cation, the 25 screening
+    anions) and a vocab built from it, so that no parsed ion is out of
+    vocabulary; only perchlorate fails the built-in parser."""
+    from ionic_mpnn_torch.data import build_vocab, smiles_to_graph
+    from ionic_mpnn_torch.data.synthetic import SCREEN_ANIONS, enumerate_cations
+
+    cations = enumerate_cations(SCREEN_CATIONS)
+    if len(cations) != SCREEN_CATIONS:
+        raise AssertionError(f"enumerate_cations gave {len(cations)} cations")
+    graphs, failed = {}, []
+    for s in cations + SCREEN_ANIONS:
+        try:
+            graphs[s] = smiles_to_graph(s)
+        except ValueError:
+            failed.append(s)
+    if failed != [UNPARSED_ANION]:
+        raise AssertionError(f"ions the parser refused: {failed}")
+    c0, a0 = graphs[cations[0]], graphs[SCREEN_ANIONS[0]]
+    records = ([{"cation_graph": graphs[c], "anion_graph": a0} for c in cations]
+               + [{"cation_graph": c0, "anion_graph": graphs[a]}
+                  for a in SCREEN_ANIONS if a in graphs])
+    return cations, list(SCREEN_ANIONS), build_vocab([records])
+
+
+def hold_top(tag, got, want, want_engine, tol):
+    """Hold sweep ``got`` to sweep ``want`` (lowest predictions first): every
+    candidate ``got`` returns agrees at ``tol`` with ``want``'s prediction
+    of it (``want_engine`` predicts those ``want`` did not return), and a
+    candidate only one of them returns lies within ``tol`` of ``want``'s
+    k-th score. Returns (max |err|, candidates not shared)."""
+    key = lambda r: (r.cation, r.anion, r.temperature)
+    wp = {key(r): r.prediction for r in want}
+    gp = {key(r): r.prediction for r in got}
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} results against {len(want)}")
+    common = [k for k in gp if k in wp]
+    err = close(tag, torch.tensor([gp[k] for k in common]),
+                torch.tensor([wp[k] for k in common]), *tol)
+    only_got = [k for k in gp if k not in wp]
+    only_want = [k for k in wp if k not in gp]
+    kth = want[-1].prediction
+    near = lambda v: abs(v - kth) <= tol[1] + tol[0] * abs(kth)
+    if only_got:
+        plain = want_engine.predict_batch(only_got)
+        err = max(err, close(f"{tag}, candidates only it returns",
+                             torch.tensor([gp[k] for k in only_got]),
+                             torch.from_numpy(np.asarray(plain, np.float32)), *tol))
+        bad = [(k, float(p)) for k, p in zip(only_got, plain) if not near(float(p))]
+        bad += [(k, wp[k]) for k in only_want if not near(wp[k])]
+        if bad:
+            raise AssertionError(f"{tag}: top-k sets differ beyond ties at the k-th score "
+                                 f"{kth}: {bad[:4]}")
+    return err, len(only_got)
+
+
+def sweep_launches(impl, scatter, batches):
+    """Exact kernel launches of ``batches`` 4-step forwards of both ions."""
+    per_fwd = kernel_launches(impl, scatter)[1]
+    return {k: batches * per_fwd.get(k, 0) for k in
+            ("sorted_segment_sum", "fused_message_aggregate", "fused_mp_step",
+             "fused_message_aggregate_dh")}
+
+
+def phase_screen(dev):
+    """Screening at the viscosity model's published width with seeded
+    random weights (``ionic_mpnn_torch/inference.py``): the device-packed
+    batch against the host-packed one, the sweeps against each other and
+    against plain on a ~50k sub-grid, the short sweeps in the other kernel
+    configurations, then the BASELINE config-5 sweep of 10,063,872
+    candidates, the host path, and the factorized sweep over the same grid.
+    Returns the phase's record, its kernel launches, and a closure that
+    reads the card's busy share over a few replays (run last: profiler)."""
+    from ionic_mpnn_torch.config import resolve_compute_dtype, viscosity_config
+    from ionic_mpnn_torch.data import BatchPlan, IonPairBatch
+    from ionic_mpnn_torch.inference import IonPool, ScreeningEngine
+    from ionic_mpnn_torch.models import ViscosityModel
+    from ionic_mpnn_torch.ops import cuda as kernels
+    from ionic_mpnn_torch.ops import grid_pack
+    from ionic_mpnn_torch.training.graphs import Replay
+
+    t_phase = time.perf_counter()
+    cations, anions, vocab = screen_library()
+    base = viscosity_config(vocab.atom_vocab_size, vocab.bond_vocab_size)
+    state = ViscosityModel(base, seed=0).state_dict()  # the port's seeded init
+    B, K, k = SCREEN_BATCH, SCREEN_K, SCREEN_TOP_K
+    plan = BatchPlan(B, B * 128, B * 256)  # the CLI's caps, for predict_batch
+
+    def engine(impl="pallas_step", dtype=None, scatter="xla"):
+        dtype = dtype or resolve_compute_dtype("auto", dev)
+        cfg = base.replace(message_impl=impl, compute_dtype=dtype, scatter_impl=scatter)
+        return ScreeningEngine(ViscosityModel(cfg, seed=0), state, vocab, plan)
+
+    default = engine()  # pallas_step in the card's default compute dtype
+    dtype = default.model.cfg.compute_dtype
+    tol = BF16_MODEL_TOL if dtype == "bfloat16" else MODEL_TOL
+    out = {"compute_dtype": dtype, "batch": B, "steps_per_call": K, "top_k": k}
+    launches = {}
+
+    def counted(tag, impl, scatter, n_batches, fn):
+        kernels.reset_launch_counts()
+        res = fn()
+        counts = kernels.launch_counts()
+        want = sweep_launches(impl, scatter, n_batches)
+        if counts != want:
+            raise AssertionError(f"{tag}: launch counts {counts}, expected {want}")
+        for key_, v in counts.items():
+            launches[key_] = launches.get(key_, 0) + v
+        return res, counts
+
+    def dispatched(total):  # batches a device sweep runs: K per replay
+        return K * -(-total // (B * K))
+
+    # 1. a device-packed batch against the same candidates packed on the host
+    sub_c, sub_t = SUB_GRID
+    sub_cations = cations[:sub_c]
+    sub_temps = np.linspace(273.15, 393.15, sub_t).astype(np.float32)
+    cat_pool, an_pool = IonPool(sub_cations, vocab), IonPool(anions, vocab)
+    if [s for s, _ in an_pool.skipped] != [UNPARSED_ANION]:
+        raise AssertionError(f"IonPool skipped {an_pool.skipped}")
+    C, A = len(cat_pool), len(an_pool)
+    total = C * A * sub_t
+    splan = default._grid_plan(cat_pool, an_pool, sub_t, True, True)
+    gids = np.arange(B)
+    ci, ai, ti = gids % C, (gids // C) % A, gids // (C * A)
+    host = IonPairBatch(
+        cation=default._pack_side_cols(cat_pool.gather(ci), splan),
+        anion=default._pack_side_cols(an_pool.gather(ai), splan, side="anion"),
+        temperature=sub_temps[ti][:, None], y=np.zeros(B, np.float32),
+        sample_mask=np.ones(B, np.float32)).to(dev)
+    pools = [grid_pack.device_pool(p, device=dev) for p in (cat_pool, an_pool)]
+    devb = grid_pack.grid_batch_on_device(
+        *pools, torch.from_numpy(sub_temps).to(dev), 0, n_cations=C, n_anions=A, total=total,
+        batch_size=B, node_cap=splan.node_cap, edge_cap=splan.edge_cap,
+        anion_node_cap=splan.anion_node_cap, anion_edge_cap=splan.anion_edge_cap)
+    for side in ("cation", "anion"):
+        d, h = getattr(devb, side), getattr(host, side)
+        if not torch.equal(d.node_mask, h.node_mask):
+            raise AssertionError(f"device pack {side}: node masks differ")
+        nm, dm, hm = d.node_mask, d.edge_mask, h.edge_mask
+        for f in ("atom_ids", "node_graph", "node_local"):
+            if not torch.equal(getattr(d, f)[nm], getattr(h, f)[nm]):
+                raise AssertionError(f"device pack {side}: real {f} differ")
+        for f in ("src", "dst", "bond_ids"):
+            if not torch.equal(getattr(d, f)[dm], getattr(h, f)[hm]):
+                raise AssertionError(f"device pack {side}: real-edge {f} differ")
+    for f in ("temperature", "sample_mask"):
+        if not torch.equal(getattr(devb, f), getattr(host, f)):
+            raise AssertionError(f"device pack: {f} differs")
+    f32 = engine(dtype="float32")
+    errs = {}
+    with torch.inference_mode():
+        for name, e, t_ in ((dtype, default, tol), ("float32", f32, MODEL_TOL)):
+            errs[name] = close(f"device-packed batch, pallas_step {name}",
+                               e.model(devb)["pred"], e.model(host)["pred"], *t_)
+    out["pack_vs_host"] = {"cation_N": devb.cation.node_capacity,
+                           "cation_E": devb.cation.edge_capacity,
+                           "anion_N": devb.anion.node_capacity,
+                           "anion_E": devb.anion.edge_capacity,
+                           "real_edges": int(devb.cation.edge_mask.sum()
+                                             + devb.anion.edge_mask.sum()),
+                           "max_abs_err": errs}
+    log(f"[screen] library: {len(cations)} cations, {len(anions)} anions ({UNPARSED_ANION} "
+        f"skipped: the built-in parser refuses it), vocab atoms {vocab.atom_vocab_size} "
+        f"bonds {vocab.bond_vocab_size}; largest cation {int(cat_pool.a_len.max())} atoms "
+        f"in the sub-grid")
+    log(f"[screen] device-packed batch of {B} = the native packer's on real nodes and "
+        f"edges (cation N={devb.cation.node_capacity} E={devb.cation.edge_capacity}, anion "
+        f"N={devb.anion.node_capacity} E={devb.anion.edge_capacity}); forwards max|err| "
+        + json.dumps(errs))
+    del devb, host, pools
+
+    # 2. the ~50k sub-grid, top 100
+    grid = (sub_cations, anions, sub_temps)
+    sweeps = {}
+    sweeps["device"], _ = counted("sub-grid device", "pallas_step", "xla", dispatched(total),
+                                  lambda: default.screen_grid(*grid, top_k=k, steps_per_call=K))
+    sweeps["host"], _ = counted("sub-grid host", "pallas_step", "xla", -(-total // B),
+                                lambda: default.screen_grid(*grid, top_k=k, device_pack=False))
+    # the same kernels on batches packed two ways: only the readout's atomic
+    # sums (index_add_) differ, so pairs may swap only at f32 noise
+    err_dh, n_dh = hold_top("sub-grid device vs host sweep", sweeps["device"].results,
+                            sweeps["host"].results, default, MODEL_TOL)
+    sweeps["f32"], _ = counted("sub-grid pallas_step f32", "pallas_step", "xla",
+                               dispatched(total),
+                               lambda: f32.screen_grid(*grid, top_k=k, steps_per_call=K))
+    plain = engine("gather", "float32")
+    sweeps["plain"], _ = counted("sub-grid plain gather f32", "gather", "xla",
+                                 dispatched(total),
+                                 lambda: plain.screen_grid(*grid, top_k=k, steps_per_call=K))
+    err_plain, n_tied = hold_top("sub-grid pallas_step f32 vs plain gather f32",
+                                 sweeps["f32"].results, sweeps["plain"].results, plain,
+                                 MODEL_TOL)
+    sweeps["factorized"] = f32.screen_grid_factorized(*grid, top_k=k)
+    err_fact, n_fact = hold_top("sub-grid factorized vs brute force", sweeps["factorized"].results,
+                                sweeps["f32"].results, f32, MODEL_TOL)
+    # the factorized sweep encodes the pools with the gather formulation (as
+    # JAX's does); in the default dtype it is exact against a brute-force
+    # sweep of that formulation, whose roundings pallas_step's do not share
+    gather_default = engine("gather", dtype)
+    sweeps["gather brute"], _ = counted(
+        f"sub-grid gather {dtype}", "gather", "xla", dispatched(total),
+        lambda: gather_default.screen_grid(*grid, top_k=k, steps_per_call=K))
+    sweeps["factorized default"] = default.screen_grid_factorized(*grid, top_k=k)
+    err_fd, n_fd = hold_top(f"sub-grid factorized {dtype} vs gather {dtype} brute force",
+                            sweeps["factorized default"].results,
+                            sweeps["gather brute"].results, gather_default, MODEL_TOL)
+    del gather_default
+    out["sub_grid"] = {
+        "candidates": total, "device_vs_host_max_abs_err": err_dh, "device_vs_host_tied": n_dh,
+        "kernel_vs_plain_max_abs_err": err_plain, "kernel_vs_plain_tied": n_tied,
+        "factorized_vs_brute_max_abs_err": err_fact, "factorized_vs_brute_tied": n_fact,
+        "factorized_default_vs_gather_max_abs_err": err_fd,
+        "factorized_default_vs_gather_tied": n_fd,
+        "pairs_per_s": {n: r.pairs_per_s for n, r in sweeps.items()}}
+    log(f"[screen] sub-grid {C} x {A} x {sub_t} = {total} candidates, top {k}: device vs host "
+        f"max|err| {err_dh:.3e} ({n_dh} swapped at the k-th score); pallas_step f32 vs plain gather f32 max|err| "
+        f"{err_plain:.3e} ({n_tied} swapped at the k-th score); factorized vs brute force "
+        f"max|err| {err_fact:.3e} ({n_fact} swapped), in {dtype} vs gather {dtype} "
+        f"{err_fd:.3e} ({n_fd} swapped); pairs/s "
+        + json.dumps({n: round(r.pairs_per_s) for n, r in sweeps.items()}))
+
+    # 3. short sweeps in the other kernel configurations
+    short = (cations[:SHORT_GRID[0]], anions, sub_temps[:SHORT_GRID[1]])
+    n_short = SHORT_GRID[0] * A * SHORT_GRID[1]
+    ref = plain.screen_grid(*short, top_k=k, steps_per_call=K)
+    out["short"] = {}
+    for name, impl, scatter in (("pallas_fused f32", "pallas_fused", "xla"),
+                                ("gather+pallas scatter f32", "gather", "pallas")):
+        res, counts = counted(f"short sweep {name}", impl, scatter, dispatched(n_short),
+                              lambda: engine(impl, "float32", scatter).screen_grid(
+                                  *short, top_k=k, steps_per_call=K))
+        err, n_tied = hold_top(f"short sweep {name} vs plain", res.results, ref.results,
+                               plain, MODEL_TOL)
+        out["short"][name] = {"launches": counts, "max_abs_err": err, "tied": n_tied}
+        log(f"[screen] short sweep {name} ({n_short} candidates): launches "
+            f"{ {k_: v for k_, v in counts.items() if v} }, max|err| {err:.3e} vs plain")
+    del f32, plain
+
+    # 4. the BASELINE config-5 sweep: 2,688 x 24 x 156, brute force on the card
+    cat_pool = IonPool(cations, vocab)
+    n_pairs = len(cat_pool) * A
+    n_t = max(1, -(-SCREEN_TARGET // n_pairs))
+    temps = np.linspace(273.15, 393.15, n_t).astype(np.float32)
+    total = n_pairs * n_t
+    replays = -(-total // (B * K))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    report, counts = counted("10M sweep", "pallas_step", "xla", K * replays,
+                             lambda: default.screen_grid(cations, anions, temps, top_k=k,
+                                                         steps_per_call=K))
+    peak_mib = (torch.cuda.max_memory_allocated() - mem0) / 2**20
+    if report.n_screened != total or len(report.results) != k:
+        raise AssertionError(f"10M sweep: {report.n_screened} screened, "
+                             f"{len(report.results)} results")
+    preds = np.array([r.prediction for r in report.results])
+    if not np.isfinite(preds).all() or np.any(np.diff(preds) < 0):
+        raise AssertionError("10M sweep: predictions not finite and ascending")
+    out["sweep"] = {"candidates": total, "cations": len(cat_pool), "anions": A,
+                    "temperatures": n_t, "replays": replays, "launches": counts,
+                    "pairs_per_s": report.pairs_per_s,
+                    "steady_pairs_per_s": report.steady_pairs_per_s,
+                    "wall_s": report.wall_s, "device_s": report.device_s,
+                    "peak_mib": peak_mib, "skipped": [s for s, _ in report.skipped],
+                    "best": [report.results[0].cation, report.results[0].anion,
+                             report.results[0].temperature, report.results[0].prediction]}
+    log(f"[screen] config-5 sweep: {len(cat_pool)} x {A} x {n_t} = {total:,} candidates "
+        f"in {report.wall_s:.3f} s, {replays} replays of one {K}-batch graph "
+        f"(fused_mp_step launched {counts['fused_mp_step']} = 8 x {K} x {replays}); "
+        f"{report.pairs_per_s:,.1f} pairs/s overall, {report.steady_pairs_per_s:,.1f} "
+        f"steady; device+dispatch {report.device_s:.3f} s; peak {peak_mib:.1f} MiB above "
+        f"the {mem0 / 2**20:.1f} MiB before; skipped {out['sweep']['skipped']}")
+
+    # per batch inside the sweep: one replay / K, the pack alone, the forward
+    # alone (each a graph on the sweep's own plan, CUDA events)
+    an_pool = IonPool(anions, vocab)
+    big = default._grid_plan(cat_pool, an_pool, n_t, True, True)
+    prog = default._device_sweep(cat_pool, an_pool, temps, big, k, True, K)
+    prog.scal.copy_(torch.tensor([total // 2, len(cat_pool), A, total], dtype=torch.int32))
+
+    def pack_only():
+        with torch.inference_mode():
+            return prog.pack(prog.scal[0])
+
+    pack_graph = Replay(pack_only, dev, graphed=True)
+    static = pack_only()
+    fwd_graph = Replay(lambda: default._forward(static), dev, graphed=True)
+    times = {"replay": forward_times(prog.run, n=20), "pack": forward_times(pack_graph),
+             "forward": forward_times(fwd_graph)}
+    per_batch = {"batch_ms": times["replay"]["wall_ms"] / K,
+                 "pack_ms": times["pack"]["wall_ms"], "forward_ms": times["forward"]["wall_ms"],
+                 "replay_host_ms": times["replay"]["host_ms"]}
+    out["per_batch"] = dict(per_batch, cation_N=big.node_cap, cation_E=big.edge_cap,
+                            anion_N=big.anion_node_cap, anion_E=big.anion_edge_cap)
+    log(f"[screen] per batch of {B} inside the sweep (plan cation N={big.node_cap} "
+        f"E={big.edge_cap}, anion N={big.anion_node_cap} E={big.anion_edge_cap}): "
+        f"{per_batch['batch_ms']:.4f} ms (one replay {times['replay']['wall_ms']:.4f} ms / "
+        f"{K}, host {per_batch['replay_host_ms']:.4f} ms to enqueue it); the pack alone "
+        f"{per_batch['pack_ms']:.4f} ms, the forward alone {per_batch['forward_ms']:.4f} ms "
+        f"(graphs)")
+
+    # 5. the host path on ~200k candidates
+    host_grid = (cations, anions, temps[:: max(1, n_t // HOST_GRID_T)][:HOST_GRID_T])
+    n_host = len(cat_pool) * A * HOST_GRID_T
+    hrep, _ = counted("host path", "pallas_step", "xla", -(-n_host // B),
+                      lambda: default.screen_grid(*host_grid, top_k=k, device_pack=False))
+    drep = default.screen_grid(*host_grid, top_k=k, steps_per_call=K)
+    err_h, n_h = hold_top("host path vs device sweep", hrep.results, drep.results, default,
+                          MODEL_TOL)
+    out["host_path"] = {"candidates": n_host, "pairs_per_s": hrep.pairs_per_s,
+                        "producer_wait_s": hrep.producer_wait_s, "device_s": hrep.device_s,
+                        "wall_s": hrep.wall_s, "device_sweep_pairs_per_s": drep.pairs_per_s,
+                        "vs_device_max_abs_err": err_h, "vs_device_tied": n_h}
+    log(f"[screen] host path (native packer, producer thread): {n_host:,} candidates in "
+        f"{hrep.wall_s:.3f} s, {hrep.pairs_per_s:,.1f} pairs/s; the consumer waited "
+        f"{hrep.producer_wait_s:.3f} s on packing, {hrep.device_s:.3f} s on the card; the "
+        f"device sweep of the same grid {drep.pairs_per_s:,.1f} pairs/s; max|err| {err_h:.3e} "
+        f"against it, {n_h} swapped at the k-th score")
+
+    # 6. the factorized sweep over the 10M grid
+    fact = default.screen_grid_factorized(cations, anions, temps, top_k=k)
+    key = lambda r: (r.cation, r.anion, r.temperature)
+    brute = {key(r): r.prediction for r in report.results}
+    diffs = [abs(r.prediction - brute[key(r)]) for r in fact.results if key(r) in brute]
+    out["factorized"] = {"seconds": fact.wall_s, "pairs_per_s": fact.pairs_per_s,
+                         "shared_with_brute": len(diffs),
+                         "shared_max_abs_diff": max(diffs, default=None)}
+    # not held: in bf16 the factorized sweep's gather trunk rounds where
+    # pallas_step does not (the sub-grid holds each against its own formulation)
+    log(f"[screen] factorized sweep over the same {total:,} candidates: {fact.wall_s:.3f} s "
+        f"({fact.pairs_per_s:,.1f} pairs/s); {len(diffs)} of its top {k} in the brute "
+        f"force's ({dtype}), max |diff| {max(diffs, default=float('nan')):.3e} on those")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[screen] phase {out['seconds']:.1f} s")
+
+    def profile():
+        prof = device_profile(prog.run, n=5, warmup=2)
+        wall = times["replay"]["wall_ms"]
+        res = {"busy_ms_per_replay": prof["busy_ms"], "replay_wall_ms": wall,
+               "busy_share": min(1.0, prof["busy_ms"] / wall),
+               "top": {k_[:60]: v for k_, v in list(prof["by_kernel"].items())[:6]}}
+        log(f"[screen] profiler: busy {prof['busy_ms']:.4f} ms per replay of {K} batches "
+            f"against a {wall:.4f} ms wall, busy share {res['busy_share']:.3f}; top kernels "
+            f"ms: " + json.dumps({k_: round(v, 5) for k_, v in res["top"].items()}))
+        return res
+
+    return out, launches, profile
 
 
 # ---------------------------------------------------------------- phase 13
@@ -2508,20 +2909,23 @@ def main() -> int:
         records, plan, vocab, state, dev, fit_data)
     transfer, transfer_launches = phase_transfer(records, vocab, state)
     chain, chain_launches = phase_chain()
+    screen, screen_launches, screen_profile = phase_screen(dev)
     rows, forward, dK, train, overhead = phase_times(
         batch0, V, models, launches, errs, train_steps, train_batch, train_launches,
         {"fit": fit_launches, "graphs": graphs_launches, "mp": mp_launches,
-         "onehot": onehot_launches, "transfer": transfer_launches, "chain": chain_launches})
+         "onehot": onehot_launches, "transfer": transfer_launches, "chain": chain_launches,
+         "screen": screen_launches})
     fit_profile = fit_busy_share(one_epoch_fit)
     onehot["times"] = onehot_profile(forward["pallas_step bf16"])
     graphs = graphs_profile()
+    screen["profile"] = screen_profile()
 
     log(json.dumps({"kernels": rows, "not_kernels": [dK],
                     "forward_ms_per_batch": forward, "train_step": train,
                     "function_overhead": overhead, "fit": fit_runs,
                     "fit_profile": fit_profile, "graphs": graphs, "native": native,
                     "mp": mp, "bench": bench, "onehot": onehot,
-                    "transfer": transfer, "chain": chain, "card": smi}))
+                    "transfer": transfer, "chain": chain, "screen": screen, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
