@@ -103,7 +103,11 @@ Phases, in order (any failure raises and the script exits non-zero):
    ``fit(normalize_y=True)`` on a teacher's targets, its normalizer fitted
    on the train split only.
 9. Bench: ``python -m ionic_mpnn_torch.bench --repeats 1`` in a process of
-   its own exits 0 and prints the training metric, finite and positive.
+   its own exits 0 and prints the training metric, finite and positive, on
+   the host harness with ``vs_baseline`` (the dense reference baseline in a
+   process of its own) and the H100 roofline's ``mfu`` (at most 1) and
+   ``hbm_bound_fraction``; then with ``--message-impl onehot --no-baseline``,
+   which must run the paired harness.
 10. One-hot: the JAX package's accelerator default, ``message_impl=
    "onehot"`` on ``window_aligned`` batches (``edge_layout_for``; window
    from ``resolve_onehot_window``: 128 for f32, 64 for bf16), and the other
@@ -123,7 +127,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    per arm against its plain arm (phase 6's tolerances and launch counts;
    ``remat_message``'s first gradients against the same arm without it at
    1e-5), and ``fit()`` of onehot f32 for 2 epochs at batch 32 on phase 7's
-   teacher records with an aligned plan, twice under deterministic
+   teacher records with an aligned plan and the host loader
+   (``device_epochs=False``), twice under deterministic
    algorithms: the histories and best weights equal bit for bit, the loss
    falls. Last, with CUDA events, forward and train-step wall and host
    times of onehot f32, onehot bf16 and ``pallas_step`` bf16 on aligned
@@ -131,6 +136,25 @@ Phases, in order (any failure raises and the script exits non-zero):
    (busy time, idle share, top kernels; a session each) and pallas_step's
    fused-kernel device time per forward on aligned against sorted batches
    come last, after phase 13.
+   [device_epochs]: device-resident epochs (``training/device_epochs.py``,
+   ``fit()``'s default on CUDA for onehot), window 64. On the 6,144 bench
+   records at batch 2048: a plain batch (with sentinel slots) and a paired
+   one packed on the card equal the same functions on the CPU array for
+   array; one paired onehot f32 step against plain ``gather`` f32 on the
+   host-packed same records (first gradients and loss, phase 6's f32
+   bounds). Under deterministic algorithms, on phase 7's 2,560 train
+   records at batch 256 in f32 and bf16: a paired epoch replayed through
+   the K = 8 graph and the one-step graph equals the same steps run
+   eagerly, and with an extra empty step appended, bit for bit (losses,
+   parameters, both moments, the update count); a device-epoch ``fit()``
+   (onehot bf16, batch 32, paired) resumed at epoch 2 equals the
+   uninterrupted one. Then ``fit()`` at phase 7's recipe in onehot bf16 with
+   device epochs paired, unpaired and off (the graphed native loader):
+   steady epoch seconds; and the paired bench step at batch 2048 (onehot
+   bf16, K = 8, 16,384 records): ms per step, message-edges/s, the pack
+   alone per step, cation and anion windows per step against the host
+   plan's, peak memory; its profiler busy share last, after phase 13. No
+   CUDA kernel launches in the phase (onehot has none).
 11. Transfer: the transfer model at full width (phase 5's viscosity trunk
    and weights, head 256/128/64, dropout 0) on the three bench batches
    planned without temperature, with a seed-1 teacher's melting points.
@@ -1734,21 +1758,38 @@ def phase_mp(records, plan, vocab):
 
 # ---------------------------------------------------------------- phase 9
 
+BENCH_RUNS = (  # (arguments, what the line must hold)
+    ([], "host"),
+    (["--message-impl", "onehot", "--no-baseline"], "paired"),
+)
+
+
 def phase_bench():
-    """``python -m ionic_mpnn_torch.bench --repeats 1`` with its defaults,
-    in a process of its own."""
-    cmd = [sys.executable, "-m", "ionic_mpnn_torch.bench", "--repeats", "1"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise AssertionError(f"bench exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    line = proc.stdout.strip().splitlines()[-1]
-    out = json.loads(line)
-    value = out.get("value")
-    if (out.get("metric") != "message_edges_per_s_fwd_bwd"
-            or not (isinstance(value, (int, float)) and np.isfinite(value) and value > 0)):
-        raise AssertionError(f"bench printed {line}")
-    log(f"[bench] {' '.join(cmd[1:])} in {time.perf_counter() - t0:.1f} s: {line}")
+    """``python -m ionic_mpnn_torch.bench --repeats 1`` in a process of its
+    own: with its defaults (the host harness, the dense baseline's
+    ``vs_baseline`` and the H100 roofline's ``mfu`` and
+    ``hbm_bound_fraction``, mfu at most 1), then with onehot, which must
+    take the paired harness."""
+    out = {}
+    for extra, harness in BENCH_RUNS:
+        cmd = [sys.executable, "-m", "ionic_mpnn_torch.bench", "--repeats", "1", *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"bench exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        line = proc.stdout.strip().splitlines()[-1]
+        res = json.loads(line)
+        value = res.get("value")
+        if (res.get("metric") != "message_edges_per_s_fwd_bwd"
+                or not (isinstance(value, (int, float)) and np.isfinite(value) and value > 0)
+                or res.get("harness") != harness):
+            raise AssertionError(f"bench printed {line}")
+        if not 0 < res.get("mfu", -1) <= 1 or not 0 <= res.get("hbm_bound_fraction", -1) <= 1:
+            raise AssertionError(f"bench roofline fields: {line}")
+        if "--no-baseline" not in extra and not res.get("vs_baseline", 0) > 0:
+            raise AssertionError(f"bench without vs_baseline: {line}")
+        log(f"[bench] {' '.join(cmd[1:])} in {time.perf_counter() - t0:.1f} s: {line}")
+        out[" ".join(extra) or "default"] = res
     return out
 
 
@@ -1982,7 +2023,10 @@ def phase_onehot(records, sorted_plan, vocab, state, dev, fit_data):
             model.load_state_dict(state)
             res, summary = counted_fit(
                 f"onehot f32 aligned, run {i + 1}", model, fit_base,
-                TrainConfig(epochs=ONEHOT_FIT_EPOCHS, batch_size=FIT_BATCH, seed=0),
+                # the host loader, which this check holds; [device_epochs]
+                # drives the device-epoch path
+                TrainConfig(epochs=ONEHOT_FIT_EPOCHS, batch_size=FIT_BATCH, seed=0,
+                            device_epochs=False),
                 fit_data["train"], fit_data["dev"], fit_plan, n_dev)
             fits.append((res, summary))
     (a, sa), (b, _) = fits
@@ -2075,6 +2119,271 @@ def phase_onehot(records, sorted_plan, vocab, state, dev, fit_data):
                "aligned_vs_sorted_max_abs_err": layout_err, "train": train,
                "fit": fit_summary, "seconds": seconds}
     return results, launches, profile
+
+
+# ---------------------------------------------------------------- phase 10b
+
+DE_WINDOW = 64  # the bf16 onehot window (resolve_onehot_window)
+DE_SMALL_BATCH = 256  # replay against eager: ~10 paired steps of the fit records per epoch
+DE_FIT_EPOCHS = 3  # the first holds the captures; the steady epoch is the median of the rest
+DE_INNER = 8  # the paired bench step: K = 8 steps per replay, as the bench's default
+
+
+def _runner_state(step, losses, ns):
+    """What a device epoch leaves: its losses and counts, the parameters,
+    both Adam moments, the update count and the steps taken (host copies)."""
+    params, mu, nu, count = optimizer_state(step)
+    return {"losses": losses.cpu(), "ns": list(ns), "params": [p.cpu() for p in params],
+            "mu": [m.cpu() for m in mu], "nu": [v.cpu() for v in nu], "count": count,
+            "steps": step.steps}
+
+
+def _same_runner_state(tag, a, b):
+    if (a["ns"], a["count"], a["steps"]) != (b["ns"], b["count"], b["steps"]):
+        raise AssertionError(f"{tag}: counts {a['ns']} / {b['ns']}, updates {a['count']} / "
+                             f"{b['count']}, steps {a['steps']} / {b['steps']}")
+    if not torch.equal(a["losses"], b["losses"]):
+        raise AssertionError(f"{tag}: losses {a['losses'].tolist()} != {b['losses'].tolist()}")
+    for key in ("params", "mu", "nu"):
+        bad = [i for i, (x, y) in enumerate(zip(a[key], b[key])) if not torch.equal(x, y)]
+        if bad:
+            raise AssertionError(f"{tag}: {key} differ in tensors {bad[:5]}")
+
+
+def phase_device_epochs(records, vocab, state, dev, fit_data):
+    """Device-resident epochs (``training/device_epochs.py``) on the card:
+    device-packed batches against the same function on the CPU, replayed
+    epochs against eager ones and against one with an extra empty step (bit
+    for bit), a paired onehot f32 step against plain gather on the
+    host-packed same records, a resumed device-epoch fit() against an
+    uninterrupted one; then the paired bench step and fit() epochs with and
+    without device epochs. Returns the results, the kernel launches of the
+    phase (onehot launches none) and the profiler's reading (called after
+    every wall-clock timing of the script)."""
+    import tempfile
+
+    from ionic_mpnn_torch.benchmarks import make_bench_dataset
+    from ionic_mpnn_torch.benchmarks.harness import _time_calls, paired_epoch_runner
+    from ionic_mpnn_torch.config import TrainConfig, viscosity_config
+    from ionic_mpnn_torch.data import iter_batches, plan_capacities
+    from ionic_mpnn_torch.data.packing import _batch_arrays
+    from ionic_mpnn_torch.models import ViscosityModel
+    from ionic_mpnn_torch.ops import cuda as kernels
+    from ionic_mpnn_torch.training import data_loss, fit, l2_penalty, make_train_step
+    from ionic_mpnn_torch.training.device_epochs import (DeviceEpochs, _device_batch,
+                                                         _device_batch_paired,
+                                                         build_device_dataset,
+                                                         build_paired_perm, choose_paired_plan)
+    from ionic_mpnn_torch.training.graphs import Replay
+
+    t_phase = time.perf_counter()
+    before = kernels.launch_counts()
+    W = DE_WINDOW
+    base = viscosity_config(vocab.atom_vocab_size, vocab.bond_vocab_size, onehot_window=W,
+                            message_impl="onehot")
+
+    def model_for(**kw):
+        cfg = base.replace(**kw)
+        model = ViscosityModel(cfg, seed=0)
+        model.load_state_dict(state)
+        return model, cfg
+
+    out = {}
+    # -- batches packed on the card against the same function on the CPU
+    ds_c = build_device_dataset(records, W, "log_eta", device=dev)
+    ds_h = build_device_dataset(records, W, "log_eta", device="cpu")
+    pplan = choose_paired_plan(ds_h, BATCH)
+    if pplan is None or choose_paired_plan(ds_c, BATCH) != pplan:
+        raise AssertionError(f"[device_epochs] paired plans {pplan} / "
+                             f"{choose_paired_plan(ds_c, BATCH)}")
+    order = np.random.default_rng(0).permutation(ds_h.n).astype(np.int32)
+    perm = build_paired_perm(ds_h, order, pplan)
+    R = pplan.regions
+    plain_idx = np.concatenate([order[:BATCH - 5], np.full(5, ds_h.n, np.int32)])
+    cases = (("plain", plain_idx, _device_batch),
+             ("paired", perm[:2 * R], lambda ds, i: _device_batch_paired(ds, i, pplan)))
+    for name, idx, pack in cases:
+        got = _batch_arrays(pack(ds_c, torch.from_numpy(idx).to(dev)))
+        want = _batch_arrays(pack(ds_h, torch.from_numpy(idx)))
+        if got.keys() != want.keys():
+            raise AssertionError(f"[device_epochs] {name} batch fields {got.keys()}")
+        for k in want:
+            if not torch.equal(got[k].cpu(), want[k]):
+                raise AssertionError(f"[device_epochs] {name} batch on the card differs from "
+                                     f"the CPU's in {k}")
+    log(f"[device_epochs] {len(records)} bench records, window {W}: {pplan}; the plain "
+        f"({BATCH} slots, 5 sentinels) and paired ({2 * R} slots) batches packed on the card "
+        f"equal the CPU's array for array, pads included")
+    out["plan"] = {k: getattr(pplan, k) for k in ("region_c", "region_a", "regions",
+                                                  "pair_frac", "edge_budget_c",
+                                                  "edge_budget_a")}
+
+    # -- a paired onehot f32 step against plain gather f32 on the same records
+    idx0 = perm[:2 * R]
+    host_recs = [records[i] for i in idx0 if i >= 0]
+    hplan = plan_capacities(host_recs, len(host_recs))
+    host_batches = list(iter_batches(host_recs, hplan))
+    if len(host_batches) != 1:
+        raise AssertionError(f"[device_epochs] {len(host_batches)} host batches")
+    arms = {}
+    for name, (model, cfg), batch in (
+            ("paired onehot f32", model_for(), _device_batch_paired(
+                ds_c, torch.from_numpy(idx0).to(dev), pplan)),
+            ("gather f32 (plain)", model_for(message_impl="gather"),
+             host_batches[0].to(dev))):
+        loss = (data_loss(model(batch)["pred"], batch.y, batch.sample_mask, "mse", 1.0)
+                + l2_penalty(model, cfg.fp_l2))
+        loss.backward()
+        grads = {param_name(k): p.grad.detach().clone() for k, p in model.named_parameters()}
+        del loss
+        step = make_train_step(model, cfg, TrainConfig())
+        if name.startswith("paired"):
+            runner = DeviceEpochs(step, ds_c, BATCH, plan=pplan)
+            losses, _ = runner.run(idx0)
+        else:
+            losses = step(batch)["loss"].reshape(1)
+        arms[name] = {"grads": grads, "losses": [float(losses[0])]}
+    g_err = grads_close("[device_epochs] paired onehot f32 step", arms["paired onehot f32"][
+        "grads"], arms["gather f32 (plain)"]["grads"], TRAIN_TOL["float32"][0])
+    a, b = arms["paired onehot f32"]["losses"][0], arms["gather f32 (plain)"]["losses"][0]
+    if abs(a - b) > TRAIN_TOL["float32"][1][0] * abs(b):
+        raise AssertionError(f"[device_epochs] paired step loss {a!r} vs plain {b!r}")
+    out["paired_vs_plain"] = {"max_grad_err": g_err, "loss": a, "plain_loss": b}
+    log(f"[device_epochs] one paired onehot f32 step ({len(host_recs)} records) against plain "
+        f"gather f32 on the host-packed same records: max gradient |err| {g_err:.3e} of the "
+        f"tensor's max, loss {a!r} vs {b!r}")
+
+    # -- replayed epochs against eager, and against an extra empty step
+    train, dev_split = fit_data["train"], fit_data["dev"]
+    ds_t = build_device_dataset(train, W, "log_eta", device=dev)
+    plan_t = choose_paired_plan(ds_t, DE_SMALL_BATCH)
+    out["replay"] = {}
+    with deterministic():
+        for dtype in ("float32", "bfloat16"):
+            runs = {}
+            for tag, graphed, empty in (("eager", False, 0), ("graphed", True, 0),
+                                        ("graphed + empty step", True, 1)):
+                model, cfg = model_for(compute_dtype=dtype)
+                step = make_train_step(model, cfg, TrainConfig(), jit_compile=graphed)
+                runner = DeviceEpochs(step, ds_t, DE_SMALL_BATCH, plan=plan_t)
+                p = runner.epoch_perm(1)
+                p = np.concatenate([p, np.full(empty * runner.B, -1, np.int32)])
+                losses, ns = runner.run(p)
+                runs[tag] = _runner_state(step, losses, ns)
+            n = len(runs["eager"]["ns"])
+            if n <= runner.K or n % runner.K == 0:
+                raise AssertionError(f"[device_epochs] {n} steps: no group and remainder")
+            for tag in ("graphed", "graphed + empty step"):
+                _same_runner_state(f"[device_epochs] {dtype} {tag} vs eager", runs[tag],
+                                   runs["eager"])
+            out["replay"][dtype] = {"steps": n, "K": runner.K,
+                                    "losses": runs["eager"]["losses"].tolist()}
+            log(f"[device_epochs] {dtype}: a paired epoch of {n} steps at batch "
+                f"{DE_SMALL_BATCH} (K = {runner.K}: groups and a remainder) replayed equals the "
+                f"eager steps, and with an extra empty step the same, bit for bit: losses, "
+                f"parameters, both moments, {runs['eager']['count']} updates")
+
+    # -- fit(): resumed against uninterrupted (deterministic), then timed
+    fplan = plan_capacities(fit_data["records"], FIT_BATCH, edge_layout="window_aligned",
+                            window=W)
+
+    def device_fit(epochs, **kw):
+        model, cfg = model_for(compute_dtype="bfloat16")
+        tcfg = TrainConfig(epochs=epochs, batch_size=FIT_BATCH, seed=0, **kw)
+        return fit(model, cfg, tcfg, train, dev_split, fplan, verbose=False)
+
+    with deterministic(), tempfile.TemporaryDirectory() as tmp:
+        whole = device_fit(DE_FIT_EPOCHS)
+        device_fit(DE_FIT_EPOCHS - 1, checkpoint_dir=tmp, checkpoint_every=1)
+        resumed = device_fit(DE_FIT_EPOCHS, checkpoint_dir=tmp)
+    if whole.loader != "device_paired" or resumed.loader != "device_paired":
+        raise AssertionError(f"[device_epochs] fit loaders {whole.loader} / {resumed.loader}")
+    same_fit("[device_epochs] resumed device-epoch fit against uninterrupted", whole, resumed)
+    log(f"[device_epochs] fit() onehot bf16 paired, {DE_FIT_EPOCHS} epochs, resumed at epoch "
+        f"{DE_FIT_EPOCHS - 1} equals uninterrupted bit for bit; loss {whole.history['loss']}")
+
+    fits = {}
+    for tag, kw, loader in (("device paired", {}, "device_paired"),
+                            ("device unpaired", {"paired_epochs": False}, "device"),
+                            ("native loader", {"device_epochs": False}, "native")):
+        res = device_fit(DE_FIT_EPOCHS, **kw)
+        if res.loader != loader:
+            raise AssertionError(f"[device_epochs] fit {tag}: loader {res.loader}")
+        if not all(np.isfinite(res.history["loss"])):
+            raise AssertionError(f"[device_epochs] fit {tag}: loss {res.history['loss']}")
+        fits[tag] = epoch_summary(res)
+        fits[tag].update(loss=res.history["loss"], train_steps=res.steps)
+        log(f"[device_epochs] fit() onehot bf16 w{W} batch {FIT_BATCH}, {tag}: steady epoch "
+            f"{fits[tag]['epoch_s']:.4f} s (first {fits[tag]['first_epoch_s']:.4f} s), "
+            f"{fits[tag]['train_steps_per_s']:.1f} train steps/s, {res.steps} steps, dispatch "
+            f"{fits[tag]['dispatch_s']:.4f} s per epoch, loss {res.history['loss']}")
+    out["fit"] = fits
+
+    # -- the paired bench step at batch 2048, onehot bf16
+    brecs, bvocab = make_bench_dataset(DE_INNER * BATCH)
+    hb = plan_capacities(brecs, BATCH, edge_layout="window_aligned", window=W)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    setup = paired_epoch_runner(brecs, bvocab, BATCH, 4, "bfloat16", DE_INNER, W, device=dev)
+    if setup is None:
+        raise AssertionError("[device_epochs] no paired plan for the bench records")
+    runner, bplan = setup["runner"], setup["plan"]
+
+    def call():
+        runner.g0.zero_()
+        return runner.steps(DE_INNER)
+
+    t = _time_calls(call, dev, DE_INNER, setup["message_edges_per_step"],
+                    setup["records_per_step"], iters=20, warmup=3, sync_each=False)
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 2**20
+
+    def packs():
+        return [x for k in range(DE_INNER) for x in _batch_arrays(runner.batch(k)).values()]
+
+    pack_graph = Replay(packs, dev, graphed=True)
+    runner.g0.zero_()
+    pack_ms = time_ms(pack_graph, n=50) / DE_INNER
+    windows = {"cation": bplan.regions * bplan.region_c // W,
+               "anion": bplan.regions * bplan.region_a // W,
+               "host_cation": hb.node_cap // W, "host_anion": hb.anion_node_cap // W}
+    bench = {"step_ms": t["step_ms"], "call_ms": t["call_ms"], "host_ms": t["host_ms"],
+             "edges_per_s": t["edges_per_s"], "wall_s": t["wall_s"],
+             "message_edges_per_step": setup["message_edges_per_step"],
+             "records_per_step": setup["records_per_step"], "pack_ms": pack_ms,
+             "windows": windows, "memory_peak_above_base_mb": peak,
+             "plan": {k: getattr(bplan, k) for k in ("region_c", "region_a", "regions",
+                                                      "pair_frac", "edge_budget_c",
+                                                      "edge_budget_a")},
+             "loss": t["loss"]}
+    out["bench_step"] = bench
+    log(f"[device_epochs] paired bench step, batch {BATCH}, onehot bf16 w{W}, K = {DE_INNER}: "
+        f"{t['step_ms']:.4f} ms per step (call {t['call_ms']:.4f} ms; host {t['host_ms']:.4f} ms "
+        f"per step), {t['edges_per_s']:.6e} message-edges/s "
+        f"({setup['message_edges_per_step']} per step, "
+        f"{setup['records_per_step']:.1f} records), pack alone {pack_ms:.4f} ms per step; "
+        f"cation windows {windows['cation']} (host plan {windows['host_cation']}), anion "
+        f"{windows['anion']} (host plan {windows['host_anion']}); peak "
+        f"{peak:.1f} MiB above the {mem0 / 2**20:.1f} MiB held before")
+    after = kernels.launch_counts()
+    launches = {k: after[k] - before.get(k, 0) for k in after}
+    if any(launches.values()):
+        raise AssertionError(f"[device_epochs] onehot launched CUDA kernels: {launches}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[device_epochs] checks and wall-clock timings in {out['seconds']:.1f} s")
+
+    def profile():
+        prof = device_profile(call, n=5)
+        res = {"busy_ms": prof["busy_ms"], "call_ms": t["call_ms"],
+               "busy_share": min(1.0, prof["busy_ms"] / t["call_ms"]),
+               "top": {k_[:60]: v for k_, v in list(prof["by_kernel"].items())[:6]}}
+        log(f"[device_epochs] profiler: busy {prof['busy_ms']:.4f} ms per replay of "
+            f"{DE_INNER} paired steps against a {t['call_ms']:.4f} ms call, busy share "
+            f"{res['busy_share']:.3f}; top kernels ms: "
+            + json.dumps({k_: round(v, 5) for k_, v in res["top"].items()}))
+        return res
+
+    return out, launches, profile
 
 
 # ---------------------------------------------------------------- phase 11
@@ -2907,24 +3216,27 @@ def main() -> int:
     bench = phase_bench()
     onehot, onehot_launches, onehot_profile = phase_onehot(
         records, plan, vocab, state, dev, fit_data)
+    device_ep, device_ep_launches, device_ep_profile = phase_device_epochs(
+        records, vocab, state, dev, fit_data)
     transfer, transfer_launches = phase_transfer(records, vocab, state)
     chain, chain_launches = phase_chain()
     screen, screen_launches, screen_profile = phase_screen(dev)
     rows, forward, dK, train, overhead = phase_times(
         batch0, V, models, launches, errs, train_steps, train_batch, train_launches,
         {"fit": fit_launches, "graphs": graphs_launches, "mp": mp_launches,
-         "onehot": onehot_launches, "transfer": transfer_launches, "chain": chain_launches,
-         "screen": screen_launches})
+         "onehot": onehot_launches, "device_epochs": device_ep_launches,
+         "transfer": transfer_launches, "chain": chain_launches, "screen": screen_launches})
     fit_profile = fit_busy_share(one_epoch_fit)
     onehot["times"] = onehot_profile(forward["pallas_step bf16"])
     graphs = graphs_profile()
     screen["profile"] = screen_profile()
+    device_ep["profile"] = device_ep_profile()
 
     log(json.dumps({"kernels": rows, "not_kernels": [dK],
                     "forward_ms_per_batch": forward, "train_step": train,
                     "function_overhead": overhead, "fit": fit_runs,
                     "fit_profile": fit_profile, "graphs": graphs, "native": native,
-                    "mp": mp, "bench": bench, "onehot": onehot,
+                    "mp": mp, "bench": bench, "onehot": onehot, "device_epochs": device_ep,
                     "transfer": transfer, "chain": chain, "screen": screen, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,30 @@
-"""Benchmark data and the packed train-step benchmark.
+"""Benchmark data, the train-step harnesses and the dense baseline.
 
 The training metric is the JAX harness's (``benchmarks/harness.py``):
 **message-edges/s** of the full train step (forward, backward, clip and
 Adam) at batch 2048 with 4 message steps. One message edge is one real
 directed edge processed by one message step, so a step processes
 ``(E_cat + E_an) · num_steps`` of them (:func:`_count_message_edges`),
-forward and backward.
+forward and backward. Message edges count real edges only, so the rate
+compares across layouts.
 
-:func:`bench_packed_train_step` builds the model, optimizer and batches
-from the benchmark's arguments, as the JAX function of that name does
-(its host-packed harness, with its onehot, window, balance and remat
-options; ``python -m ionic_mpnn_torch.bench`` prints it).
-:func:`time_train_step` times a train step the caller built on one packed
-batch of any layout. Message edges count real edges only, so the rate
-compares across layouts. The JAX harness's roofline fields and its
-tile-probe options (``tight_tile``, ``tile_override``) are not ported.
+* :func:`bench_packed_train_step`: host-packed batches (the JAX function of
+  that name, with its onehot, window, balance, remat, tile-probe and
+  D-scaling options);
+* :func:`bench_paired_epoch_step`: the step ``fit()`` runs on CUDA for
+  onehot, batches packed on the card in pitch-slot pairs
+  (:mod:`ionic_mpnn_torch.training.device_epochs`), the pack inside the
+  timed graph;
+* :func:`bench_dense_reference`: the reference design's dense padded
+  forward and backward on the same weights (:mod:`.dense_model`), the
+  baseline of ``vs_baseline``;
+* :func:`time_train_step`: a train step the caller built, on one packed
+  batch of any layout.
+
+The two train-step harnesses fill ``flops_per_step`` and
+``hbm_bytes_per_step`` from the analytic model of :mod:`.roofline`. The JAX
+harness's ``unroll`` (a ``lax.scan`` compile option) has no counterpart in a
+captured CUDA graph and is not ported.
 """
 
 from __future__ import annotations
@@ -22,7 +32,7 @@ from __future__ import annotations
 import statistics
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -33,7 +43,9 @@ from ..data import build_vocab, encode_dataset, iter_batches, plan_capacities, s
 from ..data.packing import ONEHOT_WINDOW
 from ..data.synthetic import ANION_SMILES, CATION_TEMPLATES
 
-__all__ = ["make_bench_dataset", "BenchResult", "bench_packed_train_step", "time_train_step"]
+__all__ = ["make_bench_dataset", "BenchResult", "bench_packed_train_step",
+           "paired_epoch_runner", "bench_paired_epoch_step", "bench_dense_reference",
+           "time_train_step"]
 
 
 def make_bench_dataset(n_records: int = 512, seed: int = 0):
@@ -157,6 +169,45 @@ class BenchResult:
     message_edges_per_step: int
     wall_s: float
     device: str  # the card's name, or "cpu"
+    flops_per_step: float = 0.0  # the analytic model of .roofline
+    hbm_bytes_per_step: float = 0.0
+
+
+def _model(vocab, model_kind: str, dev, **kw):
+    """The bench's model from the seed-0 init: (model, config)."""
+    from ..models import MeltingPointModel, ViscosityModel
+
+    if model_kind == "mp":
+        cfg = melting_point_config(vocab.atom_vocab_size, vocab.bond_vocab_size, **kw)
+        return MeltingPointModel(cfg, seed=0, device=dev), cfg
+    if model_kind == "viscosity":
+        cfg = viscosity_config(vocab.atom_vocab_size, vocab.bond_vocab_size, **kw)
+        return ViscosityModel(cfg, seed=0, device=dev), cfg
+    raise ValueError(f"unknown model_kind {model_kind!r}")
+
+
+def _width(atom_dim: int, fp_size: int = 0, mixing_size: int = 0) -> Dict[str, int]:
+    """The D-scaling arm's overrides (JAX harness :118-123): ``atom_dim``,
+    with ``fp_size`` (default ``atom_dim``) and ``mixing_size`` (default
+    ``max(20, atom_dim // 2)``); none when ``atom_dim`` is 0."""
+    if not atom_dim:
+        return {}
+    return dict(atom_dim=atom_dim, fp_size=fp_size or atom_dim,
+                mixing_size=mixing_size or max(20, atom_dim // 2))
+
+
+def _cost(sides, cfg, vocab, num_steps: int) -> Dict[str, float]:
+    """The analytic step cost summed over the sides' ``(node_cap,
+    edge_cap, n_graphs)`` (each side is sized on its own)."""
+    from .roofline import train_step_cost
+
+    cost = {"flops": 0.0, "hbm_bytes": 0.0}
+    for node_cap, edge_cap, n_graphs in sides:
+        c = train_step_cost(node_cap=node_cap, edge_cap=edge_cap, n_graphs=n_graphs,
+                            atom_dim=cfg.atom_dim, bond_dim=cfg.bond_dim,
+                            bond_vocab=vocab.bond_vocab_size, num_steps=num_steps, n_ions=1)
+        cost = {k: cost[k] + c[k] for k in cost}
+    return cost
 
 
 def bench_packed_train_step(
@@ -175,8 +226,13 @@ def bench_packed_train_step(
     edge_layout: str = "",
     onehot_select: str = "auto",
     window: int = 0,
+    tight_tile: bool = False,
+    tile_override: int = 0,
     balanced: bool = False,
     remat: bool = False,
+    atom_dim: int = 0,
+    fp_size: int = 0,
+    mixing_size: int = 0,
     device=None,
 ) -> BenchResult:
     """Message-edges/s of the full train step on one device, as the JAX
@@ -198,27 +254,50 @@ def bench_packed_train_step(
     (``"window_aligned"`` for onehot); ``window`` 0 is ``ONEHOT_WINDOW``
     (128), the model's ``onehot_window`` and the plan's alike;
     ``balanced`` places aligned molecules by edge load; ``remat``
-    recomputes the onehot op in the backward."""
-    from ..models import MeltingPointModel, ViscosityModel
+    recomputes the onehot op in the backward. Probes of a window layout:
+    ``tile_override`` sets the (cation) edge tile, ``tight_tile`` sizes each
+    side's at the measured batches' largest window load (rounded up to 8)
+    instead of the proven bound (a batch with more would raise; not a
+    training mode).
+    ``atom_dim`` (with ``fp_size``, ``mixing_size``) widens the model: the
+    D-scaling arm."""
+    import dataclasses
+
+    from ..data.packing import round_up
     from ..training import make_train_step
 
     dev = resolve_device(device)
     window = window or ONEHOT_WINDOW
-    kw = dict(num_steps=num_steps, compute_dtype=compute_dtype,
-              message_impl=message_impl, scatter_impl=scatter_impl,
-              onehot_select=onehot_select, onehot_window=window, remat_message=remat)
-    if model_kind == "mp":
-        cfg = melting_point_config(vocab.atom_vocab_size, vocab.bond_vocab_size, **kw)
-        model = MeltingPointModel(cfg, seed=0, device=dev)
-    elif model_kind == "viscosity":
-        cfg = viscosity_config(vocab.atom_vocab_size, vocab.bond_vocab_size, **kw)
-        model = ViscosityModel(cfg, seed=0, device=dev)
-    else:
-        raise ValueError(f"unknown model_kind {model_kind!r}")
+    model, cfg = _model(vocab, model_kind, dev, num_steps=num_steps,
+                        compute_dtype=compute_dtype, message_impl=message_impl,
+                        scatter_impl=scatter_impl, onehot_select=onehot_select,
+                        onehot_window=window, remat_message=remat,
+                        **_width(atom_dim, fp_size, mixing_size))
     plan = plan_capacities(records, batch_size=batch_size,
                            edge_layout=edge_layout or edge_layout_for(message_impl),
                            window=window, balance=balanced)
     head = records[:batch_size]
+    if tile_override and plan.edge_tile:
+        plan = dataclasses.replace(plan, edge_tile=tile_override)
+    if tight_tile and plan.edge_tile:
+        # the batch sequence measured below, and the unshuffled one
+        probes = [next(iter_batches(head, plan))]
+        if inner > 1 and distinct_batches:
+            probes += [next(iter_batches(head, plan, shuffle=True, seed=s))
+                       for s in range(inner)]
+        # each side at its own tile (JAX reshapes the anion side by the
+        # cation's tile, which fails where the plan sizes the sides apart)
+        def tight(side, tile):
+            worst = max(int(np.asarray(getattr(b, side).edge_mask).reshape(-1, tile)
+                            .sum(axis=1).max()) for b in probes)
+            return round_up(max(worst, 8), 8)
+
+        if plan.anion_edge_tile:
+            plan = dataclasses.replace(plan, edge_tile=tight("cation", plan.edge_tile),
+                                       anion_edge_tile=tight("anion", plan.anion_edge_tile))
+        else:
+            plan = dataclasses.replace(plan, edge_tile=max(tight(side, plan.edge_tile)
+                                                           for side in ("cation", "anion")))
     if inner > 1 and distinct_batches:
         host = [next(iter_batches(head, plan, shuffle=True, seed=s)) for s in range(inner)]
         me_per_step = int(np.mean([_count_message_edges(b, num_steps) for b in host]))
@@ -230,6 +309,154 @@ def bench_packed_train_step(
     g.slots.copy_into(host)  # on the device before the clock starts
     r = _time_calls(lambda: step.run_slots(g, inner)[:, 0], dev, inner, me_per_step, batch_size,
                     iters, warmup, sync_each=False)
+    b = host[0]
+    cost = _cost([(x.node_capacity, x.edge_capacity, x.n_graphs) for x in (b.cation, b.anion)],
+                 cfg, vocab, num_steps)
     return BenchResult(edges_per_s=r["edges_per_s"], steps_per_s=r["steps_per_s"],
                        molecules_per_s=r["molecules_per_s"], message_edges_per_step=me_per_step,
+                       wall_s=r["wall_s"], device=r["device"], flops_per_step=cost["flops"],
+                       hbm_bytes_per_step=cost["hbm_bytes"])
+
+
+def paired_epoch_runner(records, vocab, batch_size: int = 2048, num_steps: int = 4,
+                        compute_dtype: str = "bfloat16", inner: int = 8, window: int = 64,
+                        atom_dim: int = 0, device=None) -> Optional[Dict[str, Any]]:
+    """The paired harness's setup (:func:`bench_paired_epoch_step`): the
+    viscosity model from the seed-0 init, its train step with ``K = inner``,
+    the device dataset of ``records`` and a
+    :class:`~ionic_mpnn_torch.training.device_epochs.DeviceEpochs` runner
+    holding ``inner`` distinct paired steps of a ``default_rng(0)`` order
+    (``g0`` at 0). None when the planner finds no pairing that pays.
+
+    Returns ``runner``, ``plan`` (the paired plan), ``cfg``, the work of a
+    step as JAX counts it (``message_edges_per_step``: the real message
+    edges of the perm's records, mean per step; ``records_per_step``) and
+    ``cost``, the analytic model over both sides' paired capacities
+    (``R·region`` nodes, ``R·(Eb or 2·em)`` edges, ``2R`` graphs)."""
+    from ..training import make_train_step
+    from ..training.device_epochs import (DeviceEpochs, build_device_dataset,
+                                          build_paired_perm, choose_paired_plan)
+
+    dev = resolve_device(device)
+    ds = build_device_dataset(records, window, "log_eta", device=dev)
+    pplan = choose_paired_plan(ds, batch_size)
+    if pplan is None:
+        return None
+    R = pplan.regions
+    rng = np.random.default_rng(0)
+    order = np.concatenate([rng.permutation(ds.n)
+                            for _ in range(-(-inner * 2 * R // max(ds.n, 1)) + 1)])
+    perm = build_paired_perm(ds, order.astype(np.int32), pplan)[:inner * 2 * R]
+    real = perm[perm >= 0]
+    me_per_step = int((ds.rec_cat_elen[real].sum() + ds.rec_an_elen[real].sum())
+                      * num_steps / inner)
+    model, cfg = _model(vocab, "viscosity", dev, num_steps=num_steps,
+                        compute_dtype=compute_dtype, message_impl="onehot",
+                        onehot_window=window, **_width(atom_dim))
+    step = make_train_step(model, cfg, TrainConfig(batch_size=batch_size, steps_per_call=inner))
+    runner = DeviceEpochs(step, ds, batch_size, plan=pplan)
+    if len(runner.load(perm)) != inner:
+        raise ValueError(f"the bench perm holds fewer than {inner} steps with records")
+    cost = _cost([(R * pplan.region_c, R * (pplan.edge_budget_c or 2 * ds.cat_pool.em), 2 * R),
+                  (R * pplan.region_a, R * (pplan.edge_budget_a or 2 * ds.an_pool.em), 2 * R)],
+                 cfg, vocab, num_steps)
+    return {"runner": runner, "plan": pplan, "cfg": cfg, "message_edges_per_step": me_per_step,
+            "records_per_step": len(real) / inner, "cost": cost}
+
+
+def bench_paired_epoch_step(
+    records,
+    vocab,
+    batch_size: int = 2048,
+    num_steps: int = 4,
+    iters: int = 20,
+    warmup: int = 3,
+    compute_dtype: str = "bfloat16",
+    inner: int = 8,
+    window: int = 64,
+    atom_dim: int = 0,
+    device=None,
+) -> BenchResult:
+    """The train step ``fit()`` runs on CUDA for onehot (JAX harness
+    :274-385): device-resident epochs with pitch-slot paired batches packed
+    on the card (:class:`~ionic_mpnn_torch.training.device_epochs.DeviceEpochs`),
+    the pack inside each step. A timed call is one replay of the K-step
+    graph (``K = inner``) over ``inner`` distinct paired steps
+    (:func:`paired_epoch_runner`; enough records for ``inner`` steps keeps
+    them distinct), from ``g0 = 0``. Work accounting as JAX's. When the
+    planner finds no pairing that pays, this is
+    :func:`bench_packed_train_step` with onehot, as in JAX."""
+    dev = resolve_device(device)
+    setup = paired_epoch_runner(records, vocab, batch_size, num_steps, compute_dtype, inner,
+                                window, atom_dim, dev)
+    if setup is None:
+        return bench_packed_train_step(
+            records, vocab, batch_size=batch_size, num_steps=num_steps, iters=iters,
+            warmup=warmup, compute_dtype=compute_dtype, message_impl="onehot", inner=inner,
+            window=window, atom_dim=atom_dim, device=dev)
+    runner, me_per_step = setup["runner"], setup["message_edges_per_step"]
+
+    def call():
+        runner.g0.zero_()
+        return runner.steps(inner)
+
+    r = _time_calls(call, dev, inner, me_per_step, setup["records_per_step"], iters, warmup,
+                    sync_each=False)
+    return BenchResult(edges_per_s=r["edges_per_s"], steps_per_s=r["steps_per_s"],
+                       molecules_per_s=r["molecules_per_s"], message_edges_per_step=me_per_step,
+                       wall_s=r["wall_s"], device=r["device"],
+                       flops_per_step=setup["cost"]["flops"],
+                       hbm_bytes_per_step=setup["cost"]["hbm_bytes"])
+
+
+def bench_dense_reference(
+    records,
+    vocab,
+    batch_size: int = 512,
+    num_steps: int = 4,
+    iters: int = 10,
+    warmup: int = 3,
+    model_kind: str = "viscosity",
+    device=None,
+) -> BenchResult:
+    """The reference design's train-step work (JAX harness :388-471):
+    the dense padded forward (:mod:`.dense_model`) on ``records[:batch_size]``
+    padded to their largest molecule, and torch autograd of its MSE (a
+    mask of ones) with respect to every parameter, on the weights of the
+    packed model (the same seed-0 init, f32). A call is one forward and
+    backward; the calls are independent, timed by :func:`_time_calls`.
+    Message edges count the real ones (the dense design also grinds through
+    its padding, which is why it loses)."""
+    from ..data.packing import pad_dense_batch
+    from ..training.loop import data_loss
+    from .dense_model import dense_mp_forward, dense_viscosity_forward
+
+    dev = resolve_device(device)
+    model, cfg = _model(vocab, model_kind, dev, num_steps=num_steps)
+    subset = records[:batch_size]
+    max_atoms = max(max(r["cation"]["num_atoms"] for r in subset),
+                    max(r["anion"]["num_atoms"] for r in subset))
+    max_edges = max(max(len(r["cation"]["edge_indices"]) for r in subset),
+                    max(len(r["anion"]["edge_indices"]) for r in subset))
+    inputs = {}
+    for prefix, side in (("cat", "cation"), ("an", "anion")):
+        d = pad_dense_batch([r[side] for r in subset], max_atoms, max_edges)
+        inputs.update({f"{prefix}_{k}": torch.from_numpy(v).to(dev) for k, v in d.items()})
+    inputs["temperature"] = torch.tensor([[r["T"]] for r in subset], dtype=torch.float32,
+                                         device=dev)
+    y = torch.tensor([r["log_eta"] for r in subset], dtype=torch.float32, device=dev)
+    ones = torch.ones_like(y)
+    params = dict(model.named_parameters())
+    forward = dense_mp_forward if model_kind == "mp" else dense_viscosity_forward
+
+    def call():
+        loss = data_loss(forward(params, cfg, inputs), y, ones, "mse", 1.0)
+        torch.autograd.grad(loss, list(params.values()))
+        return loss.detach().reshape(1)
+
+    me = sum(2 * len(r[side]["edge_indices"]) for r in subset
+             for side in ("cation", "anion")) * num_steps
+    r = _time_calls(call, dev, 1, me, len(subset), iters, warmup, sync_each=False)
+    return BenchResult(edges_per_s=r["edges_per_s"], steps_per_s=r["steps_per_s"],
+                       molecules_per_s=r["molecules_per_s"], message_edges_per_step=me,
                        wall_s=r["wall_s"], device=r["device"])

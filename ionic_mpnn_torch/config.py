@@ -22,8 +22,12 @@ train step reads ``loss``, ``huber_delta`` and ``steps_per_call`` (K train
 steps per host call, a replayed CUDA graph; :func:`resolve_steps_per_call`),
 and ``learning_rate``, ``clipnorm``, ``weight_decay`` and ``warmup_steps``
 when it builds the optimizer itself; ``fit`` reads the rest, and
-``use_native_loader`` picks the C++ packer there. ``device_epochs`` and
-``paired_epochs`` change nothing: their path is not ported.
+``use_native_loader`` picks the C++ packer there. ``device_epochs``
+(``"auto"``: on for CUDA, off on the CPU) trains onehot on ``window_aligned``
+plans from a train set that lives on the card, each step packing its batch
+there, and ``paired_epochs`` (``"auto"``: on) packs two records per pitch
+region when the planner finds that it pays (``training/device_epochs.py``);
+``FitResult.loader`` says which path ran.
 """
 
 from __future__ import annotations

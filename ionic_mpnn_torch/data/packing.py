@@ -41,6 +41,7 @@ __all__ = [
     "compute_pool_slots",
     "pack_graphs",
     "pack_ion_pair_batch",
+    "pad_dense_batch",
     "round_up",
     "window_tile_edges",
     "window_tile_batch",
@@ -733,3 +734,41 @@ def window_tile_batch(
         y=batch.y,
         sample_mask=batch.sample_mask,
     )
+
+
+# ---------------------------------------------------------------------------
+# Reference-style dense padded batching (the bench's baseline design)
+# ---------------------------------------------------------------------------
+
+
+def pad_dense_batch(graphs: Sequence[Dict[str, Any]], max_atoms: int,
+                    max_edges: int) -> Dict[str, np.ndarray]:
+    """The reference's dense padding of id-encoded molecules
+    (``pad_sequences_1d`` + ``preprocess_edges_and_bonds``,
+    ``train_viscosity.py:52-59, 76-110``): ids +1 as the training mains add
+    (``:255-262``), each stored edge forward then reversed, zero padding,
+    and the silent truncation at ``2·max_edges`` directed edges.
+
+    Returns ``atom`` (B, max_atoms) int32, ``bond`` (B, 2·max_edges) int32
+    and ``conn`` (B, 2·max_edges, 2) int32."""
+    B = len(graphs)
+    atom = np.zeros((B, max_atoms), np.int32)
+    max_len = max_edges * 2
+    bond = np.zeros((B, max_len), np.int32)
+    conn = np.zeros((B, max_len, 2), np.int32)
+    for i, g in enumerate(graphs):
+        ids = np.asarray(g["atom_ids"], np.int32) + 1
+        atom[i, : len(ids)] = ids
+        e2: List[List[int]] = []
+        b2: List[int] = []
+        for (s, t), bid in zip(g["edge_indices"], g["bond_ids"]):
+            e2.append([int(s), int(t)])
+            b2.append(int(bid) + 1)
+            e2.append([int(t), int(s)])
+            b2.append(int(bid) + 1)
+        e2 = e2[:max_len]
+        b2 = b2[:max_len]
+        if e2:
+            conn[i, : len(e2)] = np.asarray(e2, np.int32)
+            bond[i, : len(b2)] = np.asarray(b2, np.int32)
+    return {"atom": atom, "bond": bond, "conn": conn}

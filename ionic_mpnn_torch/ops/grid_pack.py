@@ -18,9 +18,10 @@ ion's stored edge list is stable-sorted by local destination once, at pool
 build; molecule offsets increase with the graph index, so the packed
 global ``dst`` is non-decreasing over the real edges, and pad edges are
 spread over ``[node_total, node_cap)``. The CUDA kernels read that ``dst``
-as CSR rows. The fixed-pitch padded pack (:func:`pack_side_padded`) is the
-exception: its edge order inside a window tile is free, which only the
-onehot message op (sums of one-hot products) accepts.
+as CSR rows. The fixed-pitch padded pack (:func:`pack_side_padded`) and
+the paired pack of the device-epoch train step (:func:`pack_side_paired`)
+are the exceptions: their edge order inside a window tile is free, which
+only the onehot message op (sums of one-hot products) accepts.
 
 Two TPU workarounds of the JAX module do not carry over: it picks pool rows
 (``_fused_rows``) and the temperature (``grid_batch_on_device``) with
@@ -50,7 +51,9 @@ __all__ = [
     "device_pool_slots",
     "pack_side_on_device",
     "pack_side_padded",
+    "pack_side_paired",
     "padded_aligned_tile",
+    "paired_tile",
     "grid_batch_on_device",
     "window_tile_on_device",
     "pool_window_tile_bound",
@@ -372,6 +375,140 @@ def pack_side_padded(pool: DevicePool, sel: torch.Tensor, window: int) -> Packed
 def padded_aligned_tile(window: int, pitch: int, em: int) -> int:
     """The implicit per-window edge tile of :func:`pack_side_padded`."""
     return (window // pitch) * em
+
+
+def paired_tile(window: int, region: int, em: int, edge_budget: int = 0) -> int:
+    """The implicit per-window edge tile of :func:`pack_side_paired`."""
+    return (window // region) * (edge_budget or 2 * em)
+
+
+def pack_side_paired(pool: DevicePool, sel_a: torch.Tensor, sel_b: torch.Tensor, window: int,
+                     region: int, edge_budget: int = 0) -> PackedGraphs:
+    """Pitch-slot paired pack: each ``region``-node slot ``r`` holds two
+    molecules, ``sel_a[r]`` ascending from the region's first row and
+    ``sel_b[r]`` reversed and right-aligned at its last (``-1`` = an empty
+    slot), so the node plane is ``R·region`` rows for ``2R`` graphs. The
+    device-epoch train step packs its batches with it
+    (:mod:`ionic_mpnn_torch.training.device_epochs`).
+
+    Reversing B makes its placement data-independent: the flipped padded
+    row is B right-aligned, and message passing does not care about the
+    order of a molecule's nodes as long as its edge endpoints are reflected
+    the same way (``u → S-1-u``). ``node_local`` keeps the original local
+    index (``S-1-j``), so the reference's atom-0 masking still finds atom 0.
+
+    Contract (the host pairing, ``build_paired_perm``, guarantees it; the
+    card cannot check it inside a graph): ``pool.pitch <= region``,
+    ``region | window``, ``R`` a multiple of ``window // region``,
+    ``la + lb <= region``, and a single record rides in slot A. Graph ids are
+    ``2r`` for A and ``2r + 1`` for B, gap rows forward-filled with ``2r``;
+    ``pool_slot[2r + p] = (r // gpw)·window + (r % gpw)·2 + p`` with
+    ``gpw = window // region``, ``-1`` for an empty slot.
+
+    Edges: ``edge_budget`` 0 gives each molecule ``em`` slots (A's then
+    B's, ``2·em`` per region); ``edge_budget = Eb`` (``Eb >= em``) shares
+    ``Eb`` slots per region, A's edges ascending from the first, B's
+    reversed from the last, under ``ea + eb <= Eb``. Either way a window's
+    edges form one tile (:func:`paired_tile`) whose order is free: ``dst``
+    is not sorted, so, as with :func:`pack_side_padded`, only the onehot
+    message op may read this layout (the CUDA kernels read ``dst`` as CSR
+    rows). The JAX package's ``pack_side_paired``, array for array."""
+    if pool.pitch <= 0 or pool.fused_p is None:
+        raise ValueError("pack_side_paired needs a pool built with device_pool(pitch=...)")
+    pitch, em = pool.pitch, pool.em
+    if region < pitch:
+        raise ValueError(f"region {region} < pool pitch {pitch}")
+    if window % region != 0:
+        raise ValueError(f"region {region} must divide window {window}")
+    R = int(sel_a.shape[0])
+    gpw = window // region
+    if R % gpw != 0:
+        raise ValueError(f"R={R} must be a multiple of window//region={gpw}")
+    S = region
+    pad = S - pitch
+    dev = sel_a.device
+    pad_to = torch.nn.functional.pad
+
+    fused_a, valid_a = _fused_rows(pool, sel_a)
+    fused_b, valid_b = _fused_rows(pool, sel_b)
+    la = torch.where(valid_a, fused_a[:, -2], 0)
+    lb = torch.where(valid_b, fused_b[:, -2], 0)
+    ea_len = torch.where(valid_a, fused_a[:, -1], 0)
+    eb_len = torch.where(valid_b, fused_b[:, -1], 0)
+
+    # nodes: A ascending at the region start, B reversed at its end
+    jj = torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+    a_plane = pad_to(fused_a[:, :pitch], (0, pad))
+    b_plane = pad_to(torch.flip(fused_b[:, :pitch], (1,)), (pad, 0))
+    mask_a = jj < la[:, None]
+    mask_b = jj >= (S - lb)[:, None]
+    # disjoint by the host contract la + lb <= S
+    atom_ids = torch.where(mask_a, a_plane + 1, 0) + torch.where(mask_b, b_plane + 1, 0)
+    slot2 = 2 * torch.arange(R, dtype=torch.int32, device=dev)[:, None]
+    node_graph = slot2 + mask_b.to(torch.int32)
+    node_local = torch.where(mask_a, jj, 0) + torch.where(mask_b, (S - 1) - jj, 0)
+    node_mask = mask_a | mask_b
+
+    # edges: A as stored, B with its endpoints reflected (u -> S-1-u)
+    base = (torch.arange(R, dtype=torch.int32, device=dev) * S)[:, None]
+    e_a = fused_a[:, pitch + em:pitch + 3 * em].reshape(R, em, 2)
+    e_b = fused_b[:, pitch + em:pitch + 3 * em].reshape(R, em, 2)
+    bonds_a = fused_a[:, pitch:pitch + em]
+    bonds_b = fused_b[:, pitch:pitch + em]
+    if edge_budget:
+        Eb = edge_budget
+        if Eb < em:
+            raise ValueError(f"edge_budget {Eb} < pool em {em} — a single "
+                             "molecule would overflow its region")
+        tt = torch.arange(Eb, dtype=torch.int32, device=dev)[None, :]
+        padE = Eb - em
+        emask_a = tt < ea_len[:, None]
+        emask_b = tt >= (Eb - eb_len)[:, None]
+
+        def front(x):  # (R, em) -> (R, Eb): A ascending from slot 0
+            return pad_to(x, (0, padE))
+
+        def tail(x):  # (R, em) -> (R, Eb): B reversed at the region's end
+            return pad_to(torch.flip(x, (1,)), (padE, 0))
+
+        def place(i):
+            return torch.where(emask_a, front(e_a[..., i]) + base,
+                               torch.where(emask_b, (S - 1) - tail(e_b[..., i]) + base, base))
+
+        src, dst = place(0), place(1)
+        bond_ids = torch.where(emask_a, front(bonds_a) + 1,
+                               torch.where(emask_b, tail(bonds_b) + 1, 0))
+        edge_mask = emask_a | emask_b
+    else:
+        tt = torch.arange(em, dtype=torch.int32, device=dev)[None, :]
+        emask_a = tt < ea_len[:, None]
+        emask_b = tt < eb_len[:, None]
+
+        def both(a, b):  # region r's edge slots: [A's em | B's em]
+            return torch.stack([a, b], dim=1)
+
+        src = both(torch.where(emask_a, e_a[..., 0] + base, base),
+                   torch.where(emask_b, (S - 1) - e_b[..., 0] + base, base))
+        dst = both(torch.where(emask_a, e_a[..., 1] + base, base),
+                   torch.where(emask_b, (S - 1) - e_b[..., 1] + base, base))
+        bond_ids = both(torch.where(emask_a, bonds_a + 1, 0), torch.where(emask_b, bonds_b + 1, 0))
+        edge_mask = both(emask_a, emask_b)
+
+    # windowed-readout addressing, closed form; -1 marks an empty slot
+    r = torch.arange(R, dtype=torch.int32, device=dev)
+    row0 = (r // gpw) * window + (r % gpw) * 2
+    pool_slot = torch.stack([torch.where(valid_a, row0, -1),
+                             torch.where(valid_b, row0 + 1, -1)], dim=1)
+    return PackedGraphs(
+        atom_ids=atom_ids.reshape(-1).to(torch.int32),
+        bond_ids=bond_ids.reshape(-1).to(torch.int32),
+        src=src.reshape(-1).to(torch.int32), dst=dst.reshape(-1).to(torch.int32),
+        node_graph=node_graph.reshape(-1).to(torch.int32),
+        node_local=node_local.reshape(-1).to(torch.int32),
+        node_mask=node_mask.reshape(-1), edge_mask=edge_mask.reshape(-1), n_graphs=2 * R,
+        edge_layout="window_aligned", node_sorted=True,
+        pool_slot=pool_slot.reshape(-1).to(torch.int32),
+    )
 
 
 def _capturing(t: torch.Tensor) -> bool:

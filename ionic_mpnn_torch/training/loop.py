@@ -22,8 +22,10 @@ shuffled greedy packing (seed ``seed + epoch``) by the native C++ packer
 (``use_native_loader``, when ``g++`` builds it; its group mode writes K
 batches straight into the pinned staging of the K slots) or the Python
 one, the dev eval, early stopping with the best weights restored,
-``normalize_y`` and checkpoint/resume. Its data-parallel mesh path and
-device-resident epochs are not ported. Nothing waits for the card inside
+``normalize_y`` and checkpoint/resume; and its device-resident epochs
+(:mod:`.device_epochs`, JAX ``loop.py:517-636``), where the train set lives
+on the card and each step packs its batch there. Its data-parallel mesh
+path is not ported. Nothing waits for the card inside
 an epoch: the step losses stay on the device, the dev eval queues behind
 the epoch's steps, and the losses and every eval output come back in one
 device-to-host copy per epoch; the best weights are kept as clones on the
@@ -145,6 +147,13 @@ class TrainStep:
         loss.backward()
         self.optimizer.step()
         return torch.stack([loss.detach(), data.detach()])
+
+    def replay(self, fn) -> Replay:
+        """``fn`` (train steps on static device tensors) as a
+        :class:`~.graphs.Replay` of this step: graphed as the step is, in
+        its graph memory pool, with the model's dropout generators."""
+        return Replay(fn, self.device, self.graphed, self._pool,
+                      lambda: _dropout_generators(self.model, self.device))
 
     def graphs(self, batch: IonPairBatch) -> StepGraphs:
         """The slots and graphs of ``batch``'s plan, made on first use."""
@@ -317,9 +326,10 @@ class FitResult:
     ``fetch+eval(sync)`` (enqueueing the dev eval and the one copy to the
     host, which waits for the card) and ``host_reduce`` (the host's
     reductions). ``steps`` is the number of train steps taken in all,
-    resumed ones included. ``loader`` is the packer that made the batches,
-    ``"native"`` or ``"python"``, and ``steps_per_call`` the K that grouped
-    the train steps."""
+    resumed ones included. ``loader`` is what made the train batches:
+    ``"device_paired"`` or ``"device"`` (device-resident epochs, paired or
+    not), else the host packer, ``"native"`` or ``"python"``; and
+    ``steps_per_call`` the K that grouped the train steps."""
 
     params: Dict[str, torch.Tensor]
     history: Dict[str, List[float]]
@@ -365,6 +375,33 @@ def _fetch(losses: List[torch.Tensor], outs: List[Dict[str, torch.Tensor]]):
     return flat[:loss_vec.numel()], host
 
 
+def _device_epochs(step: TrainStep, model_cfg: ModelConfig, train_cfg: TrainConfig,
+                   train_records: Sequence[Dict[str, Any]], plan: BatchPlan):
+    """The device-epoch runner ``fit`` trains with, or None where the host
+    loader runs (JAX ``loop.py:517-636``): device epochs off (``"auto"`` is
+    on for CUDA), a message impl other than onehot, a layout other than
+    ``window_aligned``, or a molecule larger than the window."""
+    on = train_cfg.device_epochs
+    if on == "auto":
+        on = step.device.type == "cuda"
+    if not (on and model_cfg.message_impl == "onehot"
+            and plan.edge_layout == "window_aligned"):
+        return None
+    from .device_epochs import DeviceEpochs, build_device_dataset, choose_paired_plan
+
+    try:
+        ds = build_device_dataset(train_records, plan.window, plan.target_key,
+                                  with_temperature=plan.with_temperature,
+                                  duplicate_edges=plan.duplicate_edges, device=step.device)
+    except ValueError:  # a molecule larger than the window
+        return None
+    paired = train_cfg.paired_epochs
+    if paired == "auto":
+        paired = True
+    pplan = choose_paired_plan(ds, plan.batch_size) if paired else None
+    return DeviceEpochs(step, ds, plan.batch_size, train_cfg.seed, pplan)
+
+
 def fit(
     model: torch.nn.Module,
     model_cfg: ModelConfig,
@@ -395,7 +432,16 @@ def fit(
     K-step graph and a remainder of r batches r replays of the one-step
     graph; the history is the same for every K. The dev eval is one graph
     over the dev batches, replayed each epoch. ``FitResult.loader`` says
-    which packer made the batches."""
+    which packer made the batches.
+
+    Device-resident epochs (``TrainConfig.device_epochs``, ``"auto"``: on
+    CUDA, not on the CPU) run where JAX's do: ``message_impl="onehot"`` on a
+    ``window_aligned`` plan whose molecules all fit the window; else the host
+    loader runs, as in JAX. Each epoch's batches come from
+    ``default_rng(seed + epoch)``'s permutation of the train records, paired
+    two per pitch region when ``paired_epochs`` (``"auto"``: on) and the
+    planner finds a pairing that pays (:mod:`.device_epochs`); the dev eval
+    keeps its host-packed batches."""
     if not train_records:
         raise ValueError("fit needs at least one train record")
     device = next(model.parameters()).device
@@ -432,6 +478,9 @@ def fit(
     step = make_train_step(model, model_cfg, train_cfg, optimizer)
     eval_step = make_eval_step(model, model_cfg, train_cfg)
     K = step.K
+    runner = _device_epochs(step, model_cfg, train_cfg, train_records, plan)
+    if runner is not None:
+        loader = "device_paired" if runner.plan is not None else "device"
     # Native group mode (JAX loop.py:649-665): the C++ packer writes each
     # group's K batches straight into the pinned staging of the plan's K
     # slots; one copy per array and one replay per group
@@ -501,7 +550,11 @@ def fit(
             losses: List[torch.Tensor] = []
             ns: List[float] = []
             seed = train_cfg.seed + epoch
-            if group_graphs is not None:
+            if runner is not None:
+                epoch_losses, epoch_ns = runner.run_epoch(epoch, prefetch=epoch < epochs)
+                losses.append(epoch_losses)
+                ns.extend(epoch_ns)
+            elif group_graphs is not None:
                 from ..data.columnar import iter_batch_groups_fast
 
                 for stacked, _ in iter_batch_groups_fast(train_source, plan, K, shuffle=True,

@@ -181,7 +181,7 @@ def test_fit_with_normalized_targets_matches_jax(setup, jax_fit, impl):
 BENCH_FIELDS = {"metric", "value", "unit", "steps_per_s", "molecules_per_s", "batch_size",
                 "num_steps", "model", "harness", "message_impl", "compute_dtype",
                 "onehot_window", "onehot_select", "balanced", "remat",
-                "samples_edges_per_s", "device"}
+                "samples_edges_per_s", "device", "baseline_edges_per_s", "vs_baseline"}
 
 
 @pytest.mark.parametrize("model", ["viscosity", "mp"])
@@ -195,6 +195,7 @@ def test_bench_entry_prints_one_json_line(capsys, model):
     assert set(out) == BENCH_FIELDS
     assert out["metric"] == "message_edges_per_s_fwd_bwd" and out["unit"] == "edges/s"
     assert out["value"] > 0 and out["value"] == out["samples_edges_per_s"][0]
+    assert out["baseline_edges_per_s"] > 0 and out["vs_baseline"] > 0  # the dense process
     assert (out["harness"], out["device"], out["model"]) == ("host", "cpu", model)
     assert (out["message_impl"], out["compute_dtype"]) == ("gather", "float32")
 
