@@ -200,6 +200,29 @@ Phases, in order (any failure raises and the script exits non-zero):
    candidates (pairs/s, the producer wait); the factorized sweep over the
    10M grid (seconds). Its profiler reading (busy share over a few
    replays) comes last, after phase 13.
+   [dp]: the data-parallel tier (``ionic_mpnn_torch/parallel``) in ranks
+   that ``run_local`` spawns after the build (each loads the built
+   library). NCCL over every card (one rank on one card): ``pallas_step``
+   bf16, batch 2048 per rank, K = 8 on [graphs]' 8 packings of the bench
+   batch, under deterministic algorithms: the K-step DP graph (two calls:
+   capture, then replay) equals the eager DP step and, at one rank, the
+   single-device step, bit for bit over 16 steps (losses, parameters, both
+   moments, the count), launches exact; the DP step's and the
+   single-device step's wall, host and busy ms, idle share,
+   message-edges/s and the all-reduce's device time per step (profiler),
+   and the all-reduce of the step's buffer alone; ``fit(mesh=)`` at
+   [fit]'s recipe (3 epochs) in ``pallas_step`` bf16 on the native loader
+   and onehot bf16 (window 64) on paired device epochs: resumed at epoch
+   2 it equals the uninterrupted run and, at one rank, ``fit()`` without a
+   mesh, bit for bit; steady epoch seconds with and without the mesh;
+   ``ScreeningEngine(mesh=)``'s ``predict_batch`` against the single
+   engine (1e-5). Then 2 gloo ranks on card 0 (eager by design: gloo
+   cannot be captured), f32, ``pallas_step`` and ``gather`` with the
+   pallas scatter: 2 steps each, the parameters within 1e-5 of each
+   tensor's max of the accumulated single-process reference, the ranks
+   bit-equal, launches exact, the steady step's wall ms (a record); a
+   one-epoch ``fit(mesh=)`` of 512 records whose ranks end bit-equal; the
+   fan-out over 2 ranks. A failed rank stops the others and raises.
 13. Times. Wall times first (CUDA events, before torch.profiler attaches):
    each wrapper call at the cation shape (median of 60), each forward per
    batch (median of 50), the host time each kernel's autograd Function would
@@ -1274,7 +1297,8 @@ def phase_fit():
         model, cfg = model_for(impl, dtype=dtype)
         return lambda: fit(model, cfg, tcfg(1), train, dev_split, plan, verbose=False)
 
-    fit_data = {"records": records, "train": train, "dev": dev_split, "plan": plan,
+    fit_data = {"records": records, "vocab": vocab, "train": train, "dev": dev_split,
+                "plan": plan,
                 "n_dev": n_dev, "model_for": model_for, "tcfg": tcfg, "first": first,
                 "default": runs[f"default ({impl} {dtype})"], "run": run}
     return runs, launches, one_epoch_fit, fit_data
@@ -2460,13 +2484,19 @@ def phase_transfer(records, vocab, state):
     out = {"predict_max_abs_err": err, "steps": {}}
     for stage, batch in ((1, batches[0]), (2, batches[1])):
         results = {}
+        # both arms from the same weights: stage 1's Adam step moves each
+        # arm's near-zero gradient entries by up to the learning rate, in
+        # either direction, so stage 2 would otherwise start from weights
+        # that differ by more than its tolerance
+        kernel.load_state_dict(plain.state_dict())
         for name, model, cfg in (("plain", plain, plain_cfg), ("kernel", kernel, kernel_cfg)):
             labels = transfer_stage_labels(model, stage)
             opt = make_partitioned_optimizer(model, labels, 1e-3 if stage == 1 else 1e-4)
             step = make_train_step(model, cfg, tcfg, opt)
             before = {k: p.detach().clone() for k, p in model.named_parameters()}
             kernels.reset_launch_counts()
-            loss = float(step(batch)["loss"])
+            with deterministic():  # the readout's sums in one order, run after run
+                loss = float(step(batch)["loss"])
             torch.cuda.synchronize()
             counts = kernels.launch_counts()
             frozen = [k for k, v in labels.items() if v == "frozen"]
@@ -2666,15 +2696,16 @@ HOST_GRID_T = 3  # the host path's grid: 2688 x 24 x 3 = 193,536 candidates
 UNPARSED_ANION = "[O-]Cl(=O)(=O)=O"  # perchlorate: the built-in parser refuses it
 
 
-def screen_library():
-    """The screening library (every enumerated cation, the 25 screening
-    anions) and a vocab built from it, so that no parsed ion is out of
-    vocabulary; only perchlorate fails the built-in parser."""
+def screen_library(n_cations=SCREEN_CATIONS):
+    """The screening library (the first ``n_cations`` enumerated cations,
+    every one by default, and the 25 screening anions) and a vocab built
+    from it, so that no parsed ion is out of vocabulary; only perchlorate
+    fails the built-in parser."""
     from ionic_mpnn_torch.data import build_vocab, smiles_to_graph
     from ionic_mpnn_torch.data.synthetic import SCREEN_ANIONS, enumerate_cations
 
-    cations = enumerate_cations(SCREEN_CATIONS)
-    if len(cations) != SCREEN_CATIONS:
+    cations = enumerate_cations(n_cations)
+    if len(cations) != n_cations:
         raise AssertionError(f"enumerate_cations gave {len(cations)} cations")
     graphs, failed = {}, []
     for s in cations + SCREEN_ANIONS:
@@ -3016,6 +3047,448 @@ def phase_screen(dev):
     return out, launches, profile
 
 
+# ---------------------------------------------------------------- [dp]
+
+DP_K = 8  # train steps per replay of the data-parallel step, as the default
+DP_TIMED_ITERS = 10
+DP_GLOO_STEPS = 2  # steps of each 2-rank gloo arm
+DP_GLOO_RANKS = 2
+DP_GLOO_FIT_RECORDS = (512, 64)  # train, dev records of the 2-rank gloo fit
+DP_FIT_EPOCHS = 3
+DP_SCREEN_CATIONS = 128  # x 24 anions: the fan-out's candidates
+DP_TIMEOUT_S = 900
+
+
+def _dp_prepare(rank):
+    """A rank's setup: plain references in exact f32, as in main()."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _dp_counts(batches):
+    return float(sum(float(np.sum(b.sample_mask)) for b in batches))
+
+
+def _dp_launches_exact(tag, counts, steps, impl, scatter):
+    per_step, _ = kernel_launches(impl, scatter)
+    want = {k: steps * per_step.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{tag}: launch counts {counts}, expected {want}")
+
+
+def _dp_screen_check(tag, mesh, base_dict, world):
+    """``ScreeningEngine(mesh=)``'s ``predict_batch`` against the single
+    engine on the same weights, over ``world`` sub-batches (the last one
+    short)."""
+    from ionic_mpnn_torch.config import model_config_from_dict
+    from ionic_mpnn_torch.data import BatchPlan
+    from ionic_mpnn_torch.inference import ScreeningEngine
+    from ionic_mpnn_torch.models import ViscosityModel
+
+    cations, anions, vocab = screen_library(DP_SCREEN_CATIONS)
+    anions = [a for a in anions if a != UNPARSED_ANION]
+    cands = [(c, a, 273.15 + (i % 7) * 20.0)
+             for i, (c, a) in enumerate((c, a) for c in cations for a in anions)]
+    B = SCREEN_BATCH
+    n = min(len(cands), B * world - B // 2) if world > 1 else B
+    cands = cands[:n]
+    cfg = model_config_from_dict(base_dict).replace(
+        atom_vocab_size=vocab.atom_vocab_size, bond_vocab_size=vocab.bond_vocab_size,
+        message_impl="pallas_step")
+    state = ViscosityModel(cfg, seed=0).state_dict()
+    plan = BatchPlan(B, B * 128, B * 256)
+    fan = ScreeningEngine(ViscosityModel(cfg, seed=0), state, vocab, plan, mesh=mesh)
+    single = ScreeningEngine(ViscosityModel(cfg, seed=0), state, vocab, plan)
+    with deterministic():  # the readout's sums in one order in both engines
+        got = fan.predict_batch(cands)
+        want = np.concatenate([single.predict_batch(cands[i:i + B]) for i in range(0, n, B)])
+    err = float(np.max(np.abs(got - want)))
+    if got.shape != want.shape or not np.allclose(got, want, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"{tag}: fan-out against the single engine, max |err| {err}")
+    return {"candidates": n, "max_abs_err": err, "ranks": fan.n_dev,
+            "compute_dtype": cfg.compute_dtype, "predictions": got}
+
+
+def _dp_all_reduce_profile(flat, group, n=20):
+    """``all_reduce(flat)`` alone: the card's kernels under the profiler
+    (none at all where NCCL has nothing to do) and the call's wall time."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        dist.all_reduce(flat, group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        dist.all_reduce(flat, group=group)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            dist.all_reduce(flat, group=group)
+        torch.cuda.synchronize()
+    kernels_ = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = (e.time_range.end - e.time_range.start) / 1e3 / n
+            kernels_[e.name[:60]] = kernels_.get(e.name[:60], 0.0) + ms
+    return {"floats": flat.numel(), "bytes": 4 * flat.numel(), "wall_ms": wall_ms,
+            "device_ms": sum(kernels_.values()), "kernels": kernels_}
+
+
+def dp_nccl_rank(rank, world, dev, base_dict, hb, fit_args, ckpt_dir):
+    """[dp] over NCCL, one rank per card: the K-step DP graph against the
+    eager DP step and (one rank) the single-device step, bit for bit; the DP
+    step's times and its all-reduce's device time beside the single-device
+    step's; fit(mesh=) on the host loader and on paired device epochs
+    against fit() without a mesh and resumed; the screening fan-out.
+    ``base_dict`` is the config of the bench vocab (``hb``'s), the last of
+    ``fit_args`` that of the fit records."""
+    import tempfile
+
+    from ionic_mpnn_torch.benchmarks.harness import _count_message_edges, _time_calls
+    from ionic_mpnn_torch.config import TrainConfig, model_config_from_dict
+    from ionic_mpnn_torch.models import ViscosityModel
+    from ionic_mpnn_torch.ops import cuda as kernels
+    from ionic_mpnn_torch.parallel import make_dp_train_step, make_mesh
+    from ionic_mpnn_torch.training import fit, make_train_step
+
+    dev = _dp_prepare(rank)
+    mesh = make_mesh()
+    cfg = model_config_from_dict(base_dict).replace(message_impl="pallas_step",
+                                                    compute_dtype="bfloat16")
+    state = ViscosityModel(cfg, seed=0).state_dict()
+
+    def model():
+        m = ViscosityModel(cfg, seed=0)
+        m.load_state_dict(state)
+        return m
+
+    out = {"rank": rank, "world": world, "backend": "nccl", "K": DP_K, "batch": BATCH}
+    launches = {}
+
+    def count(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # -- the K-step DP graph against the eager DP step (and one rank against
+    # the single-device step): two calls each, the first captures
+    kernels.reset_launch_counts()
+    runs = {}
+    with deterministic():
+        for tag, jit in (("graphed", True), ("eager", False)):
+            step = make_dp_train_step(model(), cfg, TrainConfig(), mesh=mesh,
+                                      steps_per_call=DP_K, jit_compile=jit)
+            if step.graphed != (jit and dev.type == "cuda"):
+                raise AssertionError(f"[dp] {tag}: the NCCL step graphed={step.graphed}")
+            res = [step.scan(hb) for _ in range(2)]
+            runs[tag] = _runner_state(step, torch.cat([r["losses"] for r in res]),
+                                      res[0]["ns"] + res[1]["ns"])
+        if world == 1:
+            step = make_train_step(model(), cfg, TrainConfig(steps_per_call=DP_K))
+            res = [step.scan(hb) for _ in range(2)]
+            runs["single-device"] = _runner_state(step, torch.cat([r["losses"] for r in res]),
+                                                  res[0]["ns"] + res[1]["ns"])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    _dp_launches_exact("[dp] nccl steps", counts, sum(r["steps"] for r in runs.values()),
+                       "pallas_step", "xla")
+    count(counts)
+    if runs["graphed"]["steps"] != 2 * DP_K:
+        raise AssertionError(f"[dp] {runs['graphed']['steps']} graphed DP steps")
+    for tag in [t for t in runs if t != "graphed"]:
+        _same_runner_state(f"[dp] graphed DP step against {tag}", runs["graphed"], runs[tag])
+    out["bit_equal"] = sorted(t for t in runs if t != "graphed")
+    out["losses"] = runs["graphed"]["losses"].tolist()
+    if rank == 0:
+        log(f"[dp] rank 0: the graphed DP step equals {out['bit_equal']} bit for bit")
+
+    # -- times: the DP step (K per replay) beside the single-device step
+    me = int(np.mean([_count_message_edges(b, cfg.num_steps) for b in hb]))
+    mine = hb[rank::world]
+    ns = [_dp_counts(hb[s * world:(s + 1) * world]) for s in range(DP_K)]
+    times = {}
+    kernels.reset_launch_counts()
+    dp_step = make_dp_train_step(model(), cfg, TrainConfig(), mesh=mesh, steps_per_call=DP_K)
+    g = dp_step.graphs(mine[0])
+    g.slots.copy_into(mine)
+    g.set_counts(ns)
+    calls = {"dp": lambda: dp_step.run_slots(g, DP_K)[:, 0]}
+    one = make_train_step(model(), cfg, TrainConfig(steps_per_call=DP_K))
+    g1 = one.graphs(mine[0])
+    g1.slots.copy_into(mine)
+    calls["single-device"] = lambda: one.run_slots(g1, DP_K)[:, 0]
+    for tag, call in calls.items():
+        r = _time_calls(call, dev, DP_K, me * (world if tag == "dp" else 1), BATCH,
+                        iters=DP_TIMED_ITERS, warmup=2, sync_each=True)
+        r["wall_ms"] = r["call_ms"] / DP_K
+        times[tag] = r
+    torch.cuda.synchronize()
+    count(kernels.launch_counts())
+    for tag, call in calls.items():
+        prof = device_profile(call, n=3, warmup=1)
+        nccl = {k: v for k, v in prof["by_kernel"].items() if "nccl" in k.lower()}
+        times[tag].update(busy_ms=prof["busy_ms"] / DP_K,
+                          all_reduce_ms=sum(nccl.values()) / DP_K,
+                          all_reduce_kernels={k[:60]: v / DP_K for k, v in nccl.items()},
+                          top={k[:60]: v / DP_K for k, v in list(prof["by_kernel"].items())[:6]},
+                          idle_share=max(0.0, 1 - prof["busy_ms"] / DP_K
+                                         / times[tag]["wall_ms"]))
+    # the step's all-reduce alone, eagerly, on the same buffer
+    alone = _dp_all_reduce_profile(dp_step._flat, dp_step.axis.group)
+    out["all_reduce_alone"] = alone
+    if times["dp"]["all_reduce_ms"] <= 0 and (world > 1 or alone["kernels"]):
+        raise AssertionError(f"[dp] the profiler saw no NCCL kernel in the DP step's replay "
+                             f"(the all-reduce alone: {alone})")
+    out["times"] = {k: {f: v[f] for f in ("wall_ms", "call_ms", "host_ms", "busy_ms",
+                                           "idle_share", "edges_per_s", "all_reduce_ms",
+                                           "all_reduce_kernels", "top")}
+                    for k, v in times.items()}
+    out["message_edges_per_step"] = me * world
+    out["grad_floats"] = dp_step._n_grad
+    if rank == 0:
+        log(f"[dp] rank 0: times {json.dumps(out['times'])}; all-reduce alone "
+            f"{json.dumps(alone)}")
+
+    # -- fit(mesh=) at [fit]'s recipe, both loaders
+    train, dev_split, host_plan, aligned_plan, fit_base = fit_args
+    fcfg0 = model_config_from_dict(fit_base).replace(compute_dtype="bfloat16")
+    arms = {"pallas_step bf16, host loader": (fcfg0.replace(message_impl="pallas_step"),
+                                              host_plan, "native"),
+            "onehot bf16 w64, paired device epochs": (
+                fcfg0.replace(message_impl="onehot", onehot_window=DE_WINDOW), aligned_plan,
+                "device_paired")}
+    out["fit"] = {}
+    for tag, (fcfg, fplan, loader) in arms.items():
+        def run(epochs, mesh_=mesh, **kw):
+            m = ViscosityModel(fcfg, seed=0)  # the same seeded weights in every run
+            return fit(m, fcfg, TrainConfig(epochs=epochs, batch_size=FIT_BATCH, seed=0, **kw),
+                       train, dev_split, fplan, verbose=False, mesh=mesh_)
+
+        kernels.reset_launch_counts()
+        with deterministic():
+            whole = run(DP_FIT_EPOCHS)
+            ck = f"{ckpt_dir}/{len(out['fit'])}"
+            run(DP_FIT_EPOCHS - 1, checkpoint_dir=ck, checkpoint_every=1)
+            resumed = run(DP_FIT_EPOCHS, checkpoint_dir=ck)
+            if world == 1:
+                same_fit(f"[dp] fit(mesh=) {tag} against no mesh", whole,
+                         run(DP_FIT_EPOCHS, mesh_=None))
+        if whole.loader != loader or whole.world_size != world:
+            raise AssertionError(f"[dp] fit {tag}: loader {whole.loader}, world "
+                                 f"{whole.world_size}")
+        same_fit(f"[dp] fit(mesh=) {tag} resumed against uninterrupted", whole, resumed)
+        timed = {"mesh": epoch_summary(run(DP_FIT_EPOCHS)),
+                 "no mesh": epoch_summary(run(DP_FIT_EPOCHS, mesh_=None))}
+        torch.cuda.synchronize()
+        count(kernels.launch_counts())
+        out["fit"][tag] = {"loss": whole.history["loss"], "val_loss": whole.history["val_loss"],
+                           "steps": whole.steps, "loader": whole.loader, "epochs": timed,
+                           "equal_to_no_mesh": world == 1}
+        if rank == 0:
+            log(f"[dp] rank 0: fit(mesh=) {tag}: {json.dumps(out['fit'][tag]['epochs'])}")
+
+    # -- the screening fan-out
+    kernels.reset_launch_counts()
+    scr = _dp_screen_check("[dp] ScreeningEngine(mesh=) nccl", mesh, base_dict, world)
+    count(kernels.launch_counts())
+    scr.pop("predictions")
+    out["screen"] = scr
+    out["launches"] = launches
+    return out
+
+
+def dp_gloo_rank(rank, world, dev, base_dict, hb, fit_args):
+    """[dp] over gloo, ranks sharing one card (eager: gloo cannot be
+    captured): per arm, DP_GLOO_STEPS steps against the accumulated
+    single-process reference; a few steps of fit(mesh=); the screening
+    fan-out. The parent holds the ranks against each other."""
+    from ionic_mpnn_torch.config import TrainConfig, model_config_from_dict
+    from ionic_mpnn_torch.models import ViscosityModel
+    from ionic_mpnn_torch.ops import cuda as kernels
+    from ionic_mpnn_torch.parallel import make_dp_train_step, make_mesh
+    from ionic_mpnn_torch.training import data_loss_sum, fit, l2_penalty, make_optimizer
+
+    dev = _dp_prepare(rank)
+    mesh = make_mesh(device_type="cuda")
+    base = model_config_from_dict(base_dict)
+    batches = hb[:world * DP_GLOO_STEPS]
+    out = {"rank": rank, "world": world, "backend": "gloo", "arms": {}}
+    launches = {}
+    for tag, impl, scatter in (("pallas_step f32", "pallas_step", "xla"),
+                               ("gather+pallas scatter f32", "gather", "pallas")):
+        cfg = base.replace(message_impl=impl, scatter_impl=scatter, compute_dtype="float32")
+        state = ViscosityModel(cfg, seed=0).state_dict()
+        m = ViscosityModel(cfg, seed=0)
+        m.load_state_dict(state)
+        step = make_dp_train_step(m, cfg, TrainConfig(), mesh=mesh, steps_per_call=1)
+        if step.graphed:
+            raise AssertionError("[dp] a gloo step would capture")
+        kernels.reset_launch_counts()
+        losses, walls = [], []
+        with deterministic():
+            for s in range(DP_GLOO_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(step.scan(batches[s * world:(s + 1) * world])["losses"])
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+        wall_ms = walls[-1]  # the first step also sets up cuBLAS and the gloo pairs
+        counts = kernels.launch_counts()
+        _dp_launches_exact(f"[dp] gloo {tag}", counts, DP_GLOO_STEPS, impl, scatter)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        arm = {"losses": torch.cat(losses).tolist(), "step_wall_ms": wall_ms,
+               "params": {k: v.detach().cpu().numpy() for k, v in m.state_dict().items()}}
+        if rank == 0:  # Σ local_sum / N + L2 over each step's batches, in one process
+            ref = ViscosityModel(cfg, seed=0)
+            ref.load_state_dict(state)
+            opt = make_optimizer(ref.parameters())
+            with deterministic():
+                for s in range(DP_GLOO_STEPS):
+                    group = [b.to(dev) for b in batches[s * world:(s + 1) * world]]
+                    ref.train()
+                    opt.zero_grad()
+                    total = sum(data_loss_sum(ref(b)["pred"], b.y, b.sample_mask, "mse", 1.0)
+                                for b in group)
+                    (total / _dp_counts(batches[s * world:(s + 1) * world])
+                     + l2_penalty(ref, cfg.fp_l2)).backward()
+                    opt.step()
+            worst = 0.0
+            for k, want in ref.state_dict().items():
+                got = m.state_dict()[k]
+                scale = float(want.abs().max())
+                err = float((got - want).abs().max())
+                worst = max(worst, err / max(scale, 1e-30))
+                if err > 1e-5 * scale:
+                    raise AssertionError(f"[dp] gloo {tag}: {k} {err:.3e} from the accumulated "
+                                         f"reference, beyond 1e-5 of its max {scale:.3e}")
+            arm["worst_of_max"] = worst
+        out["arms"][tag] = arm
+        if rank == 0:
+            log(f"[dp] gloo rank 0: {tag} losses {arm['losses']}, worst "
+                f"{arm['worst_of_max']:.3e} of max, {wall_ms:.3f} ms per step")
+
+    # -- a few steps of fit(mesh=) over gloo on the card
+    train, dev_split, host_plan, _, fit_base = fit_args
+    n_train, n_dev = DP_GLOO_FIT_RECORDS
+    cfg = model_config_from_dict(fit_base).replace(message_impl="pallas_step",
+                                                   compute_dtype="float32")
+    m = ViscosityModel(cfg, seed=0)
+    kernels.reset_launch_counts()
+    with deterministic():
+        res = fit(m, cfg, TrainConfig(epochs=1, batch_size=FIT_BATCH, seed=0),
+                  train[:n_train], dev_split[:n_dev], host_plan, verbose=False, mesh=mesh)
+    for k, v in kernels.launch_counts().items():
+        launches[k] = launches.get(k, 0) + v
+    out["fit"] = {"loss": res.history["loss"], "steps": res.steps, "world_size": res.world_size,
+                  "params": {k: v.cpu().numpy() for k, v in res.params.items()}}
+    kernels.reset_launch_counts()
+    out["screen"] = _dp_screen_check("[dp] ScreeningEngine(mesh=) gloo", mesh, base_dict,
+                                     world)
+    out["screen"].pop("predictions")
+    for k, v in kernels.launch_counts().items():
+        launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    return out
+
+
+def phase_dp(records, plan, vocab, fit_data):
+    """[dp]: the data-parallel tier (``ionic_mpnn_torch/parallel``) on the
+    card, in ranks that ``run_local`` spawns: NCCL over every card, then 2
+    gloo ranks on card 0. Returns its record and the kernel launches its
+    ranks made (summed over ranks)."""
+    import tempfile
+
+    from ionic_mpnn_torch.config import model_config_to_dict, viscosity_config
+    from ionic_mpnn_torch.data import iter_batches, plan_capacities
+    from ionic_mpnn_torch.parallel import run_local
+
+    t_phase = time.perf_counter()
+    world = torch.cuda.device_count()
+    n = max(world, DP_GLOO_RANKS) * DP_K
+    # [graphs]' timed batches: distinct packings of the bench batch's records
+    hb = [next(iter_batches(records[:BATCH], plan, shuffle=True, seed=s)) for s in range(n)]
+    base = model_config_to_dict(viscosity_config(vocab.atom_vocab_size,
+                                                 vocab.bond_vocab_size))
+    fvocab = fit_data["vocab"]
+    fit_base = model_config_to_dict(viscosity_config(fvocab.atom_vocab_size,
+                                                     fvocab.bond_vocab_size))
+    aligned = plan_capacities(fit_data["records"], FIT_BATCH, edge_layout="window_aligned",
+                              window=DE_WINDOW)
+    fit_args = (fit_data["train"], fit_data["dev"], fit_data["plan"], aligned, fit_base)
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        nccl = run_local(dp_nccl_rank, world, "nccl", "cuda", base, hb[:world * DP_K],
+                         fit_args, ckpt, timeout_s=DP_TIMEOUT_S)
+        nccl_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gloo = run_local(dp_gloo_rank, DP_GLOO_RANKS, "gloo", "cuda", base, hb, fit_args,
+                     timeout_s=DP_TIMEOUT_S)
+    gloo_s = time.perf_counter() - t0
+
+    first = nccl[0]
+    for r in nccl[1:]:
+        if r["losses"] != first["losses"]:
+            raise AssertionError(f"[dp] nccl rank {r['rank']}: losses differ from rank 0's")
+    for tag in gloo[0]["arms"]:
+        for k, v in gloo[0]["arms"][tag]["params"].items():
+            if not np.array_equal(v, gloo[1]["arms"][tag]["params"][k]):
+                raise AssertionError(f"[dp] gloo {tag}: the ranks' {k} differ")
+    for k, v in gloo[0]["fit"]["params"].items():
+        if not np.array_equal(v, gloo[1]["fit"]["params"][k]):
+            raise AssertionError(f"[dp] gloo fit: the ranks' best {k} differ")
+    launches = {}
+    for r in nccl + gloo:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    if min(launches.get(k, 0) for k in ("fused_mp_step", "fused_message_aggregate",
+                                        "fused_message_aggregate_dh",
+                                        "sorted_segment_sum")) <= 0:
+        raise AssertionError(f"[dp] a kernel of the path never launched: {launches}")
+
+    t = first["times"]
+    log(f"[dp] NCCL over {world} rank(s), pallas_step bf16, batch {BATCH} per rank, K = "
+        f"{DP_K}: the graphed DP step equals, bit for bit over {2 * DP_K} steps, "
+        f"{', '.join(first['bit_equal'])} (losses, parameters, both moments, the count)")
+    for tag, r in t.items():
+        log(f"[dp] train step {tag}: wall {r['wall_ms']:.4f} ms per step (a call "
+            f"{r['call_ms']:.4f} ms, median of {DP_TIMED_ITERS}), host {r['host_ms']:.4f} ms, "
+            f"busy {r['busy_ms']:.4f} ms, idle share {r['idle_share']:.3f}, "
+            f"{r['edges_per_s']:.6e} message-edges/s, all-reduce {r['all_reduce_ms']:.5f} ms "
+            f"of device time per step ({first['grad_floats']} gradient floats + 2)")
+    a = first["all_reduce_alone"]
+    log(f"[dp] the step's all-reduce alone ({a['bytes']} bytes, eager): {a['wall_ms']:.5f} ms "
+        f"per call on the host clock, {a['device_ms']:.5f} ms of device time in kernels "
+        f"{json.dumps(a['kernels'])}")
+    for tag, f in first["fit"].items():
+        log(f"[dp] fit(mesh=) {tag}, world {world}: loader {f['loader']}, {f['steps']} steps, "
+            f"loss {f['loss']}; resumed at epoch {DP_FIT_EPOCHS - 1} equals uninterrupted"
+            + (", and the history equals fit() without a mesh, bit for bit"
+               if f["equal_to_no_mesh"] else "")
+            + f"; steady epoch {f['epochs']['mesh']['epoch_s']:.4f} s with the mesh, "
+            f"{f['epochs']['no mesh']['epoch_s']:.4f} s without")
+    for tag, a in gloo[0]["arms"].items():
+        log(f"[dp] gloo, {DP_GLOO_RANKS} ranks on one card, {tag}: {DP_GLOO_STEPS} steps, "
+            f"losses {a['losses']}, parameters within {a['worst_of_max']:.3e} of each "
+            f"tensor's max of the accumulated reference (bound 1e-5), ranks bit-equal; "
+            f"step wall {a['step_wall_ms']:.3f} ms (a record, not a target)")
+    log(f"[dp] gloo fit(mesh=): {gloo[0]['fit']['steps']} steps, loss "
+        f"{gloo[0]['fit']['loss']}, the ranks' best weights equal bit for bit")
+    for tag, s in (("nccl", first["screen"]), ("gloo", gloo[0]["screen"])):
+        log(f"[dp] ScreeningEngine(mesh=) {tag}, {s['ranks']} rank(s): {s['candidates']} "
+            f"candidates, max |err| {s['max_abs_err']:.3e} against the single engine "
+            f"(rtol/atol 1e-5)")
+    log(f"[dp] launches, summed over ranks: {launches}; nccl ranks {nccl_s:.1f} s, gloo ranks "
+        f"{gloo_s:.1f} s, phase {time.perf_counter() - t_phase:.1f} s")
+    for r in gloo:
+        for a in r["arms"].values():
+            a.pop("params")
+        r["fit"].pop("params")
+    return {"nccl": nccl, "gloo": gloo, "seconds": {"nccl": nccl_s, "gloo": gloo_s}}, launches
+
+
 # ---------------------------------------------------------------- phase 13
 
 def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS):
@@ -3221,11 +3694,13 @@ def main() -> int:
     transfer, transfer_launches = phase_transfer(records, vocab, state)
     chain, chain_launches = phase_chain()
     screen, screen_launches, screen_profile = phase_screen(dev)
+    dp, dp_launches = phase_dp(records, plan, vocab, fit_data)
     rows, forward, dK, train, overhead = phase_times(
         batch0, V, models, launches, errs, train_steps, train_batch, train_launches,
         {"fit": fit_launches, "graphs": graphs_launches, "mp": mp_launches,
          "onehot": onehot_launches, "device_epochs": device_ep_launches,
-         "transfer": transfer_launches, "chain": chain_launches, "screen": screen_launches})
+         "transfer": transfer_launches, "chain": chain_launches, "screen": screen_launches,
+         "dp": dp_launches})
     fit_profile = fit_busy_share(one_epoch_fit)
     onehot["times"] = onehot_profile(forward["pallas_step bf16"])
     graphs = graphs_profile()
@@ -3237,7 +3712,8 @@ def main() -> int:
                     "function_overhead": overhead, "fit": fit_runs,
                     "fit_profile": fit_profile, "graphs": graphs, "native": native,
                     "mp": mp, "bench": bench, "onehot": onehot, "device_epochs": device_ep,
-                    "transfer": transfer, "chain": chain, "screen": screen, "card": smi}))
+                    "transfer": transfer, "chain": chain, "screen": screen, "dp": dp,
+                    "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -28,6 +28,9 @@ plans from a train set that lives on the card, each step packing its batch
 there, and ``paired_epochs`` (``"auto"``: on) packs two records per pitch
 region when the planner finds that it pays (``training/device_epochs.py``);
 ``FitResult.loader`` says which path ran.
+
+:class:`MeshConfig` is the JAX dataclass of the same name: the ``(data,
+model)`` layout of the ranks that ``parallel.make_mesh`` builds.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ __all__ = [
     "model_config_to_dict",
     "model_config_from_dict",
     "TrainConfig",
+    "MeshConfig",
     "train_config_to_dict",
     "train_config_from_dict",
     "resolve_message_impl",
@@ -249,6 +253,21 @@ class TrainConfig:
     log_epochs: Tuple[int, ...] = (1, 2, 3, 4, 5, 50, 100, 150, 200)
 
     def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The layout of the ranks: ``(data, model)`` axes, JAX's fields and
+    defaults. ``data_parallel=-1`` takes every rank (over the model axis);
+    :func:`ionic_mpnn_torch.parallel.make_mesh` builds the mesh."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1  # -1 = all ranks
+    model_parallel: int = 1
+
+    def replace(self, **kw) -> "MeshConfig":
         return dataclasses.replace(self, **kw)
 
 

@@ -265,6 +265,20 @@ def _batch_arrays(batch: IonPairBatch) -> Dict[tuple, Any]:
     return out
 
 
+def batch_from_arrays(template: IonPairBatch, arrays: Dict[tuple, Any]) -> IonPairBatch:
+    """``template``'s static fields with the arrays of ``arrays`` (keyed by
+    path, as :func:`_batch_arrays` gives them)."""
+
+    def side(name):
+        g = getattr(template, name)
+        fields = {f: arrays[(name, f)] for f in _ARRAY_FIELDS}
+        return dataclasses.replace(g, pool_slot=arrays.get((name, "pool_slot")), **fields)
+
+    return IonPairBatch(cation=side("cation"), anion=side("anion"),
+                        temperature=arrays[("temperature",)], y=arrays[("y",)],
+                        sample_mask=arrays[("sample_mask",)])
+
+
 def _torch_dtype(x) -> torch.dtype:
     if isinstance(x, torch.Tensor):
         return x.dtype
@@ -307,17 +321,7 @@ class StaticBatches:
                         for i in range(slots)]
 
     def _batch(self, arrays: Dict[tuple, Any]) -> IonPairBatch:
-        t = self.template
-
-        def side(name):
-            g = getattr(t, name)
-            fields = {f: arrays[(name, f)] for f in _ARRAY_FIELDS}
-            return dataclasses.replace(g, pool_slot=arrays.get((name, "pool_slot")),
-                                       **fields)
-
-        return IonPairBatch(cation=side("cation"), anion=side("anion"),
-                            temperature=arrays[("temperature",)], y=arrays[("y",)],
-                            sample_mask=arrays[("sample_mask",)])
+        return batch_from_arrays(self.template, arrays)
 
     def check(self, batch: IonPairBatch) -> None:
         """Raise unless ``batch`` has the plan's static fields and shapes."""

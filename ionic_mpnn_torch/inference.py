@@ -20,8 +20,10 @@ of millions of ionic-liquid candidates):
 
 Top-k keeps JAX's order: descending, ties to the lower index
 (:func:`stable_top_k`), where ``torch.topk`` on CUDA promises no order among
-ties. The data-parallel fan-out over a device mesh (``mesh=``) is not
-ported: it needs the parallel tier on ``torch.distributed``.
+ties. With a mesh (``mesh=``, :mod:`ionic_mpnn_torch.parallel`)
+:meth:`ScreeningEngine.predict_batch` fans a batch out over the ranks of
+its data axis, one sub-batch per rank, as JAX's ``shard_map`` forward does;
+the grid sweeps stay on each rank's own device, as in JAX.
 
 Every entry point runs where the model's parameters live, CUDA unless the
 model was built with ``device="cpu"``; on the CPU the same code runs
@@ -176,18 +178,17 @@ class ScreeningEngine:
     ``device`` (``None`` = CUDA; raises without it unless ``device="cpu"``).
     ``params`` (and, for BatchNorm models, ``batch_stats``) is a
     ``state_dict`` loaded into it; ``None`` keeps the model's weights. The
-    model is put in eval mode. ``mesh`` (JAX's data-parallel fan-out) is
-    not ported and raises."""
+    model is put in eval mode.
+
+    ``mesh`` (:func:`ionic_mpnn_torch.parallel.make_mesh`): the ranks of its
+    ``data`` axis share :meth:`predict_batch`, each forwarding one
+    sub-batch, and every rank returns the whole result; every rank must
+    make the same calls (the weights are taken as they are: each rank loads
+    the same ``params``)."""
 
     def __init__(self, model: torch.nn.Module, params: Optional[Dict[str, Any]],
                  vocab: Vocab, plan: BatchPlan, batch_stats: Optional[Dict[str, Any]] = None,
                  normalizer=None, mesh: Any = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ScreeningEngine(mesh=...): the data-parallel fan-out over a device "
-                "mesh needs the parallel tier on torch.distributed, which is not "
-                "ported yet (ROADMAP, modules to port, item 8); this engine runs on "
-                "one device")
         device = resolve_device(device)
         param = next(model.parameters())
         if param.device.type != device.type:
@@ -210,6 +211,13 @@ class ScreeningEngine:
                                        anion_edge_tile=0, anion_pitch=0)
         self.plan = plan
         self.normalizer = normalizer
+        self.mesh = mesh
+        self.n_dev, self.rank, self._group = 1, 0, None
+        if mesh is not None:
+            from .parallel import axis_info
+
+            axis = axis_info(mesh, "data")
+            self.n_dev, self.rank, self._group = axis.size, axis.index, axis.group
         self._graph_cache: Dict[str, Any] = {}
         # one static batch slot and one forward graph per (purpose, shapes)
         self._calls: Dict[tuple, Tuple[StaticBatches, Replay]] = {}
@@ -334,13 +342,31 @@ class ScreeningEngine:
         return self.plan.window * 6 * dup
 
     def predict_batch(self, candidates: Sequence[Tuple[str, str, float]]) -> np.ndarray:
-        """Predict up to ``plan.batch_size`` candidates → (len,)."""
+        """Predict up to ``n_dev · plan.batch_size`` candidates → (len,).
+
+        With a mesh, rank ``d`` forwards chunk ``d`` (candidates
+        ``d·B .. (d+1)·B``) and writes it into a zero-filled ``(n_dev·B,)``
+        buffer that one ``all_reduce`` sums: every rank gets every chunk,
+        exactly."""
         n = len(candidates)
         B = self.plan.batch_size
-        if n > B:
-            raise ValueError(f"{n} candidates > batch size {B}")
-        pred = self._slot_call(("forward",), self._build_batch(candidates),
-                               self._forward).cpu().numpy()[:n]
+        if n > self.n_dev * B:
+            raise ValueError(f"{n} candidates > batch size {B}" if self.n_dev == 1
+                             else f"{n} candidates > {self.n_dev} x batch {B}")
+        if self.n_dev == 1:
+            pred = self._slot_call(("forward",), self._build_batch(candidates),
+                                   self._forward).cpu().numpy()[:n]
+        else:
+            import torch.distributed as dist
+
+            chunks = [list(candidates[i * B:(i + 1) * B]) for i in range(self.n_dev)]
+            mine = self._slot_call(("forward",), self._build_batch(chunks[self.rank]),
+                                   self._forward)
+            out = torch.zeros(self.n_dev * B, dtype=torch.float32, device=self.device)
+            out[self.rank * B:(self.rank + 1) * B] = mine
+            dist.all_reduce(out, group=self._group)
+            out = out.cpu().numpy()
+            pred = np.concatenate([out[i * B:i * B + len(c)] for i, c in enumerate(chunks)])
         if self.normalizer is not None:
             pred = self.normalizer.inverse(pred)
         return pred

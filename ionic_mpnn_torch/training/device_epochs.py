@@ -38,8 +38,13 @@ data, so the host, which knows each step's record count from the perm,
 never replays an empty step (they can only trail the epoch; one that leads a
 step with records raises).
 
-The JAX package's ``make_dp_device_epoch_call`` (the data-parallel variant)
-is not ported: it belongs to the parallel tier.
+With a data-parallel step (:class:`~ionic_mpnn_torch.parallel.
+data_parallel.DataParallelStep`) the same runner is JAX's
+``make_dp_device_epoch_call``: every rank holds the whole dataset and the
+same perm, a step spans ``n_dev·B`` slots and rank ``d`` packs the ``B`` at
+``g0 + (k·n_dev + d)·B``; the step's count over all ranks comes from the
+perm on the card, and the gradient all-reduce runs inside the K-step
+graph.
 """
 
 from __future__ import annotations
@@ -337,10 +342,14 @@ class DeviceEpochs:
     paired slots with ``plan``). The static ``perm`` holds
     ``ceil(max steps / K)·K·B`` slots: a plain epoch has ``ceil(n / B)``
     steps, and a paired one at most ``ceil(n / R)`` (every step but the last
-    holds at least ``R`` records). On CUDA (``step.graphed``) a group of K
-    steps is one replay of the K-step graph and the rest of an epoch
-    replays the one-step graph; both share ``step``'s graph memory pool and
-    register its dropout generators. On the CPU the same code runs eagerly.
+    holds at least ``R`` records). With a data-parallel ``step`` over
+    ``n_dev`` ranks a step spans ``n_dev·B`` slots (:attr:`stride`), this
+    rank's ``B`` of them at offset ``rank·B``, and the perm is padded to
+    whole steps of the stride (JAX's ``make_dp_device_epoch_call``). On
+    CUDA (``step.graphed``) a group of K steps is one replay of the K-step
+    graph and the rest of an epoch replays the one-step graph; both share
+    ``step``'s graph memory pool and register its dropout generators. On
+    the CPU the same code runs eagerly.
 
     :meth:`epoch_perm` builds an epoch's perm from ``seed + epoch`` as JAX's
     ``fit`` does; :meth:`run` trains on one, :meth:`run_epoch` builds and
@@ -353,12 +362,16 @@ class DeviceEpochs:
         self.K = K = step.K
         self.B = B = 2 * plan.regions if plan is not None else batch_size
         self.sentinel = -1 if plan is not None else ds.n
+        self.n_dev, self.rank = getattr(step, "n_dev", 1), getattr(step, "rank", 0)
+        self.stride = self.n_dev * B  # perm slots per step, over all ranks
         dev = step.device
-        max_steps = -(-ds.n // (plan.regions if plan is not None else batch_size))
-        self.capacity = -(-max_steps // K) * K * B
+        max_batches = -(-ds.n // (plan.regions if plan is not None else batch_size))
+        max_steps = -(-max_batches // self.n_dev)
+        self.capacity = -(-max_steps // K) * K * self.stride
         self.perm = torch.full((self.capacity,), self.sentinel, dtype=torch.int32, device=dev)
         self.g0 = torch.zeros((), dtype=torch.int32, device=dev)
-        self._offsets = torch.arange(B, dtype=torch.int32, device=dev)
+        self._offsets = torch.arange(B, dtype=torch.int32, device=dev) + self.rank * B
+        self._step_offsets = torch.arange(self.stride, dtype=torch.int32, device=dev)
         pin = dev.type == "cuda"
         self._host = [torch.empty(self.capacity, dtype=torch.int32, pin_memory=pin)
                       for _ in range(2)]
@@ -369,33 +382,46 @@ class DeviceEpochs:
         self.group = self.one if K == 1 else step.replay(lambda: self._steps(K))
 
     def batch(self, k: int = 0) -> IonPairBatch:
-        """Step ``k``'s batch from ``g0``, packed on the card."""
-        idx = _take(self.perm, self.g0 + k * self.B + self._offsets)
+        """Step ``k``'s batch (this rank's) from ``g0``, packed on the card."""
+        idx = _take(self.perm, self.g0 + k * self.stride + self._offsets)
         if self.plan is not None:
             return _device_batch_paired(self.ds, idx, self.plan)
         return _device_batch(self.ds, idx)
 
+    def _valid(self, idx):
+        return idx >= 0 if self.plan is not None else idx < self.ds.n
+
+    def step_count(self, k: int = 0) -> torch.Tensor:
+        """Step ``k``'s real records over all ranks, from the perm on the
+        card (an f32 scalar): the data-parallel step's ``global_n``."""
+        idx = _take(self.perm, self.g0 + k * self.stride + self._step_offsets)
+        return self._valid(idx).to(torch.float32).sum()
+
     def _steps(self, k: int) -> torch.Tensor:
-        out = torch.stack([self.step._body(self.batch(i)) for i in range(k)])
-        self.g0.add_(k * self.B)
+        if self.step._slot_counts:  # the data-parallel step
+            out = torch.stack([self.step._body(self.batch(i), self.step_count(i))
+                               for i in range(k)])
+        else:
+            out = torch.stack([self.step._body(self.batch(i)) for i in range(k)])
+        self.g0.add_(k * self.stride)
         return out
 
     def epoch_perm(self, epoch: int) -> np.ndarray:
         """Epoch ``epoch``'s perm: ``default_rng(seed + epoch)``'s
-        permutation, padded with ``ds.n`` to whole steps, or paired
-        (:func:`build_paired_perm`)."""
+        permutation, or its pairing (:func:`build_paired_perm`), padded
+        with the sentinel to whole steps."""
         order = np.random.default_rng(self.seed + epoch).permutation(self.ds.n).astype(np.int32)
         if self.plan is not None:
-            return build_paired_perm(self.ds, order, self.plan)
-        return np.concatenate([order, np.full((-len(order)) % self.B, self.ds.n, np.int32)])
+            order = build_paired_perm(self.ds, order, self.plan)
+        return np.concatenate([order, np.full((-len(order)) % self.stride, self.sentinel,
+                                              np.int32)])
 
     def counts(self, perm: np.ndarray) -> np.ndarray:
-        """Real records of each step of ``perm``."""
+        """Real records of each step of ``perm`` (over all ranks)."""
         perm = np.asarray(perm, np.int32)
-        if len(perm) % self.B:
-            raise ValueError(f"perm of {len(perm)} slots is not whole steps of {self.B}")
-        valid = perm >= 0 if self.plan is not None else perm < self.ds.n
-        return valid.reshape(-1, self.B).sum(axis=1)
+        if len(perm) % self.stride:
+            raise ValueError(f"perm of {len(perm)} slots is not whole steps of {self.stride}")
+        return self._valid(perm).reshape(-1, self.stride).sum(axis=1)
 
     def load(self, perm: np.ndarray) -> np.ndarray:
         """Queue ``perm``'s copy into the static buffer (behind the replays
@@ -407,8 +433,8 @@ class DeviceEpochs:
         n = int(empty[0]) if len(empty) else len(counts)
         if counts[n:].any():
             raise ValueError(f"step {n} of the perm is empty but a later step has records")
-        if n * self.B > self.capacity:
-            raise ValueError(f"{n} steps of {self.B} slots exceed the perm buffer "
+        if n * self.stride > self.capacity:
+            raise ValueError(f"{n} steps of {self.stride} slots exceed the perm buffer "
                              f"({self.capacity} slots)")
         i = self._next
         if self._events[i] is not None:

@@ -134,20 +134,37 @@ class StepGraphs:
     """One plan's train-step graphs. ``body(batch)`` is one train step on a
     batch of static tensors, returning its ``(loss, data_loss)`` as a (2,)
     device tensor; ``template`` fixes the plan's shapes
-    (:func:`~ionic_mpnn_torch.data.loader.plan_template`)."""
+    (:func:`~ionic_mpnn_torch.data.loader.plan_template`).
 
-    def __init__(self, body: Callable[[IonPairBatch], torch.Tensor], template: IonPairBatch,
-                 steps: int, device, graphed: bool, pool=None, generators=None):
-        self.body = body
+    With ``counts`` each slot also holds an f32 device scalar,
+    ``counts[j]`` (set by :meth:`set_counts`), and the body is called as
+    ``body(batch, count)``: the data-parallel step reads the step's
+    real-sample count over all ranks there."""
+
+    def __init__(self, body: Callable[..., torch.Tensor], template: IonPairBatch,
+                 steps: int, device, graphed: bool, pool=None, generators=None,
+                 counts: bool = False):
         self.steps = steps
         self.slots = StaticBatches(template, steps, device)
         self.graphed = graphed and self.slots.device.type == "cuda"
+        self.counts = (torch.zeros(steps, dtype=torch.float32, device=self.slots.device)
+                       if counts else None)
+        # body(batch, j): the step on slot j's batch (and count)
+        self.body = ((lambda b, j: body(b)) if self.counts is None
+                     else (lambda b, j: body(b, self.counts[j])))
         batches = self.slots.batches
-        self.one = Replay(lambda: body(batches[0]).reshape(1, 2), device, graphed, pool,
-                          generators)
+        self.one = Replay(lambda: self.body(batches[0], 0).reshape(1, 2), device, graphed,
+                          pool, generators)
         self.group = self.one if steps == 1 else Replay(
-            lambda: torch.stack([body(b) for b in batches]), device, graphed, pool,
-            generators)
+            lambda: torch.stack([self.body(b, j) for j, b in enumerate(batches)]), device,
+            graphed, pool, generators)
+
+    def set_counts(self, values) -> None:
+        """Queue the copy of ``values`` (host numbers) into ``counts[0..]``."""
+        src = torch.tensor(values, dtype=torch.float32)
+        if self.counts.is_cuda:
+            src = src.pin_memory()  # the caching host allocator keeps it until the copy ran
+        self.counts[:len(src)].copy_(src, non_blocking=True)
 
     def run(self, n: int) -> torch.Tensor:
         """Train steps on slots ``0..n-1`` in order (their batches already
@@ -159,10 +176,12 @@ class StepGraphs:
         if n == self.steps:
             return self.group().clone()
         if not self.graphed:
-            return torch.stack([self.body(b) for b in self.slots.batches[:n]])
+            return torch.stack([self.body(b, j) for j, b in enumerate(self.slots.batches[:n])])
         out = []
         for j in range(n):
             if j:
                 self.slots.move(j, 0)
+                if self.counts is not None:
+                    self.counts[0].copy_(self.counts[j])
             out.append(self.one().clone())
         return torch.cat(out)

@@ -24,8 +24,10 @@ batches straight into the pinned staging of the K slots) or the Python
 one, the dev eval, early stopping with the best weights restored,
 ``normalize_y`` and checkpoint/resume; and its device-resident epochs
 (:mod:`.device_epochs`, JAX ``loop.py:517-636``), where the train set lives
-on the card and each step packs its batch there. Its data-parallel mesh
-path is not ported. Nothing waits for the card inside
+on the card and each step packs its batch there; and its data-parallel
+mesh path (``mesh=``, JAX ``loop.py:395-515``) on the host loader and on
+device epochs, one rank per device with one gradient all-reduce per step
+(:mod:`ionic_mpnn_torch.parallel`). Nothing waits for the card inside
 an epoch: the step losses stay on the device, the dev eval queues behind
 the epoch's steps, and the losses and every eval output come back in one
 device-to-host copy per epoch; the best weights are kept as clones on the
@@ -57,10 +59,11 @@ from .metrics import mae, r2_score
 from .normalizer import Normalizer
 from .optim import Optimizer, make_optimizer
 
-__all__ = ["make_train_step", "make_eval_step", "l2_penalty", "data_loss", "predict",
-           "FitResult", "fit", "evaluate_splits", "TrainStep", "EvalStep"]
+__all__ = ["make_train_step", "make_eval_step", "l2_penalty", "data_loss", "data_loss_sum",
+           "predict", "FitResult", "fit", "evaluate_splits", "TrainStep", "EvalStep"]
 
 _REGULARIZED_KERNELS = ("fp_dense", "head_dense")
+_RANK_SEED_STRIDE = 1_000_003  # a rank's dropout seeds: seed + i + stride · rank
 
 
 def l2_penalty(model: torch.nn.Module, coef: float) -> torch.Tensor:
@@ -78,9 +81,9 @@ def l2_penalty(model: torch.nn.Module, coef: float) -> torch.Tensor:
     return coef * total
 
 
-def data_loss(pred: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, kind: str,
-              delta: float) -> torch.Tensor:
-    """``Σ(per · mask) / max(Σ mask, 1)`` with per-sample MSE or Huber."""
+def data_loss_sum(pred: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, kind: str,
+                  delta: float) -> torch.Tensor:
+    """``Σ(per · mask)`` with per-sample MSE or Huber."""
     if kind == "mse":
         per = (pred - y).square()
     elif kind == "huber":
@@ -88,7 +91,13 @@ def data_loss(pred: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, kind: str
         per = torch.where(err <= delta, 0.5 * err.square(), delta * (err - 0.5 * delta))
     else:
         raise ValueError(f"unknown loss {kind!r}")
-    return (per * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (per * mask).sum()
+
+
+def data_loss(pred: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, kind: str,
+              delta: float) -> torch.Tensor:
+    """``Σ(per · mask) / max(Σ mask, 1)`` with per-sample MSE or Huber."""
+    return data_loss_sum(pred, y, mask, kind, delta) / torch.clamp(mask.sum(), min=1.0)
 
 
 def _dropout_generators(model: torch.nn.Module, device) -> List[torch.Generator]:
@@ -121,6 +130,8 @@ class TrainStep:
     the one-step graph per batch. The first call of each graph runs
     eagerly as a real step, then captures it. Otherwise (the CPU, or
     ``jit_compile=False``) the same steps run eagerly."""
+
+    n_dev, rank = 1, 0  # one rank: the data-parallel step sets its own
 
     def __init__(self, model: torch.nn.Module, model_cfg: ModelConfig,
                  train_cfg: TrainConfig, optimizer: Optimizer, graphed: bool = True):
@@ -155,13 +166,16 @@ class TrainStep:
         return Replay(fn, self.device, self.graphed, self._pool,
                       lambda: _dropout_generators(self.model, self.device))
 
+    _slot_counts = False  # the data-parallel step's slots also hold a count
+
     def graphs(self, batch: IonPairBatch) -> StepGraphs:
         """The slots and graphs of ``batch``'s plan, made on first use."""
         key = batch_signature(batch)
         if key not in self._plans:
             self._plans[key] = StepGraphs(
                 self._body, batch, self.K, self.device, self.graphed, self._pool,
-                lambda: _dropout_generators(self.model, self.device))
+                lambda: _dropout_generators(self.model, self.device),
+                counts=self._slot_counts)
         return self._plans[key]
 
     def __call__(self, batch: IonPairBatch) -> Dict[str, torch.Tensor]:
@@ -193,18 +207,27 @@ class TrainStep:
         parameters, optimizer state and ``steps`` stay bit-identical. The
         skip is decided from the host copy of the mask, so the batches must
         be host (numpy) batches; nothing waits for the device."""
+        kept, ns = self._kept_steps(batches)
+        parts = [self._run_kept(kept[i:i + self.K], ns[i:i + self.K])
+                 for i in range(0, len(kept), self.K)]
+        losses = (torch.cat(parts) if parts
+                  else torch.zeros(0, dtype=torch.float32, device=self.device))
+        weights = _to_tensor(np.asarray(ns, np.float32), self.device)  # a pinned upload
+        loss_sum = (losses * weights).sum()
+        return {"loss_sum": loss_sum, "n": sum(ns), "losses": losses, "ns": ns}
+
+    def _kept_steps(self, batches: Sequence[IonPairBatch]):
+        """The batches of :meth:`scan`'s steps with samples, and their counts."""
         kept, ns = [], []
         for batch in batches:
             n = _host_mask_sum(batch)
             if n:
                 kept.append(batch)
                 ns.append(n)
-        parts = [self.run(kept[i:i + self.K]) for i in range(0, len(kept), self.K)]
-        losses = (torch.cat(parts) if parts
-                  else torch.zeros(0, dtype=torch.float32, device=self.device))
-        weights = _to_tensor(np.asarray(ns, np.float32), self.device)  # a pinned upload
-        loss_sum = (losses * weights).sum()
-        return {"loss_sum": loss_sum, "n": sum(ns), "losses": losses, "ns": ns}
+        return kept, ns
+
+    def _run_kept(self, batches: Sequence[IonPairBatch], ns: Sequence[float]) -> torch.Tensor:
+        return self.run(batches)
 
 
 def make_train_step(model: torch.nn.Module, model_cfg: ModelConfig,
@@ -328,8 +351,9 @@ class FitResult:
     reductions). ``steps`` is the number of train steps taken in all,
     resumed ones included. ``loader`` is what made the train batches:
     ``"device_paired"`` or ``"device"`` (device-resident epochs, paired or
-    not), else the host packer, ``"native"`` or ``"python"``; and
-    ``steps_per_call`` the K that grouped the train steps."""
+    not), else the host packer, ``"native"`` or ``"python"``;
+    ``world_size`` the ranks of the data axis that trained (1 without a
+    mesh); and ``steps_per_call`` the K that grouped the train steps."""
 
     params: Dict[str, torch.Tensor]
     history: Dict[str, List[float]]
@@ -341,6 +365,7 @@ class FitResult:
     steps: int
     loader: str = "python"
     steps_per_call: int = 1
+    world_size: int = 1
 
 
 SEGMENTS = ("dispatch", "fetch+eval(sync)", "host_reduce")
@@ -411,6 +436,7 @@ def fit(
     plan: BatchPlan,
     optimizer: Optional[Optimizer] = None,
     verbose: bool = True,
+    mesh: Any = None,
 ) -> FitResult:
     """Train ``model`` from its current weights with early stopping, where
     its parameters live; at the end it holds the best weights (by dev
@@ -441,7 +467,21 @@ def fit(
     ``default_rng(seed + epoch)``'s permutation of the train records, paired
     two per pitch region when ``paired_epochs`` (``"auto"``: on) and the
     planner finds a pairing that pays (:mod:`.device_epochs`); the dev eval
-    keeps its host-packed batches."""
+    keeps its host-packed batches.
+
+    With ``mesh`` (:func:`ionic_mpnn_torch.parallel.make_mesh`; every rank
+    calls ``fit`` with the same arguments) the train steps run data-parallel
+    over its ``data`` axis of ``n_dev`` ranks
+    (:class:`~ionic_mpnn_torch.parallel.data_parallel.DataParallelStep`):
+    every rank packs the same epoch and takes batch ``k·n_dev + rank`` of
+    each group of ``n_dev·K`` (the last group padded with the plan's empty
+    batch, an all-empty step skipped), or runs the device epochs with the
+    perm's slots dealt the same way. The replicas stay bit-equal, so each
+    rank runs the dev eval on its own and returns the same result. Rank 0
+    writes the checkpoints; ``fit`` returns after every rank has passed a
+    barrier behind the last write, and all ranks resume from the same
+    directory. Unlike JAX, a mesh of one rank still runs this path (its
+    steps equal the no-mesh ones bit for bit)."""
     if not train_records:
         raise ValueError("fit needs at least one train record")
     device = next(model.parameters()).device
@@ -475,7 +515,15 @@ def fit(
                                                        target_key=plan.target_key)
     # the dev split never shuffles: pack it once and move it to the card once
     dev_batches = [b.to(device) for b in dev_iter(dev_source, plan, shuffle=False)]
-    step = make_train_step(model, model_cfg, train_cfg, optimizer)
+    if mesh is None:
+        step = make_train_step(model, model_cfg, train_cfg, optimizer)
+    else:
+        from ..parallel.data_parallel import make_dp_train_step
+
+        step = make_dp_train_step(model, model_cfg, train_cfg, optimizer, mesh,
+                                  steps_per_call=None)
+    n_dev, rank = step.n_dev, step.rank
+    verbose = verbose and rank == 0
     eval_step = make_eval_step(model, model_cfg, train_cfg)
     K = step.K
     runner = _device_epochs(step, model_cfg, train_cfg, train_records, plan)
@@ -484,10 +532,18 @@ def fit(
     # Native group mode (JAX loop.py:649-665): the C++ packer writes each
     # group's K batches straight into the pinned staging of the plan's K
     # slots; one copy per array and one replay per group
-    group_graphs = step.graphs(plan_template(plan)) if loader == "native" and K > 1 else None
+    group_graphs = (step.graphs(plan_template(plan))
+                    if loader == "native" and K > 1 and mesh is None else None)
+    empty = plan_template(plan)  # pads the last group to whole steps of n_dev ranks
+
+    def run_group(group: List[IonPairBatch], losses: List[torch.Tensor], ns: List[float]):
+        res = step.scan(group)
+        losses.append(res["losses"])
+        ns.extend(res["ns"])
     dropouts = [m for m in model.modules() if isinstance(m, Dropout)]
     for i, d in enumerate(dropouts):
-        d.manual_seed(train_cfg.seed + i)
+        # each rank its own masks, as JAX folds in the device's axis_index
+        d.manual_seed(train_cfg.seed + i + _RANK_SEED_STRIDE * rank)
 
     epochs = train_cfg.epochs
     history: Dict[str, List[float]] = {"loss": [], "val_loss": [], "epoch_seconds": []}
@@ -523,7 +579,7 @@ def fit(
         if verbose:
             print(f"resumed from {ckpt_dir} at epoch {restored['step']}")
 
-    writer = ckpt.CheckpointWriter() if ckpt_dir else None
+    writer = ckpt.CheckpointWriter() if ckpt_dir and rank == 0 else None
 
     def save(epoch: int) -> None:
         extra = {"global_step": step.steps, "best_val": best_val, "patience": patience,
@@ -563,17 +619,15 @@ def fit(
                     group_graphs.slots.upload(n)
                     losses.append(step.run_slots(group_graphs, n)[:, 0])
                     ns.extend(float(x) for x in np.sum(stacked.sample_mask, axis=1))
-            else:
+            else:  # groups of n_dev·K batches: K steps per call, a batch per rank
                 group: List[IonPairBatch] = []
                 for batch in train_iter(train_source, plan, shuffle=True, seed=seed):
                     group.append(batch)
-                    if len(group) == K:
-                        losses.append(step.run(group))
-                        ns.extend(_host_mask_sum(b) for b in group)
+                    if len(group) == n_dev * K:
+                        run_group(group, losses, ns)
                         group = []
                 if group:
-                    losses.append(step.run(group))
-                    ns.extend(_host_mask_sum(b) for b in group)
+                    run_group(group + [empty] * ((-len(group)) % n_dev), losses, ns)
             t_disp = time.perf_counter()
             # the eval queues behind the epoch's steps; one copy brings back
             # the step losses and every eval output, and waits for the card
@@ -615,7 +669,7 @@ def fit(
                 if patience >= train_cfg.early_stopping_patience:
                     stopped_early = True
 
-            if ckpt_dir and (stopped_early or epoch == epochs
+            if writer is not None and (stopped_early or epoch == epochs
                              or (train_cfg.checkpoint_every
                                  and epoch % train_cfg.checkpoint_every == 0)):
                 save(epoch)
@@ -627,12 +681,16 @@ def fit(
     finally:
         if writer is not None:
             writer.close()  # the last checkpoint is committed when fit returns
+    if mesh is not None and ckpt_dir:
+        import torch.distributed as dist
+
+        dist.barrier(group=step.axis.group)  # every rank returns behind rank 0's writes
 
     model.load_state_dict(best_params)
     return FitResult(params=best_params, history=history, normalizer=normalizer,
                      best_val_loss=best_val, epochs_run=epochs_run,
                      stopped_early=stopped_early, segments=segments, steps=step.steps,
-                     loader=loader, steps_per_call=K)
+                     loader=loader, steps_per_call=K, world_size=n_dev)
 
 
 def evaluate_splits(

@@ -301,7 +301,7 @@ def test_grid_sweeps_drop_invalid_ions_with_audit(setup):
 
 def test_a_mesh_raises_and_the_engine_refuses_another_device(setup):
     _, t = setup["engines"]
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be a DeviceMesh"):
         tinf.ScreeningEngine(t.model, None, t.vocab, t.plan, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="model is on cpu"):
         tinf.ScreeningEngine(t.model, None, t.vocab, t.plan, device="meta")
