@@ -225,6 +225,28 @@ Phases, in order (any failure raises and the script exits non-zero):
    bit-equal, launches exact, the steady step's wall ms (a record); a
    one-epoch ``fit(mesh=)`` of 512 records whose ranks end bit-equal; the
    fan-out over 2 ranks. A failed rank stops the others and raises.
+   [ep]: the model-parallel tier (``parallel/edge_partition.py``,
+   ``halo_partition.py``, ``aligned_partition.py``, ``tensor_parallel.py``)
+   at the same width, batch 2048 on [graphs]' packings of the bench batch,
+   under deterministic algorithms, in spawned ranks. NCCL over every card
+   (one rank on one card): EP v1 (edges sharded, nodes replicated) in
+   ``pallas_fused`` f32 and bf16 and ``gather`` with the pallas scatter,
+   each kernel launched on the rank's edge shard: the K = 4 EP graph (two
+   calls) equals the eager EP step and, at one rank, the single-device
+   step, bit for bit over 8 steps (on several cards, within the bound
+   below), launches exact; the EP step's wall, host and busy ms, idle
+   share, message-edges/s and its all-reduces' device time per step. Then
+   2 gloo ranks on card 0 (eager): EP v1 in both kernel configurations
+   (f32), halo exchange (gather f32), aligned EP (onehot bf16, window 64)
+   and tensor parallelism (``model_parallel=2``, ``pallas_fused`` f32); and
+   4 gloo ranks: DP×EP (2 × 2, aligned onehot bf16). Each gloo arm takes 2
+   steps, the first tallied (each collective's kind and bytes): the
+   parameters within (rtol, atol) (2e-3, 3e-6) in f32 (JAX's EP oracle's)
+   and (2e-2, 4e-3) in bf16 of the single-process reference on the card
+   (one step over the same batch, or over the DP groups' batches
+   accumulated), the ranks bit-equal, the launches per rank exact. Last,
+   ``benchmarks/scaling.py`` in its three modes over the cards the machine
+   has. A failed rank stops the others and raises.
 13. Times. Wall times first (CUDA events, before torch.profiler attaches):
    each wrapper call at the cation shape (median of 60), each forward per
    batch (median of 50), the host time each kernel's autograd Function would
@@ -3509,6 +3531,349 @@ def phase_dp(records, plan, vocab, fit_data):
     return {"nccl": nccl, "gloo": gloo, "seconds": {"nccl": nccl_s, "gloo": gloo_s}}, launches
 
 
+# ---------------------------------------------------------------- [ep]
+
+EP_K = 4  # train steps per replay of the NCCL EP step
+EP_CALLS = 2  # scans of EP_K steps per NCCL arm: the first captures, the second replays
+EP_TIMED_ITERS = 5
+EP_GLOO_STEPS = 2  # steps of each gloo arm
+EP_WINDOW = 64  # the bf16 onehot window of the aligned arms
+EP_SHARDS = 2  # node shards of the aligned batches (the 2-rank arm and DP x EP's model axis)
+# (rtol, atol) of the parameters after the gloo steps against the
+# single-process reference: f32 JAX's EP oracle's (tests/test_ep_train.py);
+# bf16 [train]'s rtol, and as atol the furthest two Adam steps of rate 1e-3
+# can drive an element apart (a near-zero gradient rounded to the other sign)
+EP_TOL = {"float32": (2e-3, 3e-6), "bfloat16": (2e-2, 4e-3)}
+EP_TIMEOUT_S = 600
+EP_NCCL_ARMS = (  # (name, message_impl, scatter_impl, compute_dtype)
+    ("pallas_fused f32", "pallas_fused", "xla", "float32"),
+    ("pallas_fused bf16", "pallas_fused", "xla", "bfloat16"),
+    ("gather+pallas scatter f32", "gather", "pallas", "float32"))
+EP_GLOO_ARMS = {  # ranks: (name, tier, message_impl, scatter_impl, compute_dtype)
+    2: (("EP v1 pallas_fused f32", "ep", "pallas_fused", "xla", "float32"),
+        ("EP v1 gather+pallas scatter f32", "ep", "gather", "pallas", "float32"),
+        ("halo gather f32", "halo", "gather", "xla", "float32"),
+        ("aligned onehot bf16 w64", "aligned", "onehot", "xla", "bfloat16"),
+        ("TP model_parallel=2 pallas_fused f32", "tp", "pallas_fused", "xla", "float32")),
+    4: (("DPxEP 2x2 aligned onehot bf16 w64", "dpxep", "onehot", "xla", "bfloat16"),),
+}
+
+
+def _ep_worst(got, want, dtype):
+    """The largest ``|got - want| / (atol + rtol·|want|)`` over the tensors'
+    elements (at most 1 within EP_TOL[dtype])."""
+    rtol, atol = EP_TOL[dtype]
+    return max(float(((g.float() - w.float()).abs() / (atol + rtol * w.float().abs())).max())
+               for g, w in zip(got, want))
+
+
+def _tally_line(stats):
+    return {k: [len(v), sum(v)] for k, v in stats.items() if isinstance(v, list) and v}
+
+
+def _add(into, counts):
+    for k, v in counts.items():
+        into[k] = into.get(k, 0) + v
+
+
+def ep_nccl_rank(rank, world, dev, base_dict, hb):
+    """[ep] over NCCL, one rank per card: per arm, the K-step EP graph
+    against the eager EP step and (one rank) the single-device step, over
+    EP_CALLS·EP_K steps, launches exact; the EP step's times and its
+    all-reduces' device time beside the single-device step's."""
+    from ionic_mpnn_torch.benchmarks.harness import _count_message_edges, _time_calls
+    from ionic_mpnn_torch.config import TrainConfig, model_config_from_dict
+    from ionic_mpnn_torch.models import ViscosityModel
+    from ionic_mpnn_torch.ops import cuda as kernels
+    from ionic_mpnn_torch.parallel import make_ep_train_step, make_mesh, partition_batch_edges
+    from ionic_mpnn_torch.training import make_train_step
+
+    dev = _dp_prepare(rank)
+    mesh = make_mesh()
+    base = model_config_from_dict(base_dict)
+    parted = [partition_batch_edges(b, world) for b in hb]
+    me = int(np.mean([_count_message_edges(b, base.num_steps) for b in hb]))
+    out = {"rank": rank, "world": world, "K": EP_K, "arms": {}, "message_edges_per_step": me}
+    launches = {}
+    for tag, impl, scatter, dtype in EP_NCCL_ARMS:
+        cfg = base.replace(message_impl=impl, scatter_impl=scatter, compute_dtype=dtype)
+        ep_cfg = cfg.replace(ep_axis="data")
+        state = ViscosityModel(cfg, seed=0).state_dict()
+
+        def model(c):
+            m = ViscosityModel(c, seed=0)
+            m.load_state_dict(state)
+            return m
+
+        kernels.reset_launch_counts()
+        runs, steps = {}, {}
+        with deterministic():
+            for jtag, jit in (("graphed", True), ("eager", False)):
+                steps[jtag] = make_ep_train_step(model(ep_cfg), ep_cfg, TrainConfig(), mesh=mesh,
+                                                 steps_per_call=EP_K, jit_compile=jit)
+                if steps[jtag].graphed != (jit and dev.type == "cuda"):
+                    raise AssertionError(f"[ep] {tag} {jtag}: graphed={steps[jtag].graphed}")
+                res = [steps[jtag].scan(parted) for _ in range(EP_CALLS)]
+                runs[jtag] = _runner_state(steps[jtag], torch.cat([r["losses"] for r in res]),
+                                           sum((r["ns"] for r in res), []))
+            if world == 1:
+                single = make_train_step(model(cfg), cfg, TrainConfig(steps_per_call=EP_K))
+                res = [single.scan(hb) for _ in range(EP_CALLS)]
+                runs["single-device"] = _runner_state(single, torch.cat([r["losses"] for r in res]),
+                                                      sum((r["ns"] for r in res), []))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        _dp_launches_exact(f"[ep] nccl {tag}", counts, sum(r["steps"] for r in runs.values()),
+                           impl, scatter)
+        _add(launches, counts)
+        if runs["graphed"]["steps"] != EP_CALLS * EP_K:
+            raise AssertionError(f"[ep] {tag}: {runs['graphed']['steps']} graphed steps")
+        arm = {"losses": runs["graphed"]["losses"].tolist(), "bit_equal": [], "worst": {}}
+        for other in [t for t in runs if t != "graphed"]:
+            a, b = runs["graphed"], runs[other]
+            worst = _ep_worst(a["params"], b["params"], dtype)
+            arm["worst"][other] = worst
+            if world == 1 or worst == 0.0:
+                _same_runner_state(f"[ep] {tag}: graphed EP step against {other}", a, b)
+                arm["bit_equal"].append(other)
+            elif worst > 1.0:  # several cards: the ring may sum in another order
+                raise AssertionError(f"[ep] {tag}: graphed against {other}: {worst:.3e} of "
+                                     f"the bound {EP_TOL[dtype]}")
+
+        # times, outside deterministic mode (a graph captured inside it
+        # replays the sort-based index_add_): a fresh graphed EP step
+        # beside the single-device step on the whole batches, EP_K steps
+        # per replay each
+        ep_step = make_ep_train_step(model(ep_cfg), ep_cfg, TrainConfig(), mesh=mesh,
+                                     steps_per_call=EP_K)
+        local = [ep_step._local(p) for p in parted]
+        g = ep_step.graphs(local[0][0])
+        g.slots.copy_into([b for b, _ in local])
+        g.set_counts([n for _, n in local])
+        single = make_train_step(model(cfg), cfg, TrainConfig(steps_per_call=EP_K))
+        g1 = single.graphs(hb[0])
+        g1.slots.copy_into(hb)
+        calls = {"ep": lambda: ep_step.run_slots(g, EP_K)[:, 0],
+                 "single-device": lambda: single.run_slots(g1, EP_K)[:, 0]}
+        kernels.reset_launch_counts()
+        timed = {k: _time_calls(c, dev, EP_K, me, BATCH, iters=EP_TIMED_ITERS, warmup=1,
+                                sync_each=True) for k, c in calls.items()}
+        torch.cuda.synchronize()
+        _add(launches, kernels.launch_counts())
+        arm["times"] = {}
+        for k, call in calls.items():
+            prof = device_profile(call, n=3, warmup=1)
+            nccl = {n[:60]: v / EP_K for n, v in prof["by_kernel"].items()
+                    if "nccl" in n.lower()}
+            wall = timed[k]["call_ms"] / EP_K
+            arm["times"][k] = {
+                "wall_ms": wall, "host_ms": timed[k]["host_ms"],
+                "busy_ms": prof["busy_ms"] / EP_K,
+                "idle_share": max(0.0, 1 - prof["busy_ms"] / EP_K / wall),
+                "edges_per_s": timed[k]["edges_per_s"], "all_reduce_ms": sum(nccl.values()),
+                "all_reduce_kernels": nccl,
+                "top": {n[:60]: v / EP_K for n, v in list(prof["by_kernel"].items())[:6]}}
+        out["arms"][tag] = arm
+        if rank == 0:
+            log(f"[ep] nccl rank 0: {tag}: graphed equals {arm['bit_equal']} bit for bit")
+    out["launches"] = launches
+    return out
+
+
+def _ep_reference(cfg, state, groups, dev):
+    """The single-process reference on the card: per step, Σ local_sum / N
+    + L2 over the step's batches (one batch: the single-device step)."""
+    from ionic_mpnn_torch.models import ViscosityModel
+    from ionic_mpnn_torch.training import data_loss_sum, l2_penalty, make_optimizer
+
+    ref = ViscosityModel(cfg, seed=0)
+    ref.load_state_dict(state)
+    opt = make_optimizer(ref.parameters())
+    with deterministic():
+        for group in groups:
+            ref.train()
+            opt.zero_grad()
+            total = sum(data_loss_sum(ref(b)["pred"], b.y, b.sample_mask, "mse", 1.0)
+                        for b in (b.to(dev) for b in group))
+            (total / _dp_counts(group) + l2_penalty(ref, cfg.fp_l2)).backward()
+            opt.step()
+    return ref.state_dict()
+
+
+def ep_gloo_rank(rank, world, dev, base_dict, hb, ab, arms):
+    """[ep] over gloo, ranks sharing one card (eager): per arm
+    EP_GLOO_STEPS steps, the first tallied; rank 0 holds the parameters to
+    the single-process reference on the card. The parent holds the ranks
+    against each other."""
+    from ionic_mpnn_torch.config import MeshConfig, TrainConfig, model_config_from_dict
+    from ionic_mpnn_torch.models import ViscosityModel
+    from ionic_mpnn_torch.ops import cuda as kernels
+    from ionic_mpnn_torch.parallel import (collective_stats, make_aligned_ep_train_step,
+                                           make_ep_train_step, make_halo_ep_train_step, make_mesh,
+                                           make_tp_train_step, partition_batch_edges,
+                                           partition_halo_batch, shard_aligned_batch,
+                                           stack_aligned_dp_batches)
+
+    dev = _dp_prepare(rank)
+    base = model_config_from_dict(base_dict)
+    out = {"rank": rank, "world": world, "arms": {}}
+    launches = {}
+    for tag, tier, impl, scatter, dtype in arms:
+        cfg = base.replace(message_impl=impl, scatter_impl=scatter, compute_dtype=dtype)
+        if impl == "onehot":
+            cfg = cfg.replace(onehot_window=EP_WINDOW)
+        state = ViscosityModel(cfg, seed=0).state_dict()
+        ep_cfg = cfg.replace(ep_axis={"ep": "data", "aligned": "data", "dpxep": "ep"}.get(tier))
+        m = ViscosityModel(ep_cfg, seed=0)
+        m.load_state_dict(state)
+        tc = TrainConfig()
+        if tier == "ep":
+            step = make_ep_train_step(m, ep_cfg, tc, mesh=make_mesh(device_type="cuda"))
+            groups = [[b] for b in hb[:EP_GLOO_STEPS]]
+            inputs = [partition_batch_edges(g[0], world) for g in groups]
+        elif tier == "halo":
+            step = make_halo_ep_train_step(m, cfg, tc, mesh=make_mesh(device_type="cuda"))
+            groups = [[b] for b in hb[:EP_GLOO_STEPS]]
+            inputs = [partition_halo_batch(g[0], world) for g in groups]
+        elif tier == "aligned":
+            step = make_aligned_ep_train_step(m, ep_cfg, tc, mesh=make_mesh(device_type="cuda"))
+            groups = [[b] for b in ab[:EP_GLOO_STEPS]]
+            inputs = [shard_aligned_batch(g[0], world, EP_WINDOW) for g in groups]
+        elif tier == "tp":
+            step = make_tp_train_step(m, cfg, tc, mesh=make_mesh(
+                MeshConfig(data_parallel=1, model_parallel=world), device_type="cuda"))
+            groups = [[b] for b in hb[:EP_GLOO_STEPS]]
+            inputs = [g[0] for g in groups]
+        else:  # dpxep
+            n_dp = world // EP_SHARDS
+            step = make_aligned_ep_train_step(
+                m, ep_cfg, tc, mesh=make_mesh(MeshConfig(data_parallel=n_dp,
+                                                         model_parallel=EP_SHARDS,
+                                                         model_axis="ep"), device_type="cuda"),
+                axis="ep", dp_axis="data")
+            groups = [ab[s * n_dp:(s + 1) * n_dp] for s in range(EP_GLOO_STEPS)]
+            inputs = [stack_aligned_dp_batches(g, EP_SHARDS, EP_WINDOW) for g in groups]
+        if step.graphed:
+            raise AssertionError(f"[ep] {tag}: a gloo step would capture")
+        kernels.reset_launch_counts()
+        walls = []
+        with deterministic():
+            for s, x in enumerate(inputs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if s == 0:
+                    stats = collective_stats(step, x)
+                else:
+                    step(x)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+        counts = kernels.launch_counts()
+        _dp_launches_exact(f"[ep] gloo {tag}", counts, EP_GLOO_STEPS, impl, scatter)
+        _add(launches, counts)
+        got = step.state_dict() if tier == "tp" else m.state_dict()
+        arm = {"tally": _tally_line(stats), "step_wall_ms": walls[-1], "counts": counts,
+               "dtype": dtype,
+               "params": {k: v.detach().cpu().numpy() for k, v in got.items()}}
+        if rank == 0:
+            want = _ep_reference(cfg, state, groups, dev)
+            worst = _ep_worst([got[k] for k in want], list(want.values()), dtype)
+            if worst > 1.0:
+                raise AssertionError(f"[ep] gloo {tag}: parameters {worst:.3e} of the bound "
+                                     f"(rtol, atol) {EP_TOL[dtype]} from the single-process "
+                                     f"reference")
+            arm["worst"] = worst
+            log(f"[ep] gloo rank 0 of {world}: {tag}: worst |err| {worst:.3e} of the bound "
+                f"{EP_TOL[dtype]}, launches {counts}, tally of step 1 {arm['tally']}, "
+                f"{walls[-1]:.1f} ms per step")
+        out["arms"][tag] = arm
+    out["launches"] = launches
+    return out
+
+
+def phase_ep(records, plan, vocab):
+    """[ep]: the model-parallel tier (EP v1, halo, aligned, DP x EP, TP) on
+    the card, in ranks that ``run_local`` spawns: NCCL over every card,
+    then 2 and 4 gloo ranks on card 0; then the scaling harness. Returns
+    its record and the kernel launches of its ranks (summed)."""
+    from ionic_mpnn_torch.benchmarks.scaling import MODES, run_scaling_benchmark
+    from ionic_mpnn_torch.config import model_config_to_dict, viscosity_config
+    from ionic_mpnn_torch.data import iter_batches, plan_capacities
+    from ionic_mpnn_torch.parallel import run_local
+
+    t_phase = time.perf_counter()
+    world = torch.cuda.device_count()
+    # [graphs]' packings of the bench batch; the aligned ones fold into EP_SHARDS
+    hb = [next(iter_batches(records[:BATCH], plan, shuffle=True, seed=s))
+          for s in range(max(EP_K, EP_GLOO_STEPS))]
+    aplan = plan_capacities(records[:BATCH], BATCH, edge_layout="window_aligned",
+                            window=EP_WINDOW, node_shards=EP_SHARDS)
+    ab = [next(iter_batches(records[:BATCH], aplan, shuffle=True, seed=s))
+          for s in range(2 * EP_GLOO_STEPS)]
+    base = model_config_to_dict(viscosity_config(vocab.atom_vocab_size, vocab.bond_vocab_size))
+    seconds = {}
+    t0 = time.perf_counter()
+    nccl = run_local(ep_nccl_rank, world, "nccl", "cuda", base, hb[:EP_K],
+                     timeout_s=EP_TIMEOUT_S)
+    seconds["nccl"] = time.perf_counter() - t0
+    gloo = {}
+    for n, arms in EP_GLOO_ARMS.items():
+        t0 = time.perf_counter()
+        gloo[n] = run_local(ep_gloo_rank, n, "gloo", "cuda", base, hb, ab, arms,
+                            timeout_s=EP_TIMEOUT_S)
+        seconds[f"gloo {n}"] = time.perf_counter() - t0
+
+    for r in nccl[1:]:
+        for tag, a in r["arms"].items():
+            if a["losses"] != nccl[0]["arms"][tag]["losses"]:
+                raise AssertionError(f"[ep] nccl rank {r['rank']} {tag}: losses differ")
+    for n, ranks in gloo.items():
+        for tag, a in ranks[0]["arms"].items():
+            for r in ranks[1:]:
+                for k, v in a["params"].items():
+                    if not np.array_equal(v, r["arms"][tag]["params"][k]):
+                        raise AssertionError(f"[ep] gloo {tag}: rank {r['rank']}'s {k} differs")
+    launches = {}
+    for r in nccl + [r for ranks in gloo.values() for r in ranks]:
+        _add(launches, r["launches"])
+    if min(launches.get(k, 0) for k in ("fused_message_aggregate", "fused_message_aggregate_dh",
+                                        "sorted_segment_sum")) <= 0:
+        raise AssertionError(f"[ep] a kernel of the path never launched: {launches}")
+    t0 = time.perf_counter()
+    scaling = {mode: run_scaling_benchmark(mode=mode) for mode in MODES}
+    seconds["scaling"] = time.perf_counter() - t0
+
+    first = nccl[0]
+    log(f"[ep] NCCL over {world} rank(s), batch {BATCH}, EP_K = {EP_K}, "
+        f"{first['message_edges_per_step']} message edges per step:")
+    for tag, a in first["arms"].items():
+        log(f"[ep] EP v1 {tag}: the graphed step equals {a['bit_equal']} bit for bit over "
+            f"{EP_CALLS * EP_K} steps (worst of the bound {a['worst']})")
+        for k, t in a["times"].items():
+            log(f"[ep] EP v1 {tag}, {k} step (K = {EP_K} per replay): wall "
+                f"{t['wall_ms']:.4f} ms per step, host {t['host_ms']:.4f} ms, busy "
+                f"{t['busy_ms']:.4f} ms, idle share {t['idle_share']:.3f}, "
+                f"{t['edges_per_s']:.6e} message-edges/s, all-reduces "
+                f"{t['all_reduce_ms']:.5f} ms of device time per step")
+    for n, ranks in gloo.items():
+        for tag, a in ranks[0]["arms"].items():
+            log(f"[ep] gloo, {n} ranks on card 0, {tag}: {EP_GLOO_STEPS} steps, parameters "
+                f"at {a['worst']:.3e} of the bound (rtol, atol) {EP_TOL[a['dtype']]} from the "
+                f"single-process reference, ranks bit-equal, launches per rank {a['counts']}; collectives of "
+                f"step 1 per rank [count, bytes] {json.dumps(a['tally'])}; step wall "
+                f"{a['step_wall_ms']:.1f} ms (a record, not a target)")
+    for mode, s in scaling.items():
+        log(f"[ep] scaling {mode} on {s['device']}: "
+            + json.dumps(s["strong_scaling" if mode == "aligned_ep" else "weak_scaling"]))
+    log(f"[ep] launches, summed over ranks: {launches}; seconds {json.dumps(seconds)}, phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for ranks in gloo.values():
+        for r in ranks:
+            for a in r["arms"].values():
+                a.pop("params")
+    return {"nccl": nccl, "gloo": {str(n): v for n, v in gloo.items()}, "scaling": scaling,
+            "seconds": seconds}, launches
+
+
 # ---------------------------------------------------------------- phase 13
 
 def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS):
@@ -3715,12 +4080,13 @@ def main() -> int:
     chain, chain_launches = phase_chain()
     screen, screen_launches, screen_profile = phase_screen(dev)
     dp, dp_launches = phase_dp(records, plan, vocab, fit_data)
+    ep, ep_launches = phase_ep(records, plan, vocab)
     rows, forward, dK, train, overhead = phase_times(
         batch0, V, models, launches, errs, train_steps, train_batch, train_launches,
         {"fit": fit_launches, "graphs": graphs_launches, "mp": mp_launches,
          "onehot": onehot_launches, "device_epochs": device_ep_launches,
          "transfer": transfer_launches, "chain": chain_launches, "screen": screen_launches,
-         "dp": dp_launches})
+         "dp": dp_launches, "ep": ep_launches})
     fit_profile = fit_busy_share(one_epoch_fit)
     onehot["times"] = onehot_profile(forward["pallas_step bf16"])
     graphs = graphs_profile()
@@ -3733,7 +4099,7 @@ def main() -> int:
                     "fit_profile": fit_profile, "graphs": graphs, "native": native,
                     "mp": mp, "bench": bench, "onehot": onehot, "device_epochs": device_ep,
                     "transfer": transfer, "chain": chain, "screen": screen, "dp": dp,
-                    "card": smi}))
+                    "ep": ep, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -14,8 +14,10 @@ Supported here: ``message_impl`` ``"gather"`` | ``"typed"`` |
 ``onehot_select`` ``"auto"`` | ``"lanes"`` | ``"vloop"`` | ``"basis"``,
 ``head`` ``"vft"`` (viscosity) | ``"mlp"`` (melting point) |
 ``"transfer"`` (the transfer model; ``transfer_dims`` and
-``transfer_dropout`` set its head) and ``ep_axis=None``. The model
-builders raise on any other value.
+``transfer_dropout`` set its head), and ``ep_axis`` (the edge-partition
+axis, any message impl but ``"pallas_step"``; the EP steps of
+:mod:`ionic_mpnn_torch.parallel` bind its group). The model builders raise
+on any other value.
 
 :class:`TrainConfig` mirrors the JAX dataclass field for field too. The
 train step reads ``loss``, ``huber_delta`` and ``steps_per_call`` (K train

@@ -11,6 +11,14 @@ assembly (``train_viscosity.py:150-201``):
     for every message impl, as in JAX,
   * mixing = Dense(mixing_size, relu) per ion, summed elementwise.
 
+Edge partitioning (``cfg.ep_axis``, JAX ``dual_encoder.py:81-83, 125,
+137-143``): the axis is a name in the config, so a JAX checkpoint's meta
+round-trips; the process group is run-time state that the EP step binds
+with :func:`bind_ep`. Gather-family impls and ``pallas_fused`` sum each
+message step's aggregate over it (edge shards, nodes replicated); onehot
+runs node-sharded, skips the windowed readout and sums the (B, D) pooled
+readout over it once per ion. ``pallas_step`` does not compose with it.
+
 Submodule names follow the flax param tree (``bmm_{i}``, ``gru_{i}``,
 ``fp_dense``, ``cat_proj`` …) so :mod:`ionic_mpnn_torch.params` maps one
 onto the other by path.
@@ -32,7 +40,7 @@ from ..ops.message import bond_type_matrices, onehot_operands, parity_edge_mask
 from ..ops.segment import graph_sum_pool, graph_sum_pool_windowed
 from .layers import BondMatrixMessage, GatedUpdate, dense, keras_embed_init_
 
-__all__ = ["IonEncoder", "DualEncoderTrunk", "check_config"]
+__all__ = ["IonEncoder", "DualEncoderTrunk", "check_config", "bind_ep"]
 
 _MESSAGE_IMPLS = ("gather", "typed", "symmetric", "onehot", "pallas_fused",
                   "pallas_step")
@@ -52,8 +60,11 @@ def check_config(cfg: ModelConfig) -> None:
         raise ValueError(f"unknown embed_impl {cfg.embed_impl!r}")
     if cfg.onehot_select not in ("auto", "lanes", "vloop", "basis"):
         raise ValueError(f"unknown onehot_select {cfg.onehot_select!r}")
-    if cfg.ep_axis is not None:
-        raise NotImplementedError("edge partitioning (ep_axis) is not ported")
+    if cfg.ep_axis is not None and cfg.message_impl == "pallas_step":
+        raise ValueError(
+            "pallas_step does not compose with edge partitioning (ep_axis="
+            f"{cfg.ep_axis!r}): for the CUDA kernels under EP name message_impl="
+            "'pallas_fused', or 'gather' with scatter_impl='pallas'")
     if cfg.head not in ("vft", "mlp", "transfer"):
         raise NotImplementedError(f"head={cfg.head!r} is not ported")
     torch_dtype(cfg.compute_dtype)
@@ -79,6 +90,7 @@ class IonEncoder(nn.Module):
                 compute_dtype=None if self.dtype == torch.float32 else self.dtype,
                 impl=cfg.gru_impl))
         self.fp_dense = dense(cfg.atom_dim, cfg.fp_size, generator)
+        self.ep = None  # the EP group's Collectives, bound by bind_ep
 
     def embed_impl(self) -> str:
         """``cfg.embed_impl`` resolved: ``"auto"`` is ``"onehot"`` for the
@@ -92,6 +104,11 @@ class IonEncoder(nn.Module):
     def forward(self, graphs: PackedGraphs, atom_table: torch.Tensor,
                 bond_table: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        ep = self.ep
+        if cfg.ep_axis is not None and ep is None:
+            raise RuntimeError(f"ep_axis={cfg.ep_axis!r} but no EP group is bound: run the "
+                               "model through an EP step (parallel.make_ep_train_step, "
+                               "make_aligned_ep_train_step) or bind_ep")
         N = graphs.node_capacity
         if self.embed_impl() == "onehot":
             # value-identical to the gather; the table's gradient is a
@@ -129,10 +146,17 @@ class IonEncoder(nn.Module):
                                   graphs.src, graphs.dst, edge_mask, N, rowptr=rowptr)
                 continue
             agg = bmm(h, bond_table, graphs.bond_ids, graphs.src, graphs.dst,
-                      edge_mask, rowptr=rowptr, halo=halo, operands=operands)
+                      edge_mask, rowptr=rowptr, halo=halo, operands=operands, ep=ep)
             h = gru(h, agg)
 
-        if graphs.pool_slot is not None:
+        if ep is not None and cfg.message_impl == "onehot":
+            # node-sharded (aligned EP): this shard's rows pooled into the
+            # global graph slots, in f32 as the windowed readout sums, then
+            # one (B, D) sum over the group completes the readout
+            pooled = ep.sum(graph_sum_pool(h.float(), graphs.node_graph, graphs.n_graphs,
+                                           graphs.node_mask,
+                                           node_sorted=graphs.node_sorted))
+        elif graphs.pool_slot is not None and cfg.ep_axis is None:
             # aligned batches: the windowed one-hot readout (f32 out)
             pooled = graph_sum_pool_windowed(h, graphs.node_graph, graphs.node_mask,
                                              graphs.pool_slot, cfg.onehot_window,
@@ -141,6 +165,14 @@ class IonEncoder(nn.Module):
             pooled = graph_sum_pool(h, graphs.node_graph, graphs.n_graphs,
                                     graphs.node_mask, node_sorted=graphs.node_sorted)
         return torch.relu(self.fp_dense(pooled.float()))
+
+
+def bind_ep(model: nn.Module, ep) -> None:
+    """Bind the EP group (a ``parallel.collectives.Collectives``) to every
+    ion encoder of ``model``; ``None`` unbinds."""
+    for m in model.modules():
+        if isinstance(m, IonEncoder):
+            m.ep = ep
 
 
 class DualEncoderTrunk(nn.Module):

@@ -109,9 +109,21 @@ class BondMatrixMessage(nn.Module):
 
     def forward(self, node_states, bond_table, bond_ids, src, dst, edge_mask,
                 rowptr: Optional[torch.Tensor] = None, halo: bool = True,
-                operands: Optional[OnehotOperands] = None) -> torch.Tensor:
+                operands: Optional[OnehotOperands] = None, ep=None) -> torch.Tensor:
         """``halo``: False on window_aligned batches (onehot only);
-        ``operands``: the batch's one-hot matrices, shared by every step."""
+        ``operands``: the batch's one-hot matrices, shared by every step;
+        ``ep``: the edge-partition group (``parallel.collectives.
+        Collectives``) when the edges are one rank's shard: every impl but
+        onehot sums its partial aggregate over it (onehot runs
+        node-sharded, its aggregate complete on its shard)."""
+        agg = self._aggregate(node_states, bond_table, bond_ids, src, dst, edge_mask,
+                              rowptr, halo, operands)
+        if ep is not None and self.impl != "onehot":
+            agg = ep.sum(agg)
+        return agg
+
+    def _aggregate(self, node_states, bond_table, bond_ids, src, dst, edge_mask, rowptr,
+                   halo, operands) -> torch.Tensor:
         dt = self.compute_dtype
         m_table = bond_type_matrices(bond_table.to(dt), self.bond_transform.to(dt))
         h = node_states.to(dt)

@@ -53,6 +53,7 @@ from ..data.packing import IonPairBatch, _batch_arrays, batch_from_arrays
 from ..models.layers import BatchNorm
 from ..training.loop import TrainStep, _host_mask_sum, data_loss_sum, l2_penalty
 from ..training.optim import Optimizer, make_optimizer
+from .collectives import Collectives
 from .mesh import AxisInfo, axis_info
 
 __all__ = ["split_for_devices", "stack_batches", "shard_batch", "stack_batch_groups",
@@ -114,9 +115,20 @@ class DataParallelStep(TrainStep):
     skipping all-empty steps, and :meth:`run` up to K steps on this rank's
     own batches with each step's count over all ranks. Every rank must
     make the same calls with the same groups. ``fit`` seeds each rank's
-    dropout masks from the seed and the rank."""
+    dropout masks from the seed and the rank.
+
+    The partitioned steps (``edge_partition.py``) reuse the body with
+    three attributes set otherwise: ``n_dp`` (the data-parallel groups the
+    L2 term is split over), ``grad_scale`` (``1/S`` over ``S`` edge or
+    node shards) and ``owns_loss`` (whether this rank adds its loss and
+    statistics to the sum: one rank per shard group does). Every
+    collective goes through :attr:`comm`, whose :attr:`tally`
+    ``collectives.collective_stats`` reads."""
 
     _slot_counts = True
+    n_dp: int
+    grad_scale: float = 1.0
+    owns_loss: bool = True
 
     def __init__(self, model: torch.nn.Module, model_cfg: ModelConfig,
                  train_cfg: TrainConfig, optimizer: Optimizer, axis: AxisInfo,
@@ -126,6 +138,9 @@ class DataParallelStep(TrainStep):
                          graphed and dist.get_backend(axis.group) == "nccl")
         self.axis = axis
         self.n_dev, self.rank = axis.size, axis.index
+        self.n_dp = self.n_dev
+        self.comm = Collectives(axis.group)
+        self.tally = self.comm.tally
         params = optimizer.params
         if any(p.dtype != torch.float32 for p in params):
             raise ValueError("the data-parallel step reduces f32 parameters only")
@@ -152,7 +167,7 @@ class DataParallelStep(TrainStep):
         flat = torch.cat([t.reshape(-1).float() for t in tensors])
         if self.rank != 0:
             flat.zero_()
-        dist.all_reduce(flat, group=self.axis.group)
+        self.comm.all_reduce(flat)
         at = 0
         for t in tensors:
             t.copy_(flat[at:at + t.numel()].view_as(t))
@@ -163,27 +178,37 @@ class DataParallelStep(TrainStep):
         all ranks (an f32 device scalar); the summed ``(loss, data_loss)``."""
         self.model.train()
         self.optimizer.zero_grad()
-        out = self.model(batch)
-        data = data_loss_sum(out["pred"], batch.y, batch.sample_mask, self.loss_kind,
+        pred = self._predict(batch)
+        data = data_loss_sum(pred, batch.y, batch.sample_mask, self.loss_kind,
                              self.delta) / torch.clamp(n, min=1.0)
         l2 = l2_penalty(self.model, self.l2)
-        loss = data + (l2 / self.n_dev if self.n_dev > 1 else l2)
+        loss = data + (l2 / self.n_dp if self.n_dp > 1 else l2)
         loss.backward()
         flat, g = self._flat, self._n_grad
         with torch.no_grad():
-            flat[g:g + 2].copy_(torch.stack([loss.detach(), data.detach()]))
-            at = g + 2
-            for t in self._stats:
-                flat[at:at + t.numel()].copy_(t.reshape(-1))
-                at += t.numel()
-            dist.all_reduce(flat, group=self.axis.group)
-            if self.n_dev > 1:  # pmean of the running statistics
+            if self.grad_scale != 1.0:
+                flat[:g].mul_(self.grad_scale)
+            tail = flat[g:]
+            if self.owns_loss:
+                tail[:2].copy_(torch.stack([loss.detach(), data.detach()]))
+                at = 2
+                for t in self._stats:
+                    tail[at:at + t.numel()].copy_(t.reshape(-1))
+                    at += t.numel()
+            else:
+                tail.zero_()
+            self.comm.all_reduce(flat)
+            if self.n_dp > 1:  # pmean of the running statistics
                 at = g + 2
                 for t in self._stats:
-                    t.copy_(flat[at:at + t.numel()].view_as(t) / self.n_dev)
+                    t.copy_(flat[at:at + t.numel()].view_as(t) / self.n_dp)
                     at += t.numel()
         self.optimizer.step()
         return flat[g:g + 2].clone()
+
+    def _predict(self, batch) -> torch.Tensor:
+        """The training forward's predictions."""
+        return self.model(batch)["pred"]
 
     def run(self, batches: Sequence[IonPairBatch], counts: Sequence[float]) -> torch.Tensor:
         """Up to K steps in one call on this rank's batches (one plan, host

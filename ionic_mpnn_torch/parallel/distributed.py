@@ -21,6 +21,7 @@ own batch and never assembles a global array
 from __future__ import annotations
 
 import datetime
+import gc
 import multiprocessing
 import os
 import pickle
@@ -126,8 +127,13 @@ def _rank_main(fn, rank, world, backend, device, store_path, timeout_s, args, re
         # reported before the group goes: the others then fail after it
         results.put((rank, False, traceback.format_exc()))
         raise
-    dist.destroy_process_group()
     results.put((rank, True, pickle.dumps(value)))
+    # NCCL keeps a communicator until every CUDA graph that captured one of
+    # its collectives is gone, and the steps' graphs sit in reference
+    # cycles: free them before the group goes (a teardown that still hangs
+    # is stopped by run_local once every rank has reported)
+    gc.collect()
+    dist.destroy_process_group()
 
 
 def _failures(results, rank: int, payload: str, world_size: int, grace_s: float = 3.0) -> str:
@@ -201,9 +207,10 @@ def run_local(fn: Callable[..., Any], world_size: int, backend: str, device, *ar
                 values[rank] = pickle.loads(payload)
         finally:
             done = len(values) == world_size
+            teardown = time.monotonic() + 60  # for all ranks together
             for p in procs:
                 if done:
-                    p.join(timeout=60)
+                    p.join(timeout=max(teardown - time.monotonic(), 0.0))
                 if p.is_alive():
                     p.terminate()
                     p.join(timeout=10)

@@ -159,6 +159,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(setup):
 def test_unported_options_raise(setup):
     t_cfg = model_config_from_dict(j_to_dict(setup["cfg"]))
     # head="transfer" is ported (the transfer model); a head no package has is not
-    for kw in ({"ep_axis": "edge"}, {"head": "linear"}, {"message_impl": "dense"}):
+    for kw in ({"head": "linear"}, {"message_impl": "dense"}):
         with pytest.raises(NotImplementedError):
             TModel(t_cfg.replace(**kw), device="cpu")
+    # ep_axis is ported (the edge-partitioned tiers) except with pallas_step, as JAX
+    TModel(t_cfg.replace(ep_axis="edge"), device="cpu")
+    with pytest.raises(ValueError, match="pallas_step does not compose with edge partitioning"):
+        TModel(t_cfg.replace(ep_axis="edge", message_impl="pallas_step"), device="cpu")
