@@ -3539,10 +3539,20 @@ EP_TIMED_ITERS = 5
 EP_GLOO_STEPS = 2  # steps of each gloo arm
 EP_WINDOW = 64  # the bf16 onehot window of the aligned arms
 EP_SHARDS = 2  # node shards of the aligned batches (the 2-rank arm and DP x EP's model axis)
-# (rtol, atol) of the parameters after the gloo steps against the
-# single-process reference: f32 JAX's EP oracle's (tests/test_ep_train.py);
-# bf16 [train]'s rtol, and as atol the furthest two Adam steps of rate 1e-3
-# can drive an element apart (a near-zero gradient rounded to the other sign)
+# The gloo arms' first check: the gradients of step 1, summed over the group
+# (before the optimizer's clip), against the single-process reference's
+# .grad in the same dtype, at most this share of each tensor's max. Each is
+# the largest reading of the sound runs on the card at batch 2048, rounded
+# up (PERF.md §6). The f32 readings peak in the gradients summed over
+# every edge or node, whose order the shard cut changes (the CPU tests hold
+# 1e-5 at a small batch); the bf16 reference computes in bf16. A gradient
+# without its group sum reads 0.5 of its max or more, a zero one 1.
+EP_GRAD_TOL = {"float32": 5e-5, "bfloat16": 1e-2}
+# The second check: (rtol, atol) of the parameters after the gloo steps
+# against the reference. The clip makes an Adam step lr·sign(g), so this
+# sees a gradient's sign, not its size: f32 JAX's EP oracle's
+# (tests/test_ep_train.py); bf16 [train]'s rtol, and as atol the furthest
+# two Adam steps of rate 1e-3 can drive an element apart
 EP_TOL = {"float32": (2e-3, 3e-6), "bfloat16": (2e-2, 4e-3)}
 EP_TIMEOUT_S = 600
 EP_NCCL_ARMS = (  # (name, message_impl, scatter_impl, compute_dtype)
@@ -3565,6 +3575,46 @@ def _ep_worst(got, want, dtype):
     rtol, atol = EP_TOL[dtype]
     return max(float(((g.float() - w.float()).abs() / (atol + rtol * w.float().abs())).max())
                for g, w in zip(got, want))
+
+
+def _grad_worst(got, want):
+    """The largest ``max|got - want| / max|want|`` over the tensors of
+    ``want`` (every one must be in ``got``), and the tensor's name."""
+    return max((float((got[k].float() - w.float()).abs().max())
+                / max(float(w.abs().max()), 1e-30), k) for k, w in want.items())
+
+
+def _record_grads(step, model, grads, local):
+    """Keep step 1's gradients as the optimizer sees them (``grads``: summed
+    over the group, before its clip) and, for a partitioned step, as this
+    rank held them just before the sum (``local``: what a missing group sum
+    would leave)."""
+    opt_step = step.optimizer.step
+
+    def record_step():
+        if not grads:
+            grads.update({n: p.grad.detach().clone() for n, p in model.named_parameters()})
+        opt_step()
+
+    step.optimizer.step = record_step
+    if hasattr(step, "_flat"):  # the flat gradient buffer's one all-reduce
+        all_reduce = step.comm.all_reduce
+
+        def record_sum(t):
+            if not local and t.numel() == step._flat.numel():
+                local.update({n: p.grad.detach().clone() for n, p in model.named_parameters()})
+            return all_reduce(t)
+
+        step.comm.all_reduce = record_sum
+    else:  # TP: replicated compute, each rank's own gradient is the step's
+        def keep(name):
+            def hook(p):
+                if name not in grads:
+                    grads[name] = p.grad.detach().clone()
+            return hook
+
+        for n, p in model.named_parameters():
+            p.register_post_accumulate_grad_hook(keep(n))
 
 
 def _tally_line(stats):
@@ -3682,13 +3732,16 @@ def ep_nccl_rank(rank, world, dev, base_dict, hb):
 
 def _ep_reference(cfg, state, groups, dev):
     """The single-process reference on the card: per step, Σ local_sum / N
-    + L2 over the step's batches (one batch: the single-device step)."""
+    + L2 over the step's batches (one batch: the single-device step). Its
+    parameters after the steps, and its gradients of step 1 before the
+    optimizer."""
     from ionic_mpnn_torch.models import ViscosityModel
     from ionic_mpnn_torch.training import data_loss_sum, l2_penalty, make_optimizer
 
     ref = ViscosityModel(cfg, seed=0)
     ref.load_state_dict(state)
     opt = make_optimizer(ref.parameters())
+    grads = {}
     with deterministic():
         for group in groups:
             ref.train()
@@ -3696,15 +3749,19 @@ def _ep_reference(cfg, state, groups, dev):
             total = sum(data_loss_sum(ref(b)["pred"], b.y, b.sample_mask, "mse", 1.0)
                         for b in (b.to(dev) for b in group))
             (total / _dp_counts(group) + l2_penalty(ref, cfg.fp_l2)).backward()
+            if not grads:
+                grads = {n: p.grad.detach().clone() for n, p in ref.named_parameters()
+                         if p.grad is not None}
             opt.step()
-    return ref.state_dict()
+    return ref.state_dict(), grads
 
 
 def ep_gloo_rank(rank, world, dev, base_dict, hb, ab, arms):
     """[ep] over gloo, ranks sharing one card (eager): per arm
-    EP_GLOO_STEPS steps, the first tallied; rank 0 holds the parameters to
-    the single-process reference on the card. The parent holds the ranks
-    against each other."""
+    EP_GLOO_STEPS steps, the first tallied; rank 0 holds the gradients of
+    step 1 and the parameters after the steps to the single-process
+    reference on the card, and checks that the gradient bound would see a
+    missing group sum. The parent holds the ranks against each other."""
     from ionic_mpnn_torch.config import MeshConfig, TrainConfig, model_config_from_dict
     from ionic_mpnn_torch.models import ViscosityModel
     from ionic_mpnn_torch.ops import cuda as kernels
@@ -3755,6 +3812,8 @@ def ep_gloo_rank(rank, world, dev, base_dict, hb, ab, arms):
             inputs = [stack_aligned_dp_batches(g, EP_SHARDS, EP_WINDOW) for g in groups]
         if step.graphed:
             raise AssertionError(f"[ep] {tag}: a gloo step would capture")
+        grads, local = {}, {}
+        _record_grads(step, m, grads, local)
         kernels.reset_launch_counts()
         walls = []
         with deterministic():
@@ -3775,16 +3834,28 @@ def ep_gloo_rank(rank, world, dev, base_dict, hb, ab, arms):
                "dtype": dtype,
                "params": {k: v.detach().cpu().numpy() for k, v in got.items()}}
         if rank == 0:
-            want = _ep_reference(cfg, state, groups, dev)
+            want, want_grads = _ep_reference(cfg, state, groups, dev)
+            bound = EP_GRAD_TOL[dtype]
+            arm["grad_worst"], arm["grad_worst_at"] = _grad_worst(grads, want_grads)
+            if arm["grad_worst"] > bound:
+                raise AssertionError(f"[ep] gloo {tag}: summed gradient of "
+                                     f"{arm['grad_worst_at']} {arm['grad_worst']:.3e} of its max "
+                                     f"from the single-process reference, beyond {bound}")
+            if local:  # the bound would see the gradient without its group sum
+                arm["grad_unsummed"] = _grad_worst(local, want_grads)[0]
+                if arm["grad_unsummed"] <= bound:
+                    raise AssertionError(f"[ep] gloo {tag}: the unsummed gradient reads "
+                                         f"{arm['grad_unsummed']:.3e}, within the bound {bound}")
             worst = _ep_worst([got[k] for k in want], list(want.values()), dtype)
             if worst > 1.0:
                 raise AssertionError(f"[ep] gloo {tag}: parameters {worst:.3e} of the bound "
                                      f"(rtol, atol) {EP_TOL[dtype]} from the single-process "
                                      f"reference")
             arm["worst"] = worst
-            log(f"[ep] gloo rank 0 of {world}: {tag}: worst |err| {worst:.3e} of the bound "
-                f"{EP_TOL[dtype]}, launches {counts}, tally of step 1 {arm['tally']}, "
-                f"{walls[-1]:.1f} ms per step")
+            log(f"[ep] gloo rank 0 of {world}: {tag}: gradients {arm['grad_worst']:.3e} of "
+                f"max at {arm['grad_worst_at']} (bound {bound}; unsummed {arm.get('grad_unsummed', 'n/a')}), "
+                f"parameters {worst:.3e} of the bound {EP_TOL[dtype]}, launches {counts}, "
+                f"tally of step 1 {arm['tally']}, {walls[-1]:.1f} ms per step")
         out["arms"][tag] = arm
     out["launches"] = launches
     return out
@@ -3839,7 +3910,13 @@ def phase_ep(records, plan, vocab):
                                         "sorted_segment_sum")) <= 0:
         raise AssertionError(f"[ep] a kernel of the path never launched: {launches}")
     t0 = time.perf_counter()
-    scaling = {mode: run_scaling_benchmark(mode=mode) for mode in MODES}
+    if world > 1:  # the sweep over the counts this machine has, at the bench batch
+        scaling = {mode: run_scaling_benchmark(per_device_batch=BATCH, mode=mode)
+                   for mode in MODES}
+    else:  # one rank scales by definition: one mode, one timed step, to show it runs
+        scaling = {"dp": run_scaling_benchmark(mode="dp", iters=1, warmup=1)}
+        log("[ep] scaling: one card, so the harness runs once (dp, one step); the sweep "
+            "needs several cards")
     seconds["scaling"] = time.perf_counter() - t0
 
     first = nccl[0]
@@ -3856,9 +3933,13 @@ def phase_ep(records, plan, vocab):
                 f"{t['all_reduce_ms']:.5f} ms of device time per step")
     for n, ranks in gloo.items():
         for tag, a in ranks[0]["arms"].items():
-            log(f"[ep] gloo, {n} ranks on card 0, {tag}: {EP_GLOO_STEPS} steps, parameters "
-                f"at {a['worst']:.3e} of the bound (rtol, atol) {EP_TOL[a['dtype']]} from the "
-                f"single-process reference, ranks bit-equal, launches per rank {a['counts']}; collectives of "
+            log(f"[ep] gloo, {n} ranks on card 0, {tag}: {EP_GLOO_STEPS} steps, step 1's "
+                f"summed gradients at {a['grad_worst']:.3e} of a tensor's max "
+                f"({a['grad_worst_at']}; bound "
+                f"{EP_GRAD_TOL[a['dtype']]}; without the group sum "
+                f"{a.get('grad_unsummed', 'n/a')}), parameters at {a['worst']:.3e} of the "
+                f"bound (rtol, atol) {EP_TOL[a['dtype']]} from the single-process reference, "
+                f"ranks bit-equal, launches per rank {a['counts']}; collectives of "
                 f"step 1 per rank [count, bytes] {json.dumps(a['tally'])}; step wall "
                 f"{a['step_wall_ms']:.1f} ms (a record, not a target)")
     for mode, s in scaling.items():

@@ -208,7 +208,13 @@ def make_ep_train_step(model: torch.nn.Module, model_cfg: ModelConfig,
     ``axis`` (``ModelConfig.ep_axis`` must name it); batches from
     :func:`partition_batch_edges` with ``n_shards`` the axis size.
     ``steps_per_call`` and ``jit_compile`` as ``make_dp_train_step``'s;
-    without ``optimizer`` one is built from ``train_cfg``."""
+    without ``optimizer`` one is built from ``train_cfg``. Refuses
+    ``onehot``: its encoder sums no partial aggregate over the group, so
+    on edge shards each rank would propagate its own partial sum."""
+    if model_cfg.message_impl == "onehot":
+        raise ValueError("EP v1 replicates nodes and shards edges, and onehot sums no "
+                         "partial aggregate over the group: use make_aligned_ep_train_step "
+                         "for onehot")
     if mesh is None:
         raise ValueError("make_ep_train_step needs a mesh (parallel.make_mesh)")
     if steps_per_call is not None:

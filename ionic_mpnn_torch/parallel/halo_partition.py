@@ -41,7 +41,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..config import ModelConfig, TrainConfig
+from ..config import ModelConfig, TrainConfig, resolve_compute_dtype, resolve_message_impl
 from ..data.packing import GraphCapacityError, IonPairBatch, PackedGraphs, _to_tensor, round_up
 from ..ops.gru import gated_update
 from ..ops.message import bond_type_matrices, edge_messages_from_table
@@ -279,7 +279,18 @@ def make_halo_ep_train_step(model: torch.nn.Module, model_cfg: ModelConfig,
     ``step(batch)`` with ``batch`` from :func:`partition_halo_batch`
     (``n_shards`` the axis size) takes one step, eagerly. Per message step
     per ion: two ``(halo, D)`` shifts forward and two backward; per ion one
-    (B, D) readout sum each way; one gradient all-reduce."""
+    (B, D) readout sum each way; one gradient all-reduce.
+
+    :func:`halo_forward` computes in f32 gather math with plain segment
+    sums, so the step refuses a ``model_cfg`` that asks for anything else
+    (another ``message_impl``, ``scatter_impl`` or ``compute_dtype``)."""
+    device = next(model.parameters()).device
+    asked = (resolve_message_impl(model_cfg.message_impl, device), model_cfg.scatter_impl,
+             resolve_compute_dtype(model_cfg.compute_dtype, device))
+    if asked != ("gather", "xla", "float32"):
+        raise ValueError(f"the halo step computes in f32 gather math: (message_impl, "
+                         f"scatter_impl, compute_dtype) {asked} must be ('gather', 'xla', "
+                         f"'float32')")
     if mesh is None:
         raise ValueError("make_halo_ep_train_step needs a mesh (parallel.make_mesh)")
     return _HaloStep(model, model_cfg, train_cfg, _optimizer(model, train_cfg, optimizer),

@@ -10,11 +10,16 @@ imports it.
 
 Tolerances, and why:
 
+* the summed gradients before the update, against JAX's gradient of the
+  whole batch's loss and against the port's single-process ``.grad``
+  (accumulated over the batches of a DP×EP step): within 1e-5 of each
+  tensor's max (one f32 backward, summed in another order). The clip makes
+  Adam's first update ``lr·sign(g)``, so only this check sees the
+  gradient's size (the ``1/S`` scale, the sums over the group);
 * losses rtol 1e-5; the parameters after a step at JAX's own EP oracle's
-  rtol 2e-3 / atol 3e-6 (``tests/test_ep_train.py``: Adam's first update
-  is ``lr·sign(g)``, and ``g`` is summed in another order). JAX's
-  ``gather`` step is the oracle of all three EP v1 impls: they compute the
-  same function;
+  rtol 2e-3 / atol 3e-6 (``tests/test_ep_train.py``). JAX's ``gather``
+  step is the oracle of all three EP v1 impls: they compute the same
+  function;
 * the sharded aggregate against the whole batch's: rtol/atol 1e-5 (the
   same f32 sums in another order);
 * the ranks against each other, and a one-rank EP step against the
@@ -40,7 +45,9 @@ from ionic_mpnn_torch.parallel import (collective_stats, edge_partitioned_aggreg
                                        shard_aligned_batch, shard_graphs_aligned,
                                        stack_aligned_dp_batches)
 from ionic_mpnn_torch.training import make_train_step
+from ionic_mpnn_torch.training.loop import data_loss_sum, l2_penalty
 
+GRAD_TOL = 1e-5  # of each tensor's max
 LOSS_RTOL = 1e-5
 PARAM_TOL = dict(rtol=2e-3, atol=3e-6)
 AGG_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -61,6 +68,37 @@ def _numpy(model):
     return {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
 
 
+def _record_grads(step, model, into):
+    """Keep each step's summed gradients as the optimizer sees them (after
+    the all-reduce, before its clip)."""
+    opt_step = step.optimizer.step
+
+    def step_and_record():
+        into.append({k: p.grad.detach().numpy().copy() for k, p in model.named_parameters()
+                     if p.grad is not None})
+        opt_step()
+
+    step.optimizer.step = step_and_record
+
+
+def _port_grads(cfg, state, batches):
+    """The port's single-process gradient of Σ local_sum / N + L2 over
+    ``batches`` (one step's)."""
+    ref = _model(cfg, state)
+    total = sum(data_loss_sum(ref(b.to("cpu"))["pred"], torch.as_tensor(b.y),
+                              torch.as_tensor(b.sample_mask), "mse", 1.0) for b in batches)
+    n = sum(float(np.sum(b.sample_mask)) for b in batches)
+    (total / n + l2_penalty(ref, cfg.fp_l2)).backward()
+    return {k: p.grad.numpy() for k, p in ref.named_parameters()}
+
+
+def _close_to_max(got, want, tol, what):
+    for k, w in want.items():
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(got[k], w, rtol=0, atol=tol * max(np.abs(w).max(), 1e-30),
+                                   err_msg=f"{what} {k}")
+
+
 # ---------------------------------------------------------------- the ranks
 
 
@@ -77,8 +115,10 @@ def _rank_tiers(rank, world, device, cfg_dict, state, ep_batch, onehot_dict, ali
         cfg = base.replace(message_impl=impl, scatter_impl=scatter)
         model = _model(cfg, state)
         step = make_ep_train_step(model, cfg, TrainConfig(seed=0), mesh=mesh, jit_compile=False)
+        grads = []
+        _record_grads(step, model, grads)
         m = step(parted)
-        arm = {"loss": float(m["loss"]), "state": _numpy(model)}
+        arm = {"loss": float(m["loss"]), "state": _numpy(model), "grads": grads[0]}
         if tag == "gather":
             arm["losses"] = [arm["loss"]] + [float(step(parted)["loss"])
                                               for _ in range(DESCEND_STEPS - 2)]
@@ -100,8 +140,11 @@ def _rank_tiers(rank, world, device, cfg_dict, state, ep_batch, onehot_dict, ali
     model = _model(ocfg, state)
     step = make_aligned_ep_train_step(model, ocfg, TrainConfig(seed=0), mesh=mesh,
                                       jit_compile=False)
+    grads = []
+    _record_grads(step, model, grads)
     sharded = shard_aligned_batch(aligned, world)
-    out["aligned"] = {"loss": float(step(sharded)["loss"]), "state": _numpy(model)}
+    out["aligned"] = {"loss": float(step(sharded)["loss"]), "state": _numpy(model),
+                      "grads": grads[0]}
     out["aligned"]["losses"] = [out["aligned"]["loss"]] + [
         float(step(sharded)["loss"]) for _ in range(DESCEND_STEPS - 1)]
     out["aligned"]["steps"] = step.steps
@@ -136,9 +179,12 @@ def _rank_dpxep(rank, world, device, onehot_dict, state, stacked):
     model = _model(cfg, state)
     step = make_aligned_ep_train_step(model, cfg, TrainConfig(seed=0), mesh=mesh, axis="ep",
                                       dp_axis="data", jit_compile=False)
+    grads = []
+    _record_grads(step, model, grads)
     m = step(stacked)
     return {"loss": float(m["loss"]), "data_loss": float(m["data_loss"]), "n": m["n"],
-            "state": _numpy(model), "ep": step.ep.index, "dp": step.dp.index}
+            "state": _numpy(model), "grads": grads[0], "ep": step.ep.index,
+            "dp": step.dp.index}
 
 
 # ---------------------------------------------------------------- the JAX side
@@ -178,6 +224,31 @@ def _close_params(got_state, j_params, tol=PARAM_TOL):
 
     for k, w in flax_to_state_dict(j_params).items():
         np.testing.assert_allclose(got_state[k], w.numpy(), **tol, err_msg=k)
+
+
+def _jax_grads(cfg, params, batches):
+    """JAX's gradient of Σ local_sum / N + L2 over ``batches`` (the loss the
+    partitioned step computes), as a state dict of numpy arrays."""
+    import jax
+
+    from ionic_mpnn_tpu.models import ViscosityModel as JModel
+    from ionic_mpnn_tpu.training.loop import _l2_penalty
+    from ionic_mpnn_torch.params import flax_to_state_dict
+
+    model = JModel(cfg)
+
+    def loss(p):
+        total = sum(((model.apply({"params": p}, b, deterministic=True)["pred"] - b.y) ** 2
+                     * b.sample_mask).sum() for b in batches)
+        return total / sum(b.sample_mask.sum() for b in batches) + _l2_penalty(p, cfg.fp_l2)
+
+    return {k: v.numpy() for k, v in flax_to_state_dict(jax.grad(loss)(params)).items()}
+
+
+def _close_grads(got, cfg, j_cfg, setup, t_batches, j_batches):
+    _close_to_max(got, _jax_grads(j_cfg, setup["params"], j_batches), GRAD_TOL, "grad vs JAX")
+    _close_to_max(got, _port_grads(cfg, setup["state"], t_batches), GRAD_TOL,
+                  "grad vs accumulated")
 
 
 @pytest.fixture(scope="module")
@@ -270,13 +341,18 @@ def jax_aligned(setup):
 
 
 @pytest.mark.parametrize("tag", list(IMPLS))
-def test_ep_step_matches_jax(tiers, jax_ep, tag):
+def test_ep_step_matches_jax(setup, tiers, jax_ep, tag):
     s_ep, m_ep, s_ref, m_ref = jax_ep
     got = tiers["ep"][tag]
     np.testing.assert_allclose(got["loss"], float(m_ep["loss"]), rtol=LOSS_RTOL)
     np.testing.assert_allclose(got["loss"], float(m_ref["loss"]), rtol=LOSS_RTOL)
     _close_params(got["state"], s_ep.params)
     _close_params(got["state"], s_ref.params)
+    impl, scatter = IMPLS[tag]
+    cfg = model_config_from_dict(setup["cfg_dict"]).replace(message_impl=impl,
+                                                            scatter_impl=scatter)
+    _close_grads(got["grads"], cfg, setup["cfg"], setup, [setup["t_batch"]],
+                 [setup["j_batch"]])
 
 
 def test_ep_steps_descend(tiers):
@@ -349,6 +425,15 @@ def test_check_config_takes_ep_axis_and_refuses_pallas_step_as_jax(setup):
         model(setup["t_batch"].to("cpu"))
 
 
+def test_ep_step_refuses_onehot(setup):
+    """Onehot sums no partial aggregate over the group, so on edge shards
+    each rank would propagate its own partial sum: refused, pointing to
+    the aligned tier."""
+    cfg = model_config_from_dict(setup["onehot_dict"]).replace(ep_axis="data")
+    with pytest.raises(ValueError, match="use make_aligned_ep_train_step for onehot"):
+        make_ep_train_step(_model(cfg, setup["state"]), cfg, TrainConfig(), mesh=None)
+
+
 def test_partition_edges_refuses_indivisible_and_unsorted_shards(setup):
     g = setup["t_batch"].cation
     n = next(k for k in range(3, 64) if g.edge_capacity % k)
@@ -367,13 +452,15 @@ def test_partition_edges_refuses_indivisible_and_unsorted_shards(setup):
 # ---------------------------------------------------------------- aligned EP v3
 
 
-def test_aligned_ep_step_matches_jax(tiers, jax_aligned):
+def test_aligned_ep_step_matches_jax(setup, tiers, jax_aligned):
     s_ep, m_ep, s_ref, m_ref = jax_aligned
     got = tiers["aligned"]
     np.testing.assert_allclose(got["loss"], float(m_ep["loss"]), rtol=LOSS_RTOL)
     np.testing.assert_allclose(got["loss"], float(m_ref["loss"]), rtol=LOSS_RTOL)
     _close_params(got["state"], s_ep.params)
     _close_params(got["state"], s_ref.params)
+    _close_grads(got["grads"], model_config_from_dict(setup["onehot_dict"]), setup["ocfg"],
+                 setup, [setup["t_aligned"]], [setup["j_aligned"]])
 
 
 def test_aligned_ep_descends(tiers):
@@ -444,6 +531,8 @@ def test_dp_x_ep_matches_jax_and_plain_dp(setup, encoded_viscosity):
     np.testing.assert_allclose(got["data_loss"], float(m_2d["data_loss"]), rtol=LOSS_RTOL)
     _close_params(got["state"], s_2d.params)
     _close_params(got["state"], s_dp.params)
+    _close_grads(got["grads"], model_config_from_dict(setup["onehot_dict"]), ocfg, setup, t_b,
+                 j_b)
 
 
 def test_shard_aligned_refuses_a_wrong_layout_an_indivisible_capacity_and_a_crossing(setup):

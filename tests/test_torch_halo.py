@@ -6,6 +6,11 @@ The module imports no JAX at its top (each rank imports it).
 Tolerances, and why:
 
 * the partition: equal to JAX's array for array (the same numpy code);
+* the summed gradients before the update, against JAX's gradient of the
+  whole batch's loss and against the port's single-process ``.grad``:
+  within 1e-5 of each tensor's max (one f32 backward, summed in another
+  order; the clip makes Adam's first update ``lr·sign(g)``, so only this
+  check sees the gradient's size);
 * losses rtol 1e-5, the parameters after a step at JAX's EP oracle's rtol
   2e-3 / atol 3e-6 (``tests/test_ep_train.py``);
 * the halo forward against the model's own forward on the whole batch:
@@ -27,7 +32,9 @@ from ionic_mpnn_torch.parallel import (collective_stats, halo_forward, make_halo
                                        run_local)
 from ionic_mpnn_torch.parallel.collectives import Collectives
 from ionic_mpnn_torch.parallel.halo_partition import _SHARDED_FIELDS
+from ionic_mpnn_torch.training.loop import data_loss_sum, l2_penalty
 
+GRAD_TOL = 1e-5  # of each tensor's max
 LOSS_RTOL = 1e-5
 PARAM_TOL = dict(rtol=2e-3, atol=3e-6)
 FORWARD_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -70,8 +77,15 @@ def _rank_halo(rank, world, device, cfg_dict, state, batch, big):
         out["forward"] = halo_forward(model, cfg, local, comm).numpy()
 
     step = make_halo_ep_train_step(model, cfg, TrainConfig(seed=0), mesh=mesh)
+    opt_step, grads = step.optimizer.step, []
+
+    def step_and_record():  # the summed gradients, before the optimizer's clip
+        grads.append({k: p.grad.detach().numpy().copy() for k, p in model.named_parameters()})
+        opt_step()
+
+    step.optimizer.step = step_and_record
     out["loss"] = float(step(parted)["loss"])
-    out["state"] = _numpy(model)
+    out["state"], out["grads"] = _numpy(model), grads[0]
     out["losses"] = [out["loss"]] + [float(step(parted)["loss"])
                                       for _ in range(DESCEND_STEPS - 1)]
     out["steps"] = step.steps
@@ -180,7 +194,7 @@ def test_halo_ep_step_matches_jax(setup, ranks):
     from ionic_mpnn_tpu.parallel import make_mesh as j_make_mesh
     from ionic_mpnn_tpu.parallel.halo_partition import make_halo_ep_train_step as j_halo_step
     from ionic_mpnn_tpu.parallel.halo_partition import partition_halo_batch as j_partition
-    from ionic_mpnn_tpu.training.loop import TrainState, make_train_step
+    from ionic_mpnn_tpu.training.loop import TrainState, _l2_penalty, make_train_step
     from ionic_mpnn_tpu.training.optim import make_optimizer
     from ionic_mpnn_torch.params import flax_to_state_dict
 
@@ -203,6 +217,27 @@ def test_halo_ep_step_matches_jax(setup, ranks):
     for s in (s_halo, s_ref):
         for k, w in flax_to_state_dict(s.params).items():
             np.testing.assert_allclose(got["state"][k], w.numpy(), **PARAM_TOL, err_msg=k)
+
+    # the summed gradients: JAX's of the whole batch's loss, and the port's
+    b, model = setup["j_batch"], JModel(cfg)
+
+    def loss(p):
+        pred = model.apply({"params": p}, b, deterministic=True)["pred"]
+        return (((pred - b.y) ** 2 * b.sample_mask).sum() / b.sample_mask.sum()
+                + _l2_penalty(p, cfg.fp_l2))
+
+    ref = _model(model_config_from_dict(setup["cfg_dict"]), setup["state"])
+    t = setup["t_batch"]
+    (data_loss_sum(ref(t.to("cpu"))["pred"], torch.as_tensor(t.y),
+                   torch.as_tensor(t.sample_mask), "mse", 1.0) / float(np.sum(t.sample_mask))
+     + l2_penalty(ref, cfg.fp_l2)).backward()
+    for what, want in (("JAX", flax_to_state_dict(jax.grad(loss)(setup["params"]))),
+                       ("accumulated", {k: p.grad for k, p in ref.named_parameters()})):
+        for k, w in want.items():
+            w = w.numpy()
+            np.testing.assert_allclose(got["grads"][k], w, rtol=0,
+                                       atol=GRAD_TOL * max(np.abs(w).max(), 1e-30),
+                                       err_msg=f"grad vs {what} {k}")
 
 
 def test_halo_ep_descends(ranks):
@@ -228,3 +263,14 @@ def test_halo_traffic_is_halo_sized_and_does_not_grow_with_n(setup, ranks):
         assert 4 * r["N"] * D > pool
     assert (sum(small["stats"]["collective-permute"])
             == sum(big["stats"]["collective-permute"]))
+
+
+@pytest.mark.parametrize("option", [dict(compute_dtype="bfloat16"),
+                                    dict(message_impl="pallas_fused"),
+                                    dict(scatter_impl="pallas")])
+def test_halo_step_refuses_a_config_it_does_not_compute(setup, option):
+    """The halo forward is f32 gather math with plain segment sums: a
+    config that asks for anything else is refused, not overridden."""
+    cfg = model_config_from_dict(setup["cfg_dict"]).replace(**option)
+    with pytest.raises(ValueError, match="the halo step computes in f32 gather math"):
+        make_halo_ep_train_step(_model(cfg, setup["state"]), cfg, TrainConfig(), mesh=None)
