@@ -247,6 +247,31 @@ Phases, in order (any failure raises and the script exits non-zero):
    accumulated), the ranks bit-equal, the launches per rank exact. Last,
    ``benchmarks/scaling.py`` in its three modes over the cards the machine
    has. A failed rank stops the others and raises.
+   [phases]: the phase-cut forward (``benchmarks/phases.py``) of the
+   onehot model on the bench batch of 2048 (window_aligned, window 64),
+   in bf16 and f32: every phase finite, ``fwd`` equal to the model's loss
+   (bf16 3e-2, f32 1e-5), each phase's forward time (CUDA events, median
+   of 20) and the deltas between phases. Then, in a process of its own
+   (the profiler stays attached to a process once it ran), ``utils.trace``
+   around two graphed ``pallas_step`` bf16 train steps: the trace file
+   exists and names ``fused_message_tc_kernel``; launches exact.
+   [quality]: the quality-protocol battery (``python -m
+   ionic_mpnn_torch.cli.quality_protocols``) in a process of its own with
+   JAX, its libraries, the JAX package and matplotlib unimportable, at the
+   published sizes: hard labels from 7,666 viscosity rows and 400
+   melting-point draws, the random, pair-level and family-holdout splits,
+   viscosity for up to 400 epochs (warm-up 1000), the melting-point model
+   and the two-stage transfer for up to 300, patience 50, seed 0, batch
+   1024, in the default CUDA configuration (``pallas_step`` bf16). Each row
+   beside the JAX package's row of the same task and split
+   (``docs/quality_protocols_r5.json``, R² and MAE). Every metric finite;
+   the launch counts exact (from each fit's train steps, epochs and dev
+   batches and the evaluation's batches, as the CLI reports them: phase
+   6's per-step counts, [transfer]'s per stage, 8 ``fused_mp_step`` per
+   forward), no ``sorted_segment_sum``; the random split's test R² at
+   least 0.50 (viscosity), 0.85 (mp) and 0.85 (transfer). A row below its
+   gate runs again in plain ``gather`` f32 on the card, both rows printed,
+   and the phase fails.
 13. Times. Wall times first (CUDA events, before torch.profiler attaches):
    each wrapper call at the cation shape (median of 60), each forward per
    batch (median of 50), the host time each kernel's autograd Function would
@@ -3955,6 +3980,261 @@ def phase_ep(records, plan, vocab):
             "seconds": seconds}, launches
 
 
+# ---------------------------------------------------------------- [phases]
+
+PHASES_WINDOW = 64  # the bf16 onehot window (resolve_onehot_window)
+# the phase-cut forward's "fwd" against the model's loss: JAX's own bounds
+# (tests/test_phases.py), bf16 and f32
+PHASES_TOL = {"bfloat16": 3e-2, "float32": 1e-5}
+PHASES_TIMED = 20
+PHASES_TRACE_STEPS = 2
+
+
+def phases_trace_child(log_dir):
+    """Run in a process of its own by [phases] (CUPTI stays attached to a
+    process once the profiler ran, and would slow every wall time [times]
+    takes after it): two graphed ``pallas_step`` bf16 train steps at batch
+    2048, their graphs captured first, inside ``utils.trace(log_dir)``.
+    Prints one JSON line: the launch counts of every step it ran and the
+    trace file's name and kernel events."""
+    from ionic_mpnn_torch.benchmarks import make_bench_dataset
+    from ionic_mpnn_torch.config import TrainConfig, viscosity_config
+    from ionic_mpnn_torch.data import iter_batches, plan_capacities
+    from ionic_mpnn_torch.models import ViscosityModel
+    from ionic_mpnn_torch.ops import cuda as kernels
+    from ionic_mpnn_torch.training import make_train_step
+    from ionic_mpnn_torch.utils import trace
+
+    records, vocab = make_bench_dataset(BATCH, seed=0)
+    plan = plan_capacities(records, BATCH, headroom=2.0)
+    batches = list(iter_batches(records, plan, shuffle=True, seed=0))[:1] * 2
+    cfg = viscosity_config(vocab.atom_vocab_size, vocab.bond_vocab_size,
+                           message_impl="pallas_step", compute_dtype="bfloat16")
+    step = make_train_step(ViscosityModel(cfg, seed=0), cfg, TrainConfig())
+    kernels.reset_launch_counts()
+    for batch in batches:  # the first call runs eagerly and captures; then replays
+        step(batch)
+    torch.cuda.synchronize()
+    with trace(log_dir):
+        for batch in batches[:PHASES_TRACE_STEPS]:
+            loss = step(batch)["loss"]
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    files = sorted(Path(log_dir).glob("*.pt.trace.json"))
+    events = json.loads(files[0].read_text())["traceEvents"] if len(files) == 1 else []
+    names = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    print(json.dumps({"launches": counts, "steps": len(batches) + PHASES_TRACE_STEPS,
+                      "loss": float(loss), "files": [f.name for f in files],
+                      "bytes": files[0].stat().st_size if files else 0,
+                      "kernel_events": sum(names.values()),
+                      "fused_events": sum(v for k, v in names.items()
+                                          if "fused_message_tc_kernel" in k)}), flush=True)
+
+
+def phase_phases(records, vocab, state, dev):
+    """[phases]: the phase-cut forward (``benchmarks/phases.py``) on the
+    bench batch of 2048, onehot on window_aligned batches at window 64:
+    every phase finite, ``fwd`` equal to the model's loss (bf16 3e-2, f32
+    1e-5), each phase's forward time (CUDA events) and the deltas between
+    phases; then ``utils.trace`` around two graphed ``pallas_step`` bf16
+    train steps in a process of its own, whose trace file must name
+    ``fused_message_tc_kernel``."""
+    import tempfile
+
+    from ionic_mpnn_torch.benchmarks.phases import PHASES, phase_forward
+    from ionic_mpnn_torch.config import viscosity_config
+    from ionic_mpnn_torch.data import iter_batches, plan_capacities
+    from ionic_mpnn_torch.models import ViscosityModel
+    from ionic_mpnn_torch.training import data_loss, l2_penalty
+
+    t_phase = time.perf_counter()
+    plan = plan_capacities(records, BATCH, headroom=2.0, edge_layout="window_aligned",
+                           window=PHASES_WINDOW)
+    batch = next(iter_batches(records, plan)).to(dev)
+    out = {"window": PHASES_WINDOW, "batch": BATCH}
+    for dtype, tol in PHASES_TOL.items():
+        cfg = viscosity_config(vocab.atom_vocab_size, vocab.bond_vocab_size,
+                               message_impl="onehot", compute_dtype=dtype,
+                               onehot_window=PHASES_WINDOW)
+        model = ViscosityModel(cfg, seed=0)
+        model.load_state_dict(state)
+        model.eval()
+        params = dict(model.named_parameters())
+        with torch.inference_mode():
+            pred = model(batch)["pred"]
+            want = float(data_loss(pred, batch.y, batch.sample_mask, "mse", 1.0)
+                         + l2_penalty(model, cfg.fp_l2))
+            values = {p: float(phase_forward(params, cfg, batch, p)) for p in PHASES}
+            ms = {p: time_ms(lambda p=p: phase_forward(params, cfg, batch, p), n=PHASES_TIMED)
+                  for p in PHASES}
+        bad = [p for p, v in values.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"[phases] {dtype}: non-finite phases {bad}: {values}")
+        got = values["fwd"]
+        if abs(got - want) > tol * (1 + abs(want)):
+            raise AssertionError(f"[phases] {dtype}: fwd {got!r} against the model's loss "
+                                 f"{want!r} (rtol/atol {tol})")
+        deltas = {f"{a}->{b}": ms[b] - ms[a] for a, b in zip(PHASES, PHASES[1:])}
+        out[dtype] = {"fwd": got, "model_loss": want, "values": values, "ms": ms,
+                      "delta_ms": deltas}
+        log(f"[phases] {dtype}: fwd {got!r} = the model's loss {want!r} (|err| "
+            f"{abs(got - want):.3e}, rtol/atol {tol}); forward ms per phase "
+            + json.dumps({p: round(v, 4) for p, v in ms.items()}) + "; deltas ms "
+            + json.dumps({k: round(v, 4) for k, v in deltas.items()}))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke as c; c.phases_trace_child(sys.argv[1])",
+             tmp], cwd=HERE, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"[phases] the trace process exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+    per_step, _ = kernel_launches("pallas_step", "xla")
+    want = {k: child["steps"] * per_step.get(k, 0) for k in child["launches"]}
+    if child["launches"] != want:
+        raise AssertionError(f"[phases] trace process: launches {child['launches']}, "
+                             f"expected {want}")
+    if len(child["files"]) != 1 or child["fused_events"] < PHASES_TRACE_STEPS * 24:
+        raise AssertionError(f"[phases] the trace names no fused_message_tc_kernel launch of "
+                             f"the traced steps: {child}")
+    out["trace"] = dict(child, seconds=time.perf_counter() - t0)
+    log(f"[phases] utils.trace around {PHASES_TRACE_STEPS} graphed pallas_step bf16 train "
+        f"steps (a process of its own): {child['files'][0]} ({child['bytes']} bytes), "
+        f"{child['kernel_events']} kernel events, {child['fused_events']} of them "
+        f"fused_message_tc_kernel; launches over its {child['steps']} steps "
+        f"{child['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[phases] phase {out['seconds']:.1f} s")
+    return out, dict(child["launches"])
+
+
+# ---------------------------------------------------------------- [quality]
+
+# the published protocol (the JAX package's scripts/quality_protocols.py):
+# 7666 viscosity rows, 400 melting-point draws, 400 / 300 epochs, patience
+# 50, warm-up 1000, seed 0, batch 1024, all three tasks and splits
+QUALITY_ARGS = ["--n-viscosity", "7666", "--n-mp", "400", "--epochs-viscosity", "400",
+                "--epochs-mp", "300", "--warmup", "1000", "--seed", "0", "--batch-size",
+                "1024", "--tasks", "viscosity,mp,transfer", "--splits", "random,pair,family"]
+# random-split test R² each model must reach; the JAX package's rows at
+# seed 0 (docs/quality_protocols_r5.json) read 0.6054, 0.954 and 0.9272
+QUALITY_GATES = {"viscosity": 0.50, "mp": 0.85, "transfer": 0.85}
+QUALITY_TIMEOUT = 600
+QUALITY_REFERENCE = HERE / "docs" / "quality_protocols_r5.json"
+# CHAIN_NO_JAX, with matplotlib blocked too (the card machine has none)
+QUALITY_NO_JAX = CHAIN_NO_JAX.replace("'ionic_mpnn_tpu')", "'ionic_mpnn_tpu', 'matplotlib')")
+
+
+def quality_run(tmp, args):
+    """The quality CLI in a process of its own with JAX and matplotlib
+    blocked: ``(rows file, the kernel launches line, seconds, stdout)``."""
+    out = Path(tmp) / f"rows_{len(list(Path(tmp).iterdir()))}.json"
+    cmd = [sys.executable, "-c", QUALITY_NO_JAX, "ionic_mpnn_torch.cli.quality_protocols",
+           *args, "--out", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                          timeout=QUALITY_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[quality] exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    last = proc.stdout.strip().splitlines()[-1]
+    if not last.startswith("kernel launches "):
+        raise AssertionError(f"[quality] the last line is not the launch counts: {last!r}")
+    return (json.loads(out.read_text()), json.loads(last[len("kernel launches "):]), seconds,
+            proc.stdout)
+
+
+def quality_expected(fits):
+    """The exact launches of the CLI's fits: per train step phase 6's
+    counts (viscosity and mp) or [transfer]'s per stage, and 8
+    ``fused_mp_step`` per forward of each epoch's dev eval and of the
+    evaluation."""
+    per_step, per_fwd = kernel_launches("pallas_step", "xla")
+    want = {k: 0 for k in TRANSFER_LAUNCHES[1]}
+    for f in fits:
+        stages = ([TRANSFER_LAUNCHES[1], TRANSFER_LAUNCHES[2]] if f["task"] == "transfer"
+                  else [per_step])
+        if len(stages) != len(f["stages"]):
+            raise AssertionError(f"[quality] {f['task']} {f['split']}: stages {f['stages']}")
+        forwards = f["eval_batches"]
+        for counts, s in zip(stages, f["stages"]):
+            forwards += s["dev_batches"] * s["epochs"]
+            for k in want:
+                want[k] += s["train_steps"] * counts.get(k, 0)
+        for k in want:
+            want[k] += forwards * per_fwd.get(k, 0)
+    return want
+
+
+def _row_line(r):
+    return (f"test R2 {r['test_r2']} MAE {r['test_mae']}, dev R2 {r['dev_r2']} MAE "
+            f"{r['dev_mae']}, train R2 {r['train_r2']} MAE {r['train_mae']}")
+
+
+def phase_quality():
+    """[quality]: the quality-protocol battery (``cli.quality_protocols``)
+    on the card at the published sizes, in a process of its own with JAX
+    and matplotlib blocked, in the default CUDA configuration: every row
+    beside the JAX package's row of the same task and split (R² and MAE),
+    every metric finite, the launch counts exact and no
+    ``sorted_segment_sum``, and the random split's test R² at least
+    QUALITY_GATES. A row that misses its gate is run again in plain
+    ``gather`` f32 on the card, both rows printed, before the phase fails."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    reference = {(r["task"], r["split"]): r
+                 for r in json.loads(QUALITY_REFERENCE.read_text())["rows"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        rows, line, seconds, stdout = quality_run(tmp, QUALITY_ARGS)
+        cfg = {k: rows[k] for k in ("message_impl", "dtype", "batch_size", "label_mode")}
+        if cfg != {"message_impl": "pallas_step", "dtype": "bfloat16", "batch_size": 1024,
+                   "label_mode": "hard"}:
+            raise AssertionError(f"[quality] ran {cfg}, not the default CUDA configuration")
+        launches, want = line["launches"], quality_expected(line["fits"])
+        out = {"seconds": seconds, "config": cfg, "rows": rows["rows"], "fits": line["fits"],
+               "launches": launches}
+        for r in rows["rows"]:
+            j = reference.get((r["task"], r["split"]))
+            log(f"[quality] {r['task']} {r['split']}: n {r['n']}, epochs "
+                f"{r.get('epochs_run', '-')}, {r['wall_s']} s; {_row_line(r)}")
+            if j is not None:
+                log(f"[quality]   JAX's row (onehot bf16, seed 0): {_row_line(j)}")
+            bad = [k for k, v in r.items() if k.endswith(("_r2", "_mae"))
+                   and not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f"[quality] {r['task']} {r['split']}: non-finite {bad}")
+        log(f"[quality] {len(rows['rows'])} rows in {seconds:.1f} s; launches {launches}, "
+            f"expected {want}")
+        if launches != want:
+            raise AssertionError(f"[quality] launch counts {launches}, expected {want} from "
+                                 f"{line['fits']}")
+        if launches["sorted_segment_sum"] != 0 or not launches["fused_mp_step"] > 0:
+            raise AssertionError(f"[quality] launches {launches}")
+        misses = [r for r in rows["rows"] if r["split"] == "random"
+                  and r["test_r2"] < QUALITY_GATES[r["task"]]]
+        for r in misses:
+            plain, _, s, _ = quality_run(tmp, QUALITY_ARGS[:-4] + [
+                "--tasks", r["task"], "--splits", "random", "--message-impl", "gather",
+                "--dtype", "float32"])
+            p = next(x for x in plain["rows"] if x["task"] == r["task"])
+            log(f"[quality] {r['task']} random MISSES its gate {QUALITY_GATES[r['task']]}: "
+                f"pallas_step bf16 {_row_line(r)}; plain gather f32 on the card ({s:.1f} s) "
+                f"{_row_line(p)}")
+        if misses:
+            raise AssertionError(f"[quality] random-split test R2 below its gate: "
+                                 + ", ".join(f"{r['task']} {r['test_r2']}" for r in misses))
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[quality] phase {out['phase_seconds']:.1f} s")
+    return out, {k: v for k, v in launches.items()}
+
+
 # ---------------------------------------------------------------- phase 13
 
 def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS):
@@ -4162,12 +4442,15 @@ def main() -> int:
     screen, screen_launches, screen_profile = phase_screen(dev)
     dp, dp_launches = phase_dp(records, plan, vocab, fit_data)
     ep, ep_launches = phase_ep(records, plan, vocab)
+    phases, phases_launches = phase_phases(records, vocab, state, dev)
+    quality, quality_launches = phase_quality()
     rows, forward, dK, train, overhead = phase_times(
         batch0, V, models, launches, errs, train_steps, train_batch, train_launches,
         {"fit": fit_launches, "graphs": graphs_launches, "mp": mp_launches,
          "onehot": onehot_launches, "device_epochs": device_ep_launches,
          "transfer": transfer_launches, "chain": chain_launches, "screen": screen_launches,
-         "dp": dp_launches, "ep": ep_launches})
+         "dp": dp_launches, "ep": ep_launches, "quality": quality_launches,
+         "phases": phases_launches})
     fit_profile = fit_busy_share(one_epoch_fit)
     onehot["times"] = onehot_profile(forward["pallas_step bf16"])
     graphs = graphs_profile()
@@ -4180,7 +4463,7 @@ def main() -> int:
                     "fit_profile": fit_profile, "graphs": graphs, "native": native,
                     "mp": mp, "bench": bench, "onehot": onehot, "device_epochs": device_ep,
                     "transfer": transfer, "chain": chain, "screen": screen, "dp": dp,
-                    "ep": ep, "card": smi}))
+                    "ep": ep, "quality": quality, "phases": phases, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,5 @@
 """Evaluation of the trained models (the reference ``Main.ipynb``'s role),
-the JAX package's ``scripts/evaluate.py`` on PyTorch, without its plots.
+the JAX package's ``scripts/evaluate.py`` on PyTorch.
 
     python -m ionic_mpnn_torch.cli.evaluate --data-dir data --results-dir results \
         [--device cpu]
@@ -11,27 +11,37 @@ CLIs write them), it rebuilds the model from the checkpoint's
 best weights and BatchNorm statistics (``best_params`` / ``best_stats``
 where saved, as JAX's ``evaluate.py:49-50``), repeats the training split
 (seed-42 random) and prints R² and MAE per split on the de-normalized
-scale. The metrics go to ``<out-dir>/metrics.json``; the parity plots and
-loss curves are not made (the plotting module is not ported). It exits 1
-when it finds no checkpoint. It runs on CUDA unless ``--device cpu``; its
-last line gives the CUDA kernels' launch counts.
+scale. The metrics go to ``<out-dir>/metrics.json``, and per model the
+train/dev parity plot ``parity_<name>.png`` and, from each
+``history_*.pkl`` beside its checkpoints, the loss curve
+``loss_<name>.png`` (where matplotlib is not installed it says so in one
+line and plots nothing). It exits 1 when it finds no checkpoint. It runs
+on CUDA unless ``--device cpu``; its last line gives the CUDA kernels'
+launch counts.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import pickle
 import sys
 from pathlib import Path
 from typing import List, Optional
 
+import numpy as np
+
 
 def evaluate_checkpoint(name, model_cls, records, ckpt_dir, target_key, unit="",
-                        default_cfg=None, with_temperature=True, device=None):
-    """R² and MAE per split of the model saved under ``ckpt_dir``."""
+                        default_cfg=None, with_temperature=True, device=None,
+                        out_dir=None):
+    """R² and MAE per split of the model saved under ``ckpt_dir``; with
+    ``out_dir`` also its parity plot and loss curves there."""
     from ..config import edge_layout_for, model_config_from_dict
     from ..data import plan_capacities
-    from ..training import Normalizer, evaluate_splits, random_split, restore_checkpoint
+    from ..training import (Normalizer, evaluate_splits, predict, random_split,
+                            restore_checkpoint)
+    from ..utils.plotting import plot_loss, plot_parity
 
     restored = restore_checkpoint(ckpt_dir)
     # rebuild the trained architecture from the saved config
@@ -61,6 +71,18 @@ def evaluate_checkpoint(name, model_cls, records, ckpt_dir, target_key, unit="",
     print(f"== {name} ==")
     for split, m in metrics.items():
         print(f"  {split}: R2={m['r2']:.4f}, MAE={m['mae']:.4f}{unit}")
+    if out_dir is None:
+        return metrics
+
+    y_train = np.array([r[target_key] for r in splits["Train"]], np.float32)
+    y_dev = np.array([r[target_key] for r in splits["Dev"]], np.float32)
+    pred_train = normalizer.inverse(predict(model, splits["Train"], plan, device=device))
+    pred_dev = normalizer.inverse(predict(model, splits["Dev"], plan, device=device))
+    plot_parity(y_train, pred_train, y_dev, pred_dev, Path(out_dir) / f"parity_{name}.png",
+                title=f"{name} parity")
+    for hf in Path(ckpt_dir).parent.glob("history_*.pkl"):
+        with open(hf, "rb") as f:
+            plot_loss(pickle.load(f), Path(out_dir) / f"loss_{name}.png", f"{name} loss")
     return metrics
 
 
@@ -77,6 +99,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..data.reference_io import load_pickle
     from ..models import MeltingPointModel, TransferMPModel, ViscosityModel
     from ..ops.cuda import launch_counts
+    from ..utils.plotting import NO_MATPLOTLIB, have_matplotlib
 
     device = resolve_device(args.device)
     data_dir = Path(args.data_dir)
@@ -91,21 +114,24 @@ def main(argv: Optional[List[str]] = None) -> int:
         ("transfer", TransferMPModel, "mp_id_data.pkl", "mp", " K",
          viscosity_config(*sizes).replace(head="transfer"), False),
     ]
+    out_dir = Path(args.out_dir)
+    plots = have_matplotlib()
     found = {}
     for name, model_cls, data, target, unit, default_cfg, with_t in tasks:
         ckpt = results / name / "checkpoints"
         if ckpt.exists():
+            out_dir.mkdir(parents=True, exist_ok=True)
             found[name] = evaluate_checkpoint(
                 name, model_cls, load_pickle(data_dir / data), ckpt, target, unit,
-                default_cfg=default_cfg, with_temperature=with_t, device=device)
+                default_cfg=default_cfg, with_temperature=with_t, device=device,
+                out_dir=out_dir if plots else None)
     if not found:
         print("no checkpoints found under", results)
         return 1
-    out_dir = Path(args.out_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "metrics.json").write_text(json.dumps(found, indent=1))
-    print(f"metrics → {out_dir / 'metrics.json'}; plots skipped: the parity plots and "
-          f"loss curves are not ported")
+    print(f"metrics → {out_dir / 'metrics.json'}")
+    if not plots:
+        print(NO_MATPLOTLIB)
     print("kernel launches " + json.dumps(launch_counts()))
     return 0
 

@@ -12,8 +12,8 @@ std-or-1 guard, ``train_melting_point.py:255-258``), trains the
 ``model_config``) and ``mp_norm_params.json`` (the statistics the
 reference never saves), and prints R² and MAE for train, dev and test on
 the de-normalized scale. It runs on CUDA unless ``--device cpu``; its last
-line gives the CUDA kernels' launch counts. The loss-curve plot is not
-made (the plotting module is not ported).
+line gives the CUDA kernels' launch counts. It plots the loss curve into
+``loss_mp.png``; where matplotlib is not installed it says so in one line.
 """
 
 from __future__ import annotations
@@ -72,6 +72,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..models import MeltingPointModel
     from ..ops.cuda import launch_counts
     from ..training import evaluate_splits, fit, random_split, save_checkpoint
+    from ..utils.plotting import NO_MATPLOTLIB, have_matplotlib, plot_loss
 
     device = resolve_device(args.device)
     data_path = Path(args.data)
@@ -114,7 +115,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                     normalizer=result.normalizer,
                     extra={"model_config": model_config_to_dict(cfg)})
     result.normalizer.save(out_dir / "mp_norm_params.json")
-    print("plots skipped: the loss-curve and parity plots are not ported")
+    if have_matplotlib():
+        plot_loss(result.history, out_dir / "loss_mp.png", "Training curve (melting point)")
+    else:
+        print(NO_MATPLOTLIB)
 
     metrics = evaluate_splits(model, {"Train": train, "Dev": dev, "Test": test}, plan,
                               result.normalizer)

@@ -18,8 +18,9 @@ writes ``history_transfer.pkl``, ``checkpoints/`` (stage 2's best weights,
 (``train_melting_point_transfer.py:76-287``). It prints each stage's
 epochs, train steps, epoch seconds and train steps per second, R²
 and MAE for train, dev and test, and, last, the CUDA kernels' launch
-counts. It runs on CUDA unless ``--device cpu``. The loss-curve plot is
-not made.
+counts. It runs on CUDA unless ``--device cpu``. It plots both stages'
+loss curve into ``loss_transfer.png``; where matplotlib is not installed it
+says so in one line.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..ops.cuda import launch_counts
     from ..training import evaluate_splits, random_split, restore_checkpoint, save_checkpoint
     from ..training.transfer_pipeline import train_transfer
+    from ..utils.plotting import NO_MATPLOTLIB, have_matplotlib, plot_loss
 
     device = resolve_device(args.device)
     data_path = Path(args.data)
@@ -113,7 +115,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                     batch_stats=result.batch_stats, normalizer=result.normalizer,
                     extra={"model_config": model_config_to_dict(result.model.cfg)})
     result.normalizer.save(out_dir / "scaler.json")
-    print("plots skipped: the loss-curve and parity plots are not ported")
+    if have_matplotlib():
+        plot_loss(result.history, out_dir / "loss_transfer.png",
+                  "Transfer training (both stages)")
+    else:
+        print(NO_MATPLOTLIB)
 
     metrics = evaluate_splits(result.model, {"Train": train, "Dev": dev, "Test": test},
                               plan, result.normalizer)

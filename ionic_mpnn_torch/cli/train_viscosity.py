@@ -13,8 +13,10 @@ for train, dev and test, and, last, the CUDA kernels' launch counts. It
 runs on CUDA unless ``--device cpu``. With
 ``--message-impl onehot`` it plans ``window_aligned`` batches
 (``edge_layout_for``) with the window of ``resolve_onehot_window`` (64
-for bf16, 128 for f32, unless ``--window``). The loss-curve and parity
-plots are not made (the plotting module is not ported).
+for bf16, 128 for f32, unless ``--window``). It plots the loss curve
+(``loss_viscosity.png``) and the train/dev parity plot
+(``figure2_a_viscosity.png``) into ``--out-dir``; where matplotlib is not
+installed it says so in one line and makes neither.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import pickle
 import sys
 from pathlib import Path
 from typing import List, Optional
+
+import numpy as np
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -81,8 +85,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..data.reference_io import load_id_data_npz, load_pickle
     from ..models import ViscosityModel
     from ..ops.cuda import launch_counts
-    from ..training import (evaluate_splits, fit, pair_level_split, random_split,
+    from ..training import (evaluate_splits, fit, pair_level_split, predict, random_split,
                             save_checkpoint)
+    from ..utils.plotting import NO_MATPLOTLIB, have_matplotlib, plot_loss, plot_parity
 
     device = resolve_device(args.device)
     data_path = Path(args.data)
@@ -132,12 +137,29 @@ def main(argv: Optional[List[str]] = None) -> int:
     save_checkpoint(out_dir / "checkpoints", result.epochs_run, result.params,
                     normalizer=result.normalizer,
                     extra={"model_config": model_config_to_dict(cfg)})
-    print("plots skipped: the loss-curve and parity plots are not ported")
+    plots = have_matplotlib()
+    if plots:
+        plot_loss(result.history, out_dir / "loss_viscosity.png",
+                  "Training curve (viscosity)")
+    else:
+        print(NO_MATPLOTLIB)
 
     metrics = evaluate_splits(model, {"Train": train, "Dev": dev, "Test": test}, plan,
                               result.normalizer)
     for name, m in metrics.items():
         print(f"{name}: R2={m['r2']:.4f}, MAE={m['mae']:.4f}")
+
+    if plots:
+        # as JAX's script: the predictions as fit() trained them (on the
+        # normalized scale under --normalize-y), the targets as loaded
+        y_train = np.array([r["log_eta"] for r in train], np.float32)
+        y_dev = np.array([r["log_eta"] for r in dev], np.float32)
+        plot_parity(y_train, predict(model, train, plan, device=device), y_dev,
+                    predict(model, dev, plan, device=device),
+                    out_dir / "figure2_a_viscosity.png",
+                    xlabel="Experimental log(viscosity)",
+                    ylabel="Predicted log(viscosity)",
+                    title="Viscosity prediction (Figure 2a)")
     print(f"artifacts → {out_dir}")
     print("kernel launches " + json.dumps(launch_counts()))
     return 0

@@ -44,7 +44,7 @@ import os
 import sys
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -66,15 +66,17 @@ _REGULARIZED_KERNELS = ("fp_dense", "head_dense")
 _RANK_SEED_STRIDE = 1_000_003  # a rank's dropout seeds: seed + i + stride · rank
 
 
-def l2_penalty(model: torch.nn.Module, coef: float) -> torch.Tensor:
+def l2_penalty(model: Union[torch.nn.Module, Mapping[str, torch.Tensor]],
+               coef: float) -> torch.Tensor:
     """``coef · Σ ‖W‖²`` over the Dense kernels (``weight``) of modules whose
     path holds ``fp_dense`` or ``head_dense``, as the reference regularizes
-    them (``train_viscosity.py:189``)."""
-    device = next(model.parameters()).device
-    total = torch.zeros((), dtype=torch.float32, device=device)
+    them (``train_viscosity.py:189``). ``model``: a module, or its
+    parameters by ``state_dict`` name."""
+    named = list(model.items() if isinstance(model, Mapping) else model.named_parameters())
+    total = torch.zeros((), dtype=torch.float32, device=named[0][1].device)
     if coef <= 0:
         return total
-    for name, w in model.named_parameters():
+    for name, w in named:
         path = name.split(".")
         if path[-1] == "weight" and w.dim() == 2 and any(m in path for m in _REGULARIZED_KERNELS):
             total = total + w.float().square().sum()

@@ -396,9 +396,10 @@ def test_fit_with_dropout_repeats_and_resumes_bit_for_bit(setup, tmp_path):
 
 def test_training_clis_and_evaluate_on_the_cpu(tmp_path, capsys):
     """The melting-point and transfer CLIs on ``train_viscosity``'s
-    checkpoint, then ``evaluate``: each writes its files, and ``evaluate``
-    repeats each CLI's split metrics from the saved best weights (BatchNorm
-    statistics included); without checkpoints it exits 1."""
+    checkpoint, then ``evaluate``: each writes its files (its plots
+    included: matplotlib is installed here), and ``evaluate`` repeats each
+    CLI's split metrics from the saved best weights (BatchNorm statistics
+    included); without checkpoints it exits 1."""
     data, res = tmp_path / "data", tmp_path / "results"
     common = ["--device", "cpu", "--vocab", str(data / "vocab.pkl"), "--epochs", "2"]
     assert prepare_data.main(["--data-dir", str(data), "--synthetic", "--n-viscosity",
@@ -417,9 +418,12 @@ def test_training_clis_and_evaluate_on_the_cpu(tmp_path, capsys):
         printed[name] = [line for line in capsys.readouterr().out.splitlines()
                          if "R2=" in line]
     assert {p.name for p in (res / "melting_point").iterdir()} == {
-        "checkpoints", "history_mp.pkl", "mp_norm_params.json"}
+        "checkpoints", "history_mp.pkl", "mp_norm_params.json", "loss_mp.png"}
     assert {p.name for p in (res / "transfer").iterdir()} == {
-        "checkpoints", "history_transfer.pkl", "scaler.json"}
+        "checkpoints", "history_transfer.pkl", "scaler.json", "loss_transfer.png"}
+    assert {p.name for p in (res / "viscosity").iterdir()} == {
+        "checkpoints", "history_viscosity.pkl", "loss_viscosity.png",
+        "figure2_a_viscosity.png"}
     payload = restore_checkpoint(res / "transfer" / "checkpoints")
     assert set(payload["batch_stats"]) == {"mp_bn_1.running_mean", "mp_bn_1.running_var"}
     assert payload["extra"]["model_config"]["head"] == "transfer"
@@ -430,6 +434,8 @@ def test_training_clis_and_evaluate_on_the_cpu(tmp_path, capsys):
                           str(res), "--out-dir", str(tmp_path / "eval")]) == 0
     metrics = json.loads((tmp_path / "eval" / "metrics.json").read_text())
     assert set(metrics) == {"viscosity", "melting_point", "transfer"}
+    assert {p.name for p in (tmp_path / "eval").iterdir()} == {"metrics.json"} | {
+        f"{kind}_{name}.png" for kind in ("parity", "loss") for name in metrics}
     for name, lines in printed.items():
         for line in lines:
             split, rest = line.split(": R2=")
