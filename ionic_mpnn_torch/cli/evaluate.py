@@ -99,7 +99,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..data.reference_io import load_pickle
     from ..models import MeltingPointModel, TransferMPModel, ViscosityModel
     from ..ops.cuda import launch_counts
-    from ..utils.plotting import NO_MATPLOTLIB, have_matplotlib
+    from ..utils.plotting import can_plot
 
     device = resolve_device(args.device)
     data_dir = Path(args.data_dir)
@@ -115,7 +115,7 @@ def main(argv: Optional[List[str]] = None) -> int:
          viscosity_config(*sizes).replace(head="transfer"), False),
     ]
     out_dir = Path(args.out_dir)
-    plots = have_matplotlib()
+    plots = can_plot()
     found = {}
     for name, model_cls, data, target, unit, default_cfg, with_t in tasks:
         ckpt = results / name / "checkpoints"
@@ -130,8 +130,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1
     (out_dir / "metrics.json").write_text(json.dumps(found, indent=1))
     print(f"metrics → {out_dir / 'metrics.json'}")
-    if not plots:
-        print(NO_MATPLOTLIB)
     print("kernel launches " + json.dumps(launch_counts()))
     return 0
 

@@ -6,7 +6,7 @@ labels for all three model families.
         [--splits random,pair,family] [--test-family pyridinium]
         [--epochs-viscosity 400] [--epochs-mp 300] [--label-mode hard]
         [--n-viscosity 7666] [--n-mp 400] [--out results/quality_protocols.json]
-        [--device cpu]
+        [--device cpu] [--init-from quality_init_seed0.npz] [--deterministic]
 
 The labels come from ``data/synthetic.py``'s ``label_mode="hard"``, a
 generating law the VFT head cannot express exactly (a structure-coupled
@@ -31,12 +31,24 @@ train steps, epochs and dev batches and the batches its evaluation ran
 It runs on CUDA (``pallas_step`` in bf16, batch 1024) unless ``--device
 cpu`` (``gather`` in f32, batch 64); ``--message-impl`` and ``--dtype``
 override the resolved configuration.
+
+Two flags the JAX script has no need of. ``--init-from FILE`` starts the
+viscosity (and, where the file holds it, the melting-point) model from the
+weights the JAX package's protocol draws at the same seed, written by
+``tools/export_jax_init.py``, instead of the port's own seeded draw; the
+file's seed, sizes and label mode must be the run's. ``--deterministic``
+runs under ``torch.use_deterministic_algorithms`` (the readout's
+``index_add_`` without atomics), so one tree gives one reading: the
+viscosity recipe's outcome turns on rounding (its dev loss swings by 10×
+from epoch to epoch and early stopping keeps the lowest), where XLA on a
+TPU repeats by itself.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import tempfile
 import time
@@ -72,12 +84,53 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default="auto", choices=["auto", "float32", "bfloat16"],
                     help="auto = bfloat16 on CUDA, float32 on the CPU")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--init-from", default=None,
+                    help="start from the JAX protocol's initial weights "
+                         "(a file of tools/export_jax_init.py)")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="deterministic PyTorch algorithms: one reading per tree")
     return ap
+
+
+def _initial_weights(path, args):
+    """``{model class name: state_dict}`` from a file of
+    ``tools/export_jax_init.py``, whose meta must match the run's flags."""
+    import numpy as np
+    import torch
+
+    with np.load(path) as f:
+        meta = json.loads(str(f["meta"]))
+        want = {"seed": args.seed, "n_viscosity": args.n_viscosity, "n_mp": args.n_mp,
+                "label_mode": args.label_mode, "atom_dim": args.atom_dim}
+        if {k: meta.get(k) for k in want} != want:
+            raise SystemExit(f"--init-from {path}: drawn for {meta}, not for {want}")
+        states = {}
+        for key in f.files:
+            if key != "meta":
+                cls, name = key.split("/", 1)
+                states.setdefault(cls, {})[name] = torch.from_numpy(f[key])
+    if not states or set(states) - {"ViscosityModel", "MeltingPointModel"}:
+        raise SystemExit(f"--init-from {path}: holds {sorted(states)}, not the weights of "
+                         "ViscosityModel or MeltingPointModel")
+    return states
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
+    if not args.deterministic:
+        return _run(args)
+    import torch
 
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _run(args)
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def _run(args) -> int:
     from ..config import (TrainConfig, edge_layout_for, melting_point_config,
                           resolve_compute_dtype, resolve_device, resolve_message_impl,
                           resolve_onehot_window, viscosity_config)
@@ -90,6 +143,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..training.transfer_pipeline import train_transfer
 
     device = resolve_device(args.device)
+    inits = _initial_weights(args.init_from, args) if args.init_from else {}
     tasks = args.tasks.split(",")
     split_kinds = args.splits.split(",")
 
@@ -154,6 +208,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         return {"train_steps": res.steps, "epochs": len(res.segments),
                 "dev_batches": n_batches(dv, plan)}
 
+    def build(cls, cfg):
+        model = cls(cfg, seed=args.seed, device=device)
+        if cls.__name__ in inits:
+            model.load_state_dict(inits[cls.__name__])
+        return model
+
     def metric_keys(m):
         return {**{f"{s}_r2": round(m[s]["r2"], 4) for s in m},
                 **{f"{s}_mae": round(m[s]["mae"], 4) for s in m}}
@@ -173,7 +233,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 warmup_steps=args.warmup, normalize_y=args.normalize_y)
             plan = plan_capacities(tr, batch_size=tcfg.batch_size,
                                    edge_layout=edge_layout_for(impl), window=window)
-            model = ViscosityModel(cfg, seed=args.seed, device=device)
+            model = build(ViscosityModel, cfg)
             t0 = time.time()
             res = fit(model, cfg, tcfg, tr, dv, plan, verbose=False)
             m = evaluate(model, tr, dv, te, plan, res.normalizer,
@@ -201,7 +261,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             plan = plan_capacities(tr, batch_size=tcfg.batch_size,
                                    edge_layout=edge_layout_for(impl), window=window,
                                    with_temperature=False, target_key="mp")
-            model = MeltingPointModel(cfg, seed=args.seed, device=device)
+            model = build(MeltingPointModel, cfg)
             t0 = time.time()
             res = fit(model, cfg, tcfg, tr, dv, plan, verbose=False)
             m = evaluate(model, tr, dv, te, plan, res.normalizer,

@@ -72,7 +72,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..models import MeltingPointModel
     from ..ops.cuda import launch_counts
     from ..training import evaluate_splits, fit, random_split, save_checkpoint
-    from ..utils.plotting import NO_MATPLOTLIB, have_matplotlib, plot_loss
+    from ..utils.plotting import can_plot, plot_loss
 
     device = resolve_device(args.device)
     data_path = Path(args.data)
@@ -115,10 +115,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     normalizer=result.normalizer,
                     extra={"model_config": model_config_to_dict(cfg)})
     result.normalizer.save(out_dir / "mp_norm_params.json")
-    if have_matplotlib():
+    if can_plot():
         plot_loss(result.history, out_dir / "loss_mp.png", "Training curve (melting point)")
-    else:
-        print(NO_MATPLOTLIB)
 
     metrics = evaluate_splits(model, {"Train": train, "Dev": dev, "Test": test}, plan,
                               result.normalizer)

@@ -65,7 +65,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..ops.cuda import launch_counts
     from ..training import evaluate_splits, random_split, restore_checkpoint, save_checkpoint
     from ..training.transfer_pipeline import train_transfer
-    from ..utils.plotting import NO_MATPLOTLIB, have_matplotlib, plot_loss
+    from ..utils.plotting import can_plot, plot_loss
 
     device = resolve_device(args.device)
     data_path = Path(args.data)
@@ -115,11 +115,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                     batch_stats=result.batch_stats, normalizer=result.normalizer,
                     extra={"model_config": model_config_to_dict(result.model.cfg)})
     result.normalizer.save(out_dir / "scaler.json")
-    if have_matplotlib():
+    if can_plot():
         plot_loss(result.history, out_dir / "loss_transfer.png",
                   "Transfer training (both stages)")
-    else:
-        print(NO_MATPLOTLIB)
 
     metrics = evaluate_splits(result.model, {"Train": train, "Dev": dev, "Test": test},
                               plan, result.normalizer)

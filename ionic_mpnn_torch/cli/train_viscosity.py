@@ -87,7 +87,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..ops.cuda import launch_counts
     from ..training import (evaluate_splits, fit, pair_level_split, predict, random_split,
                             save_checkpoint)
-    from ..utils.plotting import NO_MATPLOTLIB, have_matplotlib, plot_loss, plot_parity
+    from ..utils.plotting import can_plot, plot_loss, plot_parity
 
     device = resolve_device(args.device)
     data_path = Path(args.data)
@@ -137,12 +137,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     save_checkpoint(out_dir / "checkpoints", result.epochs_run, result.params,
                     normalizer=result.normalizer,
                     extra={"model_config": model_config_to_dict(cfg)})
-    plots = have_matplotlib()
+    plots = can_plot()
     if plots:
         plot_loss(result.history, out_dir / "loss_viscosity.png",
                   "Training curve (viscosity)")
-    else:
-        print(NO_MATPLOTLIB)
 
     metrics = evaluate_splits(model, {"Train": train, "Dev": dev, "Test": test}, plan,
                               result.normalizer)

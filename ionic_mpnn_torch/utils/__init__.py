@@ -1,7 +1,6 @@
 """Utilities: plotting and profiling."""
 
-from .plotting import NO_MATPLOTLIB, have_matplotlib, plot_loss, plot_parity
+from .plotting import can_plot, plot_loss, plot_parity
 from .profiling import ThroughputMeter, trace
 
-__all__ = ["plot_loss", "plot_parity", "have_matplotlib", "NO_MATPLOTLIB",
-           "ThroughputMeter", "trace"]
+__all__ = ["plot_loss", "plot_parity", "can_plot", "ThroughputMeter", "trace"]

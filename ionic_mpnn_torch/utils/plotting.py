@@ -3,8 +3,8 @@ reference ``train_viscosity.py:61-74, 372-413``, ``utils/mp_utils.py:47-56``;
 Figure-2a/2b/2c style).
 
 matplotlib is imported when a plot is made, never with this module: the
-package imports without it. The CLIs ask :func:`have_matplotlib` first and,
-where it is not installed, print :data:`NO_MATPLOTLIB` instead of plotting.
+package imports without it. The CLIs ask :func:`can_plot` first, which
+prints one line where matplotlib is not installed.
 """
 
 from __future__ import annotations
@@ -14,16 +14,18 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-__all__ = ["plot_loss", "plot_parity", "have_matplotlib", "NO_MATPLOTLIB"]
+__all__ = ["plot_loss", "plot_parity", "can_plot"]
 
 NO_MATPLOTLIB = "plots not made: matplotlib is not installed"
 
 
-def have_matplotlib() -> bool:
-    """Whether matplotlib imports here."""
+def can_plot() -> bool:
+    """Whether matplotlib imports here; where it does not, print
+    :data:`NO_MATPLOTLIB` (a CLI then makes no plot and goes on)."""
     try:
         import matplotlib  # noqa: F401
     except ImportError:
+        print(NO_MATPLOTLIB)
         return False
     return True
 

@@ -143,6 +143,48 @@ def test_port_init_is_seeded_and_keras_shaped(setup):
     assert w.abs().max() <= limit and w.abs().max() > 0.9 * limit
 
 
+@pytest.mark.parametrize("family", ["viscosity", "melting_point"])
+def test_port_init_matches_flax_leaf_by_leaf(encoded_viscosity, family):
+    """Every parameter and buffer the port draws has the law flax's init
+    gives it, pooled over 6 seeds: a constant leaf (zero biases, unit
+    LayerNorm scales) the same constant, a drawn one the same range (max
+    |x| within 5%), spread (std within 10%) and centre (mean within 0.1
+    std). The viscosity and the melting-point (bond_dim 1024) models."""
+    from ionic_mpnn_tpu.config import melting_point_config as j_mp_config
+    from ionic_mpnn_tpu.models import MeltingPointModel as JMP
+    from ionic_mpnn_torch.models import MeltingPointModel as TMP
+
+    vocab = encoded_viscosity["vocab"]
+    sizes = (vocab.atom_vocab_size, vocab.bond_vocab_size)
+    if family == "viscosity":
+        records, cfg, j_cls, t_cls, kw = (encoded_viscosity["viscosity"][:40],
+                                          j_viscosity_config(*sizes), JModel, TModel, {})
+    else:
+        records, cfg, j_cls, t_cls = (encoded_viscosity["mp"][:40], j_mp_config(*sizes),
+                                      JMP, TMP)
+        kw = dict(with_temperature=False, target_key="mp")
+    batch = next(jdata.iter_batches(records, jdata.plan_capacities(records, 16, **kw)))
+    t_cfg = model_config_from_dict(j_to_dict(cfg))
+    jax_leaves, port_leaves = {}, {}
+    for seed in range(6):
+        variables = j_cls(cfg).init(jax.random.PRNGKey(seed), batch)
+        for k, v in flax_to_state_dict(variables).items():
+            jax_leaves.setdefault(k, []).append(np.asarray(v, np.float64))
+        for k, v in t_cls(t_cfg, seed=seed, device="cpu").state_dict().items():
+            port_leaves.setdefault(k, []).append(v.double().numpy())
+    assert set(port_leaves) == set(jax_leaves)
+    for k, js in jax_leaves.items():
+        assert [t.shape for t in port_leaves[k]] == [j.shape for j in js], k
+        j, t = np.concatenate([x.ravel() for x in js]), np.concatenate(
+            [x.ravel() for x in port_leaves[k]])
+        if j.min() == j.max():
+            assert t.min() == t.max() == j[0], k
+            continue
+        assert abs(np.abs(t).max() / np.abs(j).max() - 1) <= 0.05, k
+        assert abs(t.std() / j.std() - 1) <= 0.10, k
+        assert abs(t.mean() - j.mean()) <= 0.1 * j.std(), k
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked(setup):
     if torch.cuda.is_available():
         pytest.skip("this check is for machines without CUDA")

@@ -13,6 +13,12 @@ recorded in order, and the port's CLI builds each model from the next one
 the two packages draw their masks from different generators
 (``test_torch_transfer.py`` pins that difference).
 
+The recorded inits also hold ``tools/export_jax_init.py``: the weights it
+writes are the ones JAX's ``fit`` draws, and the port's CLI started from
+its file (``--init-from``, ``--deterministic``) gives the rows of the run
+above exactly; the committed ``tools/quality_init_seed0.npz`` is its
+output at the published sizes.
+
 Tolerance, derived from ``test_torch_fit.py``'s ``HISTORY_RTOL`` (rtol
 1e-3 on the losses after the first epoch): R² = 1 − SS_res/SS_tot moves by
 1e-3·|1 − R²| when SS_res moves by 1e-3, and MAE by 1e-3 of itself; both
@@ -37,6 +43,9 @@ import ionic_mpnn_torch.training.transfer_pipeline as tpipeline
 from ionic_mpnn_torch.cli import quality_protocols
 from ionic_mpnn_torch.params import flax_to_state_dict
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+import export_jax_init  # noqa: E402
+
 SCRIPT = Path(__file__).resolve().parents[1] / "scripts" / "quality_protocols.py"
 HISTORY_RTOL = 1e-3  # test_torch_fit.py, epochs after the first
 ROUNDING = 1e-4  # the rows' round(x, 4)
@@ -60,7 +69,9 @@ def _no_dropout(config_fn):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def recorded(tmp_path_factory):
+    """``(JAX's rows, the port's rows, the flax inits in the JAX run's
+    order)``."""
     tmp = tmp_path_factory.mktemp("quality")
     inits = []  # (model class name, flax variables), in the JAX run's order
     mp = pytest.MonkeyPatch()
@@ -104,7 +115,12 @@ def runs(tmp_path_factory):
     finally:
         mp.undo()
     return (json.loads((tmp / "jax.json").read_text()),
-            json.loads((tmp / "port.json").read_text()))
+            json.loads((tmp / "port.json").read_text()), inits)
+
+
+@pytest.fixture(scope="module")
+def runs(recorded):
+    return recorded[:2]
 
 
 def test_the_out_file_names_the_same_protocol(runs):
@@ -148,3 +164,70 @@ def test_the_launch_line_reports_every_fit(capsys, tmp_path):
         assert f["eval_batches"] >= 3
         for s in f["stages"]:
             assert s["epochs"] == 1 and s["train_steps"] >= 1 and s["dev_batches"] >= 1
+
+
+def _npz_state(path, cls):
+    with np.load(path) as f:
+        return {k.split("/", 1)[1]: f[k] for k in f.files if k.startswith(cls + "/")}
+
+
+def test_the_exported_init_is_the_one_jax_fit_draws(recorded, tmp_path):
+    """``tools/export_jax_init.py`` at the run's sizes writes, bit for bit,
+    the weights JAX's ``fit`` drew for the random split's viscosity and
+    melting-point models."""
+    inits = recorded[2]
+    path = export_jax_init.export(tmp_path / "init.npz", ("viscosity", "mp"),
+                                  n_viscosity=100, n_mp=50)
+    for (name, variables), cls in zip(inits[:2], ("ViscosityModel", "MeltingPointModel")):
+        assert name == cls
+        want = flax_to_state_dict(variables)
+        got = _npz_state(path, cls)
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
+
+
+def test_the_cli_from_the_exported_init_gives_the_recorded_rows(recorded, tmp_path):
+    """The port's CLI from that file (``--init-from``) gives the rows of
+    the run that loaded the same weights through ``flax_to_state_dict``,
+    exactly, with ``--deterministic`` on and restored after."""
+    path = export_jax_init.export(tmp_path / "init.npz", ("viscosity", "mp"),
+                                  n_viscosity=100, n_mp=50)
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert quality_protocols.main(
+        ["--tasks", "viscosity,mp", "--splits", "random", *ARGS[4:], "--device", "cpu",
+         "--init-from", str(path), "--deterministic", "--out", str(tmp_path / "rows.json")]) == 0
+    assert not torch.are_deterministic_algorithms_enabled()
+    got = json.loads((tmp_path / "rows.json").read_text())["rows"]
+    want = recorded[1]["rows"][:2]
+    assert [(r["task"], r["split"]) for r in got] == [("viscosity", "random"), ("mp", "random")]
+    for g, w in zip(got, want):
+        assert {k: v for k, v in g.items() if k != "wall_s"} == {
+            k: v for k, v in w.items() if k != "wall_s"}
+
+
+def test_init_from_refuses_a_file_drawn_for_other_flags(tmp_path):
+    committed = export_jax_init.HERE / "quality_init_seed0.npz"
+    for flags in (["--seed", "1"], ["--n-viscosity", "100"], ["--label-mode", "vft"]):
+        with pytest.raises(SystemExit, match="drawn for"):
+            quality_protocols.main(["--device", "cpu", "--init-from", str(committed), *flags,
+                                    "--out", str(tmp_path / "rows.json")])
+    with np.load(committed) as f:
+        np.savez(tmp_path / "other.npz", meta=f["meta"], **{"Other/w": np.zeros(2)})
+    with pytest.raises(SystemExit, match="not the weights of"):
+        quality_protocols.main(["--device", "cpu", "--init-from", str(tmp_path / "other.npz"),
+                                "--out", str(tmp_path / "rows.json")])
+
+
+def test_the_committed_init_is_the_export_at_the_published_sizes(tmp_path):
+    """``tools/quality_init_seed0.npz``, which ``chip_smoke.py``'s
+    [protocols] and [quality] start the viscosity model from, is JAX's
+    seed-0 draw for the published protocol (7,666 / 400 records, hard
+    labels)."""
+    committed = export_jax_init.HERE / "quality_init_seed0.npz"
+    fresh = export_jax_init.export(tmp_path / "init.npz")
+    with np.load(committed) as a, np.load(fresh) as b:
+        assert sorted(a.files) == sorted(b.files)
+        assert json.loads(str(a["meta"])) == json.loads(str(b["meta"]))
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)

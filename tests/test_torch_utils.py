@@ -9,7 +9,7 @@ import time
 import numpy as np
 import torch
 
-from ionic_mpnn_torch.utils import ThroughputMeter, have_matplotlib, plot_loss, plot_parity, trace
+from ionic_mpnn_torch.utils import ThroughputMeter, can_plot, plot_loss, plot_parity, trace
 
 
 def test_throughput_meter_counts_units_and_rates():
@@ -26,7 +26,7 @@ def test_throughput_meter_counts_units_and_rates():
 
 
 def test_plots_write_their_files_with_and_without_a_dev_split(tmp_path):
-    assert have_matplotlib()
+    assert can_plot()
     history = {"loss": [3.0, 2.0, 1.0], "val_loss": [3.5, 2.5, 1.5]}
     p1 = plot_loss(history, tmp_path / "loss.png")
     assert p1.exists() and p1.stat().st_size > 0
@@ -55,14 +55,15 @@ def test_the_clis_say_so_and_plot_nothing_without_matplotlib(tmp_path, capsys, m
     """Where matplotlib is not installed (the card machine), a CLI prints
     one line saying so, makes no plot, and exits as it does with plots."""
     from ionic_mpnn_torch.cli import evaluate, prepare_data, train_melting_point
-    from ionic_mpnn_torch.utils import NO_MATPLOTLIB
+    from ionic_mpnn_torch.utils.plotting import NO_MATPLOTLIB
 
     data, res = tmp_path / "data", tmp_path / "results"
     assert prepare_data.main(["--data-dir", str(data), "--synthetic", "--n-viscosity", "40",
                               "--n-mp", "40"]) == 0
     monkeypatch.setitem(sys.modules, "matplotlib", None)  # any import of it now fails
-    assert not have_matplotlib()
     capsys.readouterr()
+    assert not can_plot()
+    assert capsys.readouterr().out == NO_MATPLOTLIB + "\n"
     assert train_melting_point.main([
         "--device", "cpu", "--data", str(data / "mp_id_data.pkl"), "--vocab",
         str(data / "vocab.pkl"), "--out-dir", str(res / "melting_point"), "--epochs", "1",
