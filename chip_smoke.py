@@ -279,6 +279,32 @@ Phases, in order (any failure raises and the script exits non-zero):
    its gate runs again in plain ``gather`` f32 on the card, both rows
    printed, and the phase fails. Its viscosity gate is missed (PERF.md §6,
    PR 13), so it stays out of the default run until its premise is set.
+   [dryrun]: the driver's entry points (``ionic_mpnn_torch/dryrun.py``,
+   the JAX package's ``__graft_entry__.py``). ``entry()`` on the card
+   (``pallas_step`` bf16, the resolved configuration, 8 records at full
+   width) against plain ``gather`` f32 reading the bf16-rounded tensors at
+   [main]'s tolerance, 8 ``fused_mp_step``; then ``dryrun_multichip`` on
+   one NCCL rank per card and on 2 gloo ranks on card 0, every arm of the
+   JAX dry run (the DP step in ``pallas_step`` f32; onehot DP; TP at width
+   16 in ``gather``; the EP aggregate; halo in f32 ``gather``; aligned EP;
+   DP×EP; DP device epochs; sharded screening; the sharded eval, whose rows
+   equal the single-device forward of each shard; the checkpoint resume
+   under the mesh), each rank's launches per arm exact.
+   [demo]: the port's notebook (``examples/demo_torch.ipynb``) at its own
+   sizes (2,000 viscosity rows, 300 melting-point draws, up to 120 epochs
+   with patience 30 at batch 32, transfer up to 80 with patience 20, the
+   screening top 10 of 200 candidates), its code cells run in order in one
+   namespace in a temporary directory on the card's default configuration
+   (``pallas_step`` bf16): each cell's seconds, the viscosity model's
+   Train/Dev/Test R² and MAE and the Dev R² of the melting-point and
+   transfer models beside the JAX notebook's outputs (no gate: draws of the
+   recipe), the launches exact from what the fits report.
+   [host_pipeline]: ``python -m ionic_mpnn_torch.benchmarks.host_pipeline``
+   at its defaults (100,000 records, batch 2048, K = 8, onehot's aligned
+   layout): the seconds of each host stage of a ``fit()`` epoch, the
+   copies going to the card.
+   [bisect]: ``cli/quality_bisect.py`` at its defaults (1,500 records, 60
+   epochs, the five arms): each arm's line; no kernel launched.
 13. Times. Wall times first (CUDA events, before torch.profiler attaches):
    each wrapper call at the cation shape (median of 60), each forward per
    batch (median of 50), the host time each kernel's autograd Function would
@@ -4261,6 +4287,287 @@ def phase_quality(gated=False):
     return out, {k: v for k, v in launches.items()}
 
 
+# ---------------------------------------------------------------- [dryrun]
+
+DRYRUN_GLOO_RANKS = 2
+DRYRUN_NUM_STEPS = 2  # the dry run's model: 2 message steps (JAX's)
+
+
+def dryrun_expected(r):
+    """Each arm's exact launches in one rank of the dry run: the DP step's
+    one train step and the checkpointed fits' steps (phase 6's per-step
+    counts at 2 message steps), a forward of 2 message steps per ion for
+    each of the sharded eval's forwards (its own and one per shard) and each
+    dev batch of the fits' 3 epochs; none in the onehot, gather and plain
+    arms."""
+    per_step, per_fwd = kernel_launches(r["message_impl"], "xla")
+    scale = DRYRUN_NUM_STEPS / 4
+    zero = {k: 0 for k in TRANSFER_LAUNCHES[1]}
+
+    def counts(steps, forwards):
+        return {k: int(scale * (steps * per_step.get(k, 0) + forwards * per_fwd.get(k, 0)))
+                for k in zero}
+
+    want = {arm: dict(zero) for arm in r["arms"]}
+    want["dp"] = counts(1, 0)
+    want["sharded-eval"] = counts(0, 1 + r["world"])
+    f = r["fit"]
+    want["ckpt-resume"] = counts(f["steps"][1], (len(f["first"]) + 1) * f["dev_batches"])
+    return want
+
+
+def phase_dryrun(dev):
+    """[dryrun]: the driver's entry points (``ionic_mpnn_torch/dryrun.py``).
+    ``entry()`` on the card (``pallas_step`` bf16, the resolved config)
+    against plain ``gather`` f32 reading the bf16-rounded tensors at
+    [main]'s tolerance, 8 ``fused_mp_step``; then ``dryrun_multichip`` on
+    one NCCL rank per card and on 2 gloo ranks on card 0 (eager), every arm
+    of the JAX dry run, its sharded eval equal to the single-device forward
+    of each shard, the launches of each arm exact."""
+    from ionic_mpnn_torch import dryrun
+    from ionic_mpnn_torch.models import ViscosityModel
+    from ionic_mpnn_torch.ops import cuda as kernels
+
+    t_phase = time.perf_counter()
+    fn, (model, batch) = dryrun.entry()
+    cfg = model.cfg
+    if (cfg.message_impl, cfg.compute_dtype, cfg.atom_dim) != ("pallas_step", "bfloat16", 32):
+        raise AssertionError(f"[dryrun] entry() built {cfg.message_impl} "
+                             f"{cfg.compute_dtype} D={cfg.atom_dim}")
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        got = fn(model, batch)
+    launches = kernels.launch_counts()
+    if launches != {k: (8 if k == "fused_mp_step" else 0) for k in launches}:
+        raise AssertionError(f"[dryrun] entry(): launches {launches}, expected 8 fused_mp_step")
+    plain = ViscosityModel(cfg.replace(message_impl="gather", compute_dtype="float32"))
+    plain.load_state_dict(model.state_dict())
+    round_in_every_forward(plain)
+    with torch.inference_mode():
+        want = plain(batch)["pred"]
+    err = close("[dryrun] entry() pallas_step bf16", got, want, *MODEL_TOL)
+    out = {"entry": {"pred": got.float().cpu().tolist(), "max_abs_err": err}}
+    log(f"[dryrun] entry(): {cfg.message_impl} {cfg.compute_dtype} on {len(got)} records, "
+        f"8 fused_mp_step, max |err| {err:.3e} against plain gather f32 with the bf16-rounded "
+        f"tensors (rtol/atol {MODEL_TOL[0]})")
+    world = torch.cuda.device_count()
+    for tag, n, backend in (("nccl", world, "nccl"), ("gloo", DRYRUN_GLOO_RANKS, "gloo")):
+        t0 = time.perf_counter()
+        ranks = dryrun.dryrun_multichip(n, backend, "cuda")
+        seconds = time.perf_counter() - t0
+        for r in ranks:
+            want = dryrun_expected(r)
+            if r["launches"] != want:
+                raise AssertionError(f"[dryrun] {tag} rank {r['rank']}: launches per arm "
+                                     f"{r['launches']}, expected {want}")
+            for counts in r["launches"].values():
+                _add(launches, counts)
+        r = ranks[0]
+        log(f"[dryrun] {tag}, {n} rank(s), {r['message_impl']} f32: dp loss {r['dp_loss']:.6f}, "
+            f"onehot {r['onehot_loss']:.6f}, halo {r['halo_loss']:.6f}, aligned "
+            f"{r['aligned_loss']:.6f}" + (f", tp {r['tp_loss']:.6f}, dpxep {r['dpxep_loss']:.6f}"
+                                          if "tp_loss" in r else "")
+            + f"; device epochs {r['de_n']:.0f} records once; sharded eval "
+            f"{r['eval_preds'].shape} within {r['eval_err']:.3e} of the single-device forward "
+            f"per shard (rtol {dryrun.EVAL_RTOL}, atol {dryrun.EVAL_ATOL}); the resumed fit ran "
+            f"epoch 3 alone; {seconds:.1f} s")
+        out[tag] = {"ranks": n, "seconds": seconds, "arms": r["arms"],
+                    "dp_loss": r["dp_loss"], "eval_err": r["eval_err"],
+                    "launches": [x["launches"] for x in ranks]}
+    out["seconds"] = time.perf_counter() - t_phase
+    if not min(launches[k] for k in ("fused_mp_step", "fused_message_aggregate",
+                                     "fused_message_aggregate_dh")) > 0:
+        raise AssertionError(f"[dryrun] a kernel of the path never launched: {launches}")
+    log(f"[dryrun] launches {launches}; phase {out['seconds']:.1f} s")
+    return out, launches
+
+
+# ---------------------------------------------------------------- [demo]
+
+DEMO_NOTEBOOK = HERE / "examples" / "demo_torch.ipynb"
+# the JAX notebook's outputs (examples/demo.ipynb), quoted for R² only
+DEMO_JAX_R2 = {"viscosity Test": 0.4880, "mp Dev": 0.9060, "transfer Dev": 0.8991}
+
+
+def run_notebook(path, ns):
+    """Execute the notebook's code cells in order in ``ns``: per cell its
+    seconds and the value of its last expression (None for a cell that ends
+    in a statement)."""
+    import ast
+
+    cells = [c for c in json.loads(path.read_text())["cells"] if c["cell_type"] == "code"]
+    out = []
+    for i, cell in enumerate(cells):
+        tree = ast.parse("".join(cell["source"]))
+        last = tree.body.pop() if tree.body and isinstance(tree.body[-1], ast.Expr) else None
+        t0 = time.perf_counter()
+        exec(compile(tree, f"{path.name}[{i}]", "exec"), ns)
+        value = (eval(compile(ast.Expression(last.value), f"{path.name}[{i}]", "eval"), ns)
+                 if last is not None else None)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0, value))
+    return out
+
+
+def demo_expected(ns):
+    """The notebook's exact launches from what its fits report: per train
+    step phase 6's counts (viscosity, mp) or [transfer]'s per stage, 8
+    ``fused_mp_step`` per forward of every epoch's dev eval, of each
+    ``evaluate_splits`` batch, of the plot cell's predictions (where it
+    plotted) and of each screening batch."""
+    from ionic_mpnn_torch.data import iter_batches
+
+    per_step, per_fwd = kernel_launches("pallas_step", "xla")
+    want = {k: 0 for k in TRANSFER_LAUNCHES[1]}
+
+    def batches(records, plan):
+        return sum(1 for _ in iter_batches(records, plan))
+
+    def add(counts, n):
+        for k in want:
+            want[k] += n * counts.get(k, 0)
+
+    plan, mp_plan = ns["plan"], ns["mp_plan"]
+    mp_dev_batches = batches(ns["mp_dev"], mp_plan)
+    for res, dev_batches, per in ((ns["result"], batches(ns["dev"], plan), per_step),
+                                  (ns["mp_result"], mp_dev_batches, per_step),
+                                  (ns["tr_result"].stage1, mp_dev_batches, TRANSFER_LAUNCHES[1]),
+                                  (ns["tr_result"].stage2, mp_dev_batches, TRANSFER_LAUNCHES[2])):
+        add(per, res.steps)
+        add(per_fwd, res.epochs_run * dev_batches)
+    forwards = sum(batches(ns[k], plan) for k in ("train", "dev", "test")) + 2 * mp_dev_batches
+    if "p_tr" in ns:  # the plot cell ran its predictions
+        forwards += batches(ns["train"], plan) + batches(ns["dev"], plan)
+    forwards += -(-len(ns["cands"]) // ns["splan"].batch_size)
+    add(per_fwd, forwards)
+    return want
+
+
+def _epoch_s(res):
+    return statistics.median(res.history["epoch_seconds"][1:]) if res.epochs_run > 1 else None
+
+
+def phase_demo():
+    """[demo]: the port's notebook (``examples/demo_torch.ipynb``) at its own
+    sizes, its code cells run in order in one namespace in a temporary
+    working directory: the default CUDA configuration, the cells' seconds,
+    the viscosity model's Train/Dev/Test R² and MAE and the Dev R² of the
+    melting-point and transfer models beside the JAX notebook's outputs
+    (no gate: each is a draw of the recipe), the screening top 10, and the
+    launch counts exact."""
+    import os
+    import tempfile
+
+    from ionic_mpnn_torch.ops import cuda as kernels
+
+    t_phase = time.perf_counter()
+    ns = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            kernels.reset_launch_counts()
+            cells = run_notebook(DEMO_NOTEBOOK, ns)
+            launches = kernels.launch_counts()
+        finally:
+            os.chdir(cwd)
+    names = ["knobs", "data", "viscosity", "plots", "melting point", "transfer", "screening"]
+    if len(cells) != len(names):
+        raise AssertionError(f"[demo] {len(cells)} code cells, expected {len(names)}")
+    cfg = ns["cfg"]
+    if (ns["DEVICE"], cfg.message_impl, cfg.compute_dtype) != ("cuda", "pallas_step",
+                                                                 "bfloat16"):
+        raise AssertionError(f"[demo] ran {ns['DEVICE']} {cfg.message_impl} {cfg.compute_dtype}")
+    if cells[1][1] != (2000, 300, 22, 6):
+        raise AssertionError(f"[demo] the data cell gave {cells[1][1]}, not (2000, 300, 22, 6)")
+    vis, mp, tr, top = cells[2][1], cells[4][1], cells[5][1], cells[6][1]
+    for what, metrics in (("viscosity", vis), ("mp", mp), ("transfer", tr)):
+        bad = [s for s, m in metrics.items() if not (np.isfinite(m["r2"])
+                                                      and np.isfinite(m["mae"]))]
+        if bad:
+            raise AssertionError(f"[demo] {what}: non-finite metrics on {bad}: {metrics}")
+    if len(top) != 10 or not all(np.isfinite(p) for _, _, p in top):
+        raise AssertionError(f"[demo] the screening cell gave {top}")
+    want = demo_expected(ns)
+    if launches != want:
+        raise AssertionError(f"[demo] launch counts {launches}, expected {want}")
+    res, mp_res, tr_res = ns["result"], ns["mp_result"], ns["tr_result"]
+    out = {"cells_s": {n: s for n, (s, _) in zip(names, cells)}, "viscosity": vis, "mp": mp,
+           "transfer": tr, "top": top, "launches": launches,
+           "epochs": {"viscosity": res.epochs_run, "mp": mp_res.epochs_run,
+                      "transfer": [tr_res.stage1.epochs_run, tr_res.stage2.epochs_run]},
+           "epoch_s": {"viscosity": _epoch_s(res), "mp": _epoch_s(mp_res),
+                       "transfer stage 1": _epoch_s(tr_res.stage1),
+                       "transfer stage 2": _epoch_s(tr_res.stage2)},
+           "loader": res.loader, "steps_per_call": res.steps_per_call}
+    log(f"[demo] cells (s): " + json.dumps({n: round(s, 3) for n, s in out["cells_s"].items()}))
+    log(f"[demo] viscosity ({cfg.message_impl} {cfg.compute_dtype}, batch {ns['BATCH']}, "
+        f"{res.loader} loader, K = {res.steps_per_call}): {res.epochs_run} epochs, median epoch "
+        f"{out['epoch_s']['viscosity']} s; "
+        + ", ".join(f"{s} R2 {m['r2']:.4f} MAE {m['mae']:.4f}" for s, m in vis.items())
+        + f" (JAX's notebook: Test R2 {DEMO_JAX_R2['viscosity Test']})")
+    log(f"[demo] melting point: {mp_res.epochs_run} epochs, median epoch "
+        f"{out['epoch_s']['mp']} s; Dev R2 {mp['Dev']['r2']:.4f} MAE {mp['Dev']['mae']:.4f} "
+        f"(JAX's notebook: {DEMO_JAX_R2['mp Dev']})")
+    log(f"[demo] transfer: {tr_res.stage1.epochs_run} + {tr_res.stage2.epochs_run} epochs, "
+        f"median epoch {out['epoch_s']['transfer stage 1']} / "
+        f"{out['epoch_s']['transfer stage 2']} s; Dev R2 {tr['Dev']['r2']:.4f} MAE "
+        f"{tr['Dev']['mae']:.4f} (JAX's notebook: {DEMO_JAX_R2['transfer Dev']})")
+    log(f"[demo] screening top 10: {top}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[demo] launches {launches} (expected from the fits); phase {out['seconds']:.1f} s")
+    return out, launches
+
+
+# ---------------------------------------------------------------- [host_pipeline]
+
+def phase_host_pipeline():
+    """[host_pipeline]: the host-pipeline profile
+    (``python -m ionic_mpnn_torch.benchmarks.host_pipeline``) at its
+    defaults, 100,000 records, batch 2048, K = 8, the copies to the card:
+    each stage's seconds."""
+    from ionic_mpnn_torch.benchmarks.host_pipeline import profile_host_pipeline
+
+    t_phase = time.perf_counter()
+    out = profile_host_pipeline(device="cuda")
+    out["seconds"] = time.perf_counter() - t_phase
+    log("[host_pipeline] stage seconds: " + json.dumps(
+        {k: out[k] for k in ("dataset_s", "flatten_s", "pack_s", "group_s", "mask_s",
+                             "copy_s")})
+        + f"; {out['n_batches']} batches of {out['bytes_per_batch']} bytes, "
+        f"{out['n_groups']} groups; phase {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------- [bisect]
+
+def phase_bisect():
+    """[bisect]: the quality bisect (``cli/quality_bisect.py``) at its
+    defaults (1,500 records, 60 epochs, the five arms) on the card: each
+    arm's line, and no kernel launched (f32 ``gather`` and ``onehot``)."""
+    from ionic_mpnn_torch.cli.quality_bisect import bisect
+    from ionic_mpnn_torch.ops import cuda as kernels
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    lines, t0 = [], t_phase
+    for line in bisect(device="cuda"):  # the first arm's seconds include the dataset
+        line["seconds"], t0 = time.perf_counter() - t0, time.perf_counter()
+        lines.append(line)
+        log("[bisect] " + json.dumps(line))
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"[bisect] the arms launched kernels: {launches}")
+    if lines[2]["loader"] not in ("device", "device_paired"):
+        raise AssertionError(f"[bisect] onehot-dev ran the {lines[2]['loader']} loader")
+    bad = [x["arm"] for x in lines if not np.isfinite([x["final_loss"], x["dev_r2"]]).all()]
+    if bad:
+        raise AssertionError(f"[bisect] non-finite lines: {bad}")
+    out = {"lines": lines, "seconds": time.perf_counter() - t_phase}
+    log(f"[bisect] launches {launches}; phase {out['seconds']:.1f} s")
+    return out, launches
+
+
 # ---------------------------------------------------------------- phase 13
 
 def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS):
@@ -4470,13 +4777,18 @@ def main() -> int:
     ep, ep_launches = phase_ep(records, plan, vocab)
     phases, phases_launches = phase_phases(records, vocab, state, dev)
     quality, quality_launches = phase_quality(gated="--quality" in sys.argv[1:])
+    dryrun, dryrun_launches = phase_dryrun(dev)
+    demo, demo_launches = phase_demo()
+    host_pipeline = phase_host_pipeline()
+    bisect, bisect_launches = phase_bisect()
     rows, forward, dK, train, overhead = phase_times(
         batch0, V, models, launches, errs, train_steps, train_batch, train_launches,
         {"fit": fit_launches, "graphs": graphs_launches, "mp": mp_launches,
          "onehot": onehot_launches, "device_epochs": device_ep_launches,
          "transfer": transfer_launches, "chain": chain_launches, "screen": screen_launches,
          "dp": dp_launches, "ep": ep_launches, "quality": quality_launches,
-         "phases": phases_launches})
+         "phases": phases_launches, "dryrun": dryrun_launches, "demo": demo_launches,
+         "bisect": bisect_launches})
     fit_profile = fit_busy_share(one_epoch_fit)
     onehot["times"] = onehot_profile(forward["pallas_step bf16"])
     graphs = graphs_profile()
@@ -4489,7 +4801,9 @@ def main() -> int:
                     "fit_profile": fit_profile, "graphs": graphs, "native": native,
                     "mp": mp, "bench": bench, "onehot": onehot, "device_epochs": device_ep,
                     "transfer": transfer, "chain": chain, "screen": screen, "dp": dp,
-                    "ep": ep, "quality": quality, "phases": phases, "card": smi}))
+                    "ep": ep, "quality": quality, "phases": phases, "dryrun": dryrun,
+                    "demo": demo, "host_pipeline": host_pipeline, "bisect": bisect,
+                    "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -36,7 +36,7 @@ def test_port_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) == 70  # every module of the port was imported
+    assert int(out.stdout.strip()) == 73  # every module of the port was imported
 
 
 def test_port_sources_never_name_the_jax_package():
