@@ -10,15 +10,17 @@ Phases, in order (any failure raises and the script exits non-zero):
 2. Build: compile ``ionic_mpnn_torch/csrc`` with nvcc (one process per
    source) and print the build time, each kernel's registers and spills,
    and, where the toolkit has ``cuobjdump``, each fused kernel's count of
-   HMMA (tensor-core) instructions; the D = 32 kernels must have some.
+   HMMA (tensor-core) instructions; every fused kernel must have some.
 3. Kernel vs plain: each CUDA kernel against its plain PyTorch version on
    the card, at the cation and anion shapes of a batch-2048 bench batch with
    h in f32 and in bf16, and on hard cases (nodes with no in-edges, one node
    with in-degree >= 3000, an edge with |src - dst| >= 256, N not a multiple
    of 32); then graphs whose 16-node tiles hold every bond type (V = 7, and
-   V = 32, the most D = 32 takes), two launches on the same input giving the
-   same bits, the kernels and their plain versions against an f64
-   evaluation, and inputs the wrappers refuse. Tolerance: f32 rtol 1e-5 /
+   V = 32, the most any width takes), two launches on the same input giving
+   the same bits, the kernels and their plain versions against an f64
+   evaluation, and inputs the wrappers refuse (D = 20 and D = 136, 33 types
+   at D = 128 and at D = 32, a float16 h, a strided input, a table on the
+   CPU; none may launch a kernel). Tolerance: f32 rtol 1e-5 /
    atol 1e-5 (the order of summation and the f32-accurate tensor-core
    products differ), bf16 inputs 1e-3. The hard cases use dyadic values, so every summation order is exact
    and the tolerance only absorbs exp/tanh/rsqrt.
@@ -30,6 +32,23 @@ Phases, in order (any failure raises and the script exits non-zero):
    (``FusedMessageAggregate``: dh, dm_table; ``FusedMPStep``: dh, dm_table,
    dgru; ``SortedSegmentSum``: dmsg) against torch autograd of each plain
    forward on the card, at rtol/atol 1e-4.
+   [widths]: the fused kernels at the widths the general kernel serves,
+   D = 8, 16, 48, 64 and 128 (D = 32 is the specialisation of phases 3-4).
+   At each: forward, ``dh`` and step against their plain versions at the
+   cation and anion shapes (V = 7) and on a graph whose tiles hold all 32
+   bond types, h in f32 (1e-5) and bf16 (1e-3); at D = 64 and 128 the three
+   Functions' gradients against plain autograd at 1e-4 (weights scaled by
+   fan-in, 0.2 at D = 32), at D = 128 two launches bit-equal. Each
+   kernel's device time per call at D = 8 to 128 (a CUDA graph of 20
+   calls timed with events; D = 32 too, for comparison) beside its plain
+   version's and its bound. Then the paths that run these widths with the
+   card's default configuration (``message_impl`` "auto": ``pallas_step``
+   bf16): JAX's D-scaling arm at atom_dim 64 and 128 (fp_size = D, mixing
+   max(20, D // 2), batch 2048, 4 message steps) — one train step against
+   plain ``gather`` f32 with the same bf16-rounded weights (phase 6's
+   tolerances) and ``bench_packed_train_step``'s message-edges/s, launches
+   exact — and ``train_melting_point --atom-dim 64`` for 2 epochs in a
+   process of its own as phase 12 runs the CLIs, launches exact.
 5. Main path (serving): the viscosity model at full width (atom_dim 32,
    bond_dim 8, fp 32, mixing 20, 4 message steps) with seeded random
    weights, serving 3 batches of 2048 records through ``predict`` in five
@@ -321,7 +340,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    Then one epoch of the default configuration's ``fit()`` under the
    profiler: the card's busy time and its share of the epoch.
 
-Output: one ``{"kernels": [...]}`` JSON line, then the last line
+Output: one ``{"kernels": [...]}`` JSON line (the rows of D = 64 and 128,
+from [widths], beside the model's D = 32; every width's times under
+``"widths"``), then the last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
 repository, it exits non-zero before printing either.
 """
@@ -330,6 +351,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import shutil
 import statistics
@@ -504,7 +526,7 @@ def phase_build():
 
 def tensor_core_sass(so):
     """Count each fused kernel's HMMA (tensor-core) instructions in the built
-    SASS, where the toolkit has cuobjdump; the D = 32 kernels must hold some."""
+    SASS, where the toolkit has cuobjdump; every one must hold some."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -522,7 +544,7 @@ def tensor_core_sass(so):
             counts[kernel] = counts.get(kernel, 0) + 1
     for kernel in sorted(k for k in re.findall(r"Function : (\S+)", sass) if "fused_message" in k):
         log(f"[build] {kernel}: {counts.get(kernel, 0)} HMMA instructions")
-        if "fused_message_tc_kernel" in kernel and not counts.get(kernel):
+        if not counts.get(kernel):
             raise AssertionError(f"{kernel}: no tensor-core instruction in its SASS")
 
 
@@ -567,7 +589,7 @@ def typed_case(dev, rng, V, per_node, N=1001, D=32):
             t(src, torch.int32), t(dst, torch.int32), t(mask, torch.bool), N)
 
 
-def check_repeatable(tag, h, m_table, gru, bond, src, dst, mask, N):
+def check_repeatable(tag, h, m_table, gru, bond, src, dst, mask, N, phase="kernels"):
     """Two launches of each fused kernel on the same input give the same bits
     (one warp sums a tile in CSR order, no atomics)."""
     from ionic_mpnn_torch.ops.cuda import fused_message, fused_step
@@ -583,7 +605,7 @@ def check_repeatable(tag, h, m_table, gru, bond, src, dst, mask, N):
             raise AssertionError(f"{name} {tag}: two launches differ by "
                                  f"{(a - b).abs().max().item():.3e}")
     torch.cuda.synchronize()
-    log(f"[kernels] {tag}: two launches of each fused kernel give the same bits")
+    log(f"[{phase}] {tag}: two launches of each fused kernel give the same bits")
 
 
 def accuracy_vs_f64(tag, h, m_table, gru, bond, src, dst, mask, N):
@@ -625,7 +647,7 @@ def gru_params(gen, D, dev):
             for k, s in GATED_UPDATE_PARAM_SHAPES(D).items()}
 
 
-def check_kernels(tag, h, m_table, gru, bond, src, dst, mask, N, tol):
+def check_kernels(tag, h, m_table, gru, bond, src, dst, mask, N, tol, phase="kernels"):
     from ionic_mpnn_torch.ops.cuda import fused_message, fused_step, segment_sum
     from ionic_mpnn_torch.ops.message import edge_messages_from_table
 
@@ -648,7 +670,7 @@ def check_kernels(tag, h, m_table, gru, bond, src, dst, mask, N, tol):
         fused_step.fused_mp_step_plain(h, m_table, gru, bond, src, dst, mask, N),
         tol, tol)
     torch.cuda.synchronize()
-    log(f"[kernels] {tag}: " + ", ".join(f"{k} max|err| {v:.3e}" for k, v in errs.items()))
+    log(f"[{phase}] {tag}: " + ", ".join(f"{k} max|err| {v:.3e}" for k, v in errs.items()))
     return errs
 
 
@@ -702,11 +724,20 @@ def check_refusals(h, m_table, gru, bond, src, dst, mask, N):
 
     K = fused_message.message_table_to_lanes(m_table)
     zeros = lambda *shape: torch.zeros(*shape, device=h.device)
+    # the library and the wrapper's FUSED_DIMS name the same widths
+    lib = kernels._lib.library()
+    taken = [d for d in range(1, 257) if lib.ionic_fused_max_types(d) > 0]
+    if taken != list(fused_message.FUSED_DIMS):
+        raise AssertionError(f"the library takes D in {taken}, the wrapper "
+                             f"{list(fused_message.FUSED_DIMS)}")
     cases = {
-        "D=48": lambda: fused_message.fused_message_aggregate(
-            zeros(N, 48), zeros(48, 48 * 7), bond, src, dst, mask, N),
-        "9 types at D=64": lambda: fused_message.fused_message_aggregate(
-            zeros(N, 64), zeros(64, 64 * 9), bond, src, dst, mask, N),
+        "D=20": lambda: fused_message.fused_message_aggregate(
+            zeros(N, 20), zeros(20, 20 * 7), bond, src, dst, mask, N),
+        "D=136": lambda: fused_step.fused_mp_step(
+            zeros(N, 136), zeros(7, 136, 136), gru_params(torch.Generator(), 136, h.device),
+            bond, src, dst, mask, N),
+        "33 types at D=128": lambda: fused_message.fused_message_aggregate(
+            zeros(N, 128), zeros(128, 128 * 33), bond, src, dst, mask, N),
         "33 types at D=32": lambda: fused_step.fused_mp_step(
             h, zeros(33, 32, 32), gru, bond, src, dst, mask, N),
         "dtype": lambda: fused_step.fused_mp_step(h.half(), m_table, gru, bond, src, dst,
@@ -761,7 +792,7 @@ def function_grads(fn, leaves, cot):
     return torch.autograd.grad(fn(*leaves), leaves, cot)
 
 
-def check_functions(tag, h, m_table, gru, bond, src, dst, mask, N, cot):
+def check_functions(tag, h, m_table, gru, bond, src, dst, mask, N, cot, phase="backward"):
     """The three autograd Functions' gradients against torch autograd of
     their plain forwards, on the card."""
     from ionic_mpnn_torch.ops.cuda import fused_message, fused_step, segment_sum
@@ -793,7 +824,7 @@ def check_functions(tag, h, m_table, gru, bond, src, dst, mask, N, cot):
         errs[name] = max(close(f"{name} grad {i} {tag}", a, b, GRAD_TOL, GRAD_TOL)
                          for i, (a, b) in enumerate(zip(got, want)))
     torch.cuda.synchronize()
-    log(f"[backward] {tag}: " + ", ".join(f"{k} max|err| {v:.3e}" for k, v in errs.items()))
+    log(f"[{phase}] {tag}: " + ", ".join(f"{k} max|err| {v:.3e}" for k, v in errs.items()))
 
 
 def phase_backward(batch, V, dev):
@@ -832,6 +863,298 @@ def phase_backward(batch, V, dev):
         check_functions(tag, h, m_table, gru_params(gen, 32, dev), bond, src, dst, mask,
                         N, cot)
     return worst
+
+
+# ---------------------------------------------------------------- [widths]
+
+WIDTHS = (8, 16, 48, 64, 128)  # the general kernel's widths held here; D = 32 in [kernels]
+WIDTH_GRAD_DIMS = (64, 128)
+TIMED_WIDTHS = (8, 16, 32, 48, 64, 128)  # D = 32: the specialisation, timed the same way
+SCALING_DIMS = (64, 128)  # JAX's D-scaling arm (scripts/tpu_dim_scaling.py) past the model's 32
+SCALING_ITERS, SCALING_WARMUP = 10, 3
+WIDTH_CLI_DIM = 64
+WIDTH_CLI_DATA = ("--n-viscosity", "100", "--n-mp", "400")  # the reference's 400 mp draws
+WIDTH_CLI_EPOCHS = 2
+GRAPH_CALLS = 20
+FUSED_REPLACES = {
+    "fused_message_aggregate": "ionic_mpnn_tpu/ops/pallas/fused_message.py:290",
+    "fused_message_aggregate_dh": "ionic_mpnn_tpu/ops/pallas/fused_message.py:324",
+    "fused_mp_step": "ionic_mpnn_tpu/ops/pallas/fused_step.py:268",
+}
+
+
+def graph_ms(fn, n=GRAPH_CALLS, replays=5):
+    """Device time of one call of ``fn``: ``n`` calls captured in one CUDA
+    graph (``training.graphs.Replay``), each replay timed with CUDA events,
+    the median over ``replays`` divided by ``n``. The graph keeps the host
+    out of the reading (a wrapper's host work outlasts a small kernel); its
+    own gaps between launches, about a microsecond each, stay in. No
+    profiler: wall-clock readings of later phases stay clean. The launches
+    of the first call and the replays are taken off the counters."""
+    from ionic_mpnn_torch.ops import cuda as kernels
+    from ionic_mpnn_torch.training.graphs import Replay
+
+    before = kernels.launch_counts()
+    graph = Replay(lambda: [fn() for _ in range(n)], torch.device("cuda"), graphed=True)
+    graph()  # eagerly, then the capture
+    graph()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    kernels.set_launch_counts(before)
+    return statistics.median(times)
+
+
+def fused_bounds(N, E, E_real, D, V):
+    """Each fused kernel's bytes (inputs read once, out written once) and
+    flops at this shape, h f32, as [times] counts them."""
+    edge_bytes = E * (4 + 4 + 4 + 1)  # bond, src, dst, mask
+    msg = N * D * 4 + D * V * D * 4 + edge_bytes + N * D * 4
+    return {"fused_message_aggregate": (msg, 2 * E_real * D * D),
+            "fused_message_aggregate_dh": (msg, 2 * E_real * D * D),
+            "fused_mp_step": (msg + 4 * (6 * D * D + 5 * D),
+                              2 * E_real * D * D + 12 * N * D * D)}
+
+
+def width_times(D, h, m_table, gru, cot, bond, src, dst, mask, N, errs):
+    """Each fused kernel at width D against its plain version and its bound,
+    by graph_ms (device ms per call)."""
+    from ionic_mpnn_torch.ops.cuda import fused_message, fused_step
+    from ionic_mpnn_torch.ops.cuda.segment_sum import csr_rowptr
+
+    V = m_table.shape[0]
+    K = fused_message.message_table_to_lanes(m_table)
+    Kt = fused_message.transpose_lane_table(K)
+    rowptr = csr_rowptr(dst, N)
+    args = (bond, src, dst, mask, N)
+    calls = {
+        "fused_message_aggregate": (
+            lambda: fused_message.fused_message_aggregate(h, K, *args, rowptr=rowptr),
+            lambda: fused_message.fused_message_aggregate_plain(h, K, *args)),
+        # the call includes the transpose of the table, as in [times]
+        "fused_message_aggregate_dh": (
+            lambda: fused_message.message_backward(cot, h, K, *args, rowptr, need_dK=False),
+            lambda: fused_message.fused_message_aggregate_plain(cot, Kt, *args)),
+        "fused_mp_step": (
+            lambda: fused_step.fused_mp_step(h, m_table, gru, *args, rowptr=rowptr),
+            lambda: fused_step.fused_mp_step_plain(h, m_table, gru, *args)),
+    }
+    bounds = fused_bounds(N, src.shape[0], int(mask.sum()), D, V)
+    rows = []
+    with torch.inference_mode():
+        for name, (kernel, plain) in calls.items():
+            b_ms, b_by = bound_ms(*bounds[name], TC_F32[0])
+            rows.append({"name": f"{name} D={D}", "kernel": name, "route": "cuda",
+                         "source": "ionic_mpnn_torch/csrc/fused_message.cu",
+                         "replaces": FUSED_REPLACES[name], "max_abs_err": errs.get(name),
+                         "ms": graph_ms(kernel), "plain_ms": graph_ms(plain),
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                         "timing": f"CUDA graph of {GRAPH_CALLS} calls, events",
+                         "shape": {"N": N, "E": src.shape[0], "E_real": int(mask.sum()),
+                                   "D": D, "V": V}})
+            r = rows[-1]
+            log(f"[widths] time {r['name']}: {r['ms']:.5f} ms (graph of {GRAPH_CALLS} calls), "
+                f"plain {r['plain_ms']:.5f} ms, bound {b_ms:.5f} ms ({b_by}), "
+                f"{r['ms'] / b_ms:.2f}x the bound")
+    return rows
+
+
+def scaling_arm(D, records, vocab, batch, dev):
+    """JAX's D-scaling arm at atom_dim D on the card's default
+    configuration (``message_impl`` and ``compute_dtype`` "auto"): one train
+    step against plain ``gather`` f32 reading the same bf16-rounded tensors
+    from the same seed-0 weights ([train]'s check and tolerances, launches
+    exact), then ``bench_packed_train_step`` at batch 2048 as the arm runs
+    it (JAX harness :105, :118-123), launches exact over its calls."""
+    from ionic_mpnn_torch.benchmarks import bench_packed_train_step
+    from ionic_mpnn_torch.config import (TrainConfig, resolve_compute_dtype,
+                                         resolve_message_impl, viscosity_config)
+    from ionic_mpnn_torch.models import ViscosityModel
+    from ionic_mpnn_torch.ops import cuda as kernels
+
+    impl, dtype = resolve_message_impl("auto", dev), resolve_compute_dtype("auto", dev)
+    if (impl, dtype) != ("pallas_step", "bfloat16"):
+        raise AssertionError(f"[widths] auto resolved to {impl} {dtype} on the card")
+    # the arm's widths (JAX harness :118-123): fp_size = D, mixing max(20, D // 2)
+    base = viscosity_config(vocab.atom_vocab_size, vocab.bond_vocab_size, num_steps=4,
+                            atom_dim=D, fp_size=D, mixing_size=max(20, D // 2))
+    kcfg = base.replace(message_impl=impl, compute_dtype=dtype)
+    pcfg = base.replace(message_impl="gather", scatter_impl="xla", compute_dtype="float32")
+    model = ViscosityModel(kcfg, seed=0)
+    plain = ViscosityModel(pcfg, seed=0)
+    plain.load_state_dict(model.state_dict())
+    round_in_every_forward(plain)
+    tcfg = TrainConfig()
+    ref_name = f"D={D} gather f32, bf16-rounded (plain)"
+    ref = train_arm(ref_name, plain, pcfg, tcfg, [batch])
+    arm = train_arm(f"D={D} {impl} {dtype}", model, kcfg, tcfg, [batch])
+    held = hold_train_arm(f"D={D} {impl} {dtype}", arm, ref, ref_name, dtype)
+    launches = dict(arm["counts"])
+    per_step = kernel_launches(impl, "xla")[0]
+    kernels.reset_launch_counts()
+    r = bench_packed_train_step(records, vocab, batch_size=BATCH, num_steps=4,
+                                iters=SCALING_ITERS, warmup=SCALING_WARMUP,
+                                compute_dtype=dtype, message_impl=impl, atom_dim=D)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {k: (SCALING_ITERS + SCALING_WARMUP) * per_step.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"[widths] D-scaling arm D={D}: launches {counts}, expected {want}")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    out = {"atom_dim": D, "config": f"{impl} {dtype}", "losses": arm["losses"],
+           "ref_losses": ref["losses"], "step_ms": 1e3 / r.steps_per_s,
+           "edges_per_s": r.edges_per_s, "message_edges_per_step": r.message_edges_per_step,
+           "device": r.device, "launches": launches}
+    log(f"[widths] D-scaling arm atom_dim {D} ({impl} {dtype}, batch {BATCH}): one train step "
+        f"losses {arm['losses']}{held}; bench_packed_train_step {out['step_ms']:.4f} ms per "
+        f"step, {r.edges_per_s:.6e} message-edges/s ({r.message_edges_per_step} per step), "
+        f"launches {counts}")
+    return out
+
+
+def width_cli(D):
+    """``train_melting_point --atom-dim D`` for 2 epochs as [chain] runs the
+    CLIs (a process of its own, JAX unimportable), on ``prepare_data
+    --synthetic`` at 100 viscosity rows and the reference's 400 melting-point
+    draws. Its launches are exact: 16 ``fused_message_aggregate`` (8 ``dh``)
+    a train step, 8 ``fused_mp_step`` a train step and a forward (each
+    epoch's dev eval and ``evaluate_splits``' batches)."""
+    import tempfile
+
+    from ionic_mpnn_torch.config import resolve_onehot_window
+    from ionic_mpnn_torch.data import iter_batches, plan_capacities
+    from ionic_mpnn_torch.data.reference_io import load_pickle
+    from ionic_mpnn_torch.training import random_split
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, res = Path(tmp) / "data", Path(tmp) / "melting_point"
+        out = {}
+        for name, args in (
+                ("prepare_data", ["--data-dir", str(data), "--synthetic", *WIDTH_CLI_DATA]),
+                ("train_melting_point", ["--data", str(data / "mp_id_data.pkl"), "--vocab",
+                                         str(data / "vocab.pkl"), "--out-dir", str(res),
+                                         "--epochs", str(WIDTH_CLI_EPOCHS),
+                                         "--atom-dim", str(D)])):
+            cmd = [sys.executable, "-c", CHAIN_NO_JAX, f"ionic_mpnn_torch.cli.{name}", *args]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                                  timeout=CHAIN_TIMEOUT)
+            out[f"{name}_s"] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"[widths] {name} exited {proc.returncode}:\n"
+                                     f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        m = re.search(r"^kernel launches (\{.*\})$", proc.stdout, re.M)
+        if m is None:
+            raise AssertionError("[widths] train_melting_point printed no launch counts")
+        counts = json.loads(m.group(1))
+        metrics = chain_metrics(proc.stdout)
+        if set(metrics) != {"Train", "Dev", "Test"} or not all(
+                np.isfinite(v).all() for v in metrics.values()):
+            raise AssertionError(f"[widths] train_melting_point printed {metrics}")
+        # the forwards the CLI runs on batches it packs without shuffling
+        records = load_pickle(data / "mp_id_data.pkl")
+        split = [[records[i] for i in idx] for idx in random_split(len(records))]
+        plan = plan_capacities(records, batch_size=32, with_temperature=False, target_key="mp",
+                               edge_layout="sorted",
+                               window=resolve_onehot_window("bfloat16", 0, atom_dim=D))
+        train_b, dev_b, test_b = (sum(1 for _ in iter_batches(x, plan)) for x in split)
+    steps, rem = divmod(counts["fused_message_aggregate_dh"], 8)
+    forwards = WIDTH_CLI_EPOCHS * dev_b + train_b + dev_b + test_b
+    want = {"sorted_segment_sum": 0, "fused_message_aggregate": 16 * steps,
+            "fused_message_aggregate_dh": 8 * steps, "fused_mp_step": 8 * (steps + forwards)}
+    if rem or steps < WIDTH_CLI_EPOCHS or counts != want:
+        raise AssertionError(f"[widths] train_melting_point --atom-dim {D}: launches {counts}, "
+                             f"expected {want} ({steps} train steps, {forwards} forwards)")
+    out.update(launches=counts, train_steps=steps, forwards=forwards, metrics=metrics)
+    log(f"[widths] train_melting_point --atom-dim {D} --epochs {WIDTH_CLI_EPOCHS}: exit 0 in "
+        f"{out['train_melting_point_s']:.2f} s ({steps} train steps, {forwards} forwards), "
+        f"launches {counts}; " + ", ".join(f"{k} R2 {v[0]:.4f}" for k, v in metrics.items()))
+    return out
+
+
+def phase_widths(batch, records, vocab, dev):
+    """The fused kernels at the general kernel's widths, then the paths that
+    run them: JAX's D-scaling arm and the melting-point CLI at
+    ``--atom-dim 64``. Returns the phase's summary, the launches of those
+    paths per width, and each width's timed rows."""
+    from ionic_mpnn_torch.ops.cuda import fused_message
+    from ionic_mpnn_torch.ops.cuda.segment_sum import csr_rowptr
+
+    t_phase = time.perf_counter()
+    V = vocab.bond_vocab_size + 1
+    gen = torch.Generator().manual_seed(6)
+    rng = np.random.default_rng(7)
+    out = {"errs": {}, "scaling": [], "cli": None}
+    rows = []
+    for D in TIMED_WIDTHS:
+        g = batch.cation
+        N = g.node_capacity
+        cation = (g.bond_ids, g.src, g.dst, g.edge_mask, N)
+        h = torch.randn(N, D, generator=gen).to(dev)
+        m_table = (torch.randn(V, D, D, generator=gen) * 0.2).to(dev)
+        gru = gru_params(gen, D, dev)
+        cot = torch.randn(N, D, generator=gen).to(dev)
+        worst = {}
+        if D in WIDTHS:
+            cases = [(f"cation N={N} E={g.edge_capacity} V={V}", h, m_table, *cation)]
+            a = batch.anion
+            cases.append((f"anion N={a.node_capacity} E={a.edge_capacity} V={V}",
+                          torch.randn(a.node_capacity, D, generator=gen).to(dev),
+                          (torch.randn(V, D, D, generator=gen) * 0.2).to(dev),
+                          a.bond_ids, a.src, a.dst, a.edge_mask, a.node_capacity))
+            t_case = typed_case(dev, rng, 32, 8, D=D)
+            cases.append((f"every type in every tile V=32 N={t_case[-1]}", *t_case))
+            for tag, h_, m_, bond, src, dst, mask, n in cases:
+                for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+                    errs = check_kernels(f"D={D} {tag} h {str(dt)[6:]}", h_.to(dt), m_, gru,
+                                         bond, src, dst, mask, n, tol, phase="widths")
+                    if dt == torch.float32:
+                        for k, v in errs.items():
+                            worst[k] = max(worst.get(k, 0.0), v)
+                K = fused_message.message_table_to_lanes(m_)
+                g_ = torch.randn(n, D, generator=gen).to(dev)
+                dh, _ = fused_message.message_backward(g_, h_, K, bond, src, dst, mask, n,
+                                                       csr_rowptr(dst, n), need_dK=False)
+                want = fused_message.fused_message_aggregate_plain(
+                    g_, fused_message.transpose_lane_table(K), bond, src, dst, mask, n)
+                err = close(f"dh launch D={D} {tag}", dh, want, F32_TOL, F32_TOL)
+                worst["fused_message_aggregate_dh"] = max(
+                    worst.get("fused_message_aggregate_dh", 0.0), err)
+                log(f"[widths] dh launch D={D} {tag}: max|err| {err:.3e}")
+            if D in WIDTH_GRAD_DIMS:
+                # weights scaled by fan-in (0.2 at D = 32, as in [backward]): at
+                # 0.2 the gates saturate as D grows, and at D = 128 plain f32
+                # autograd itself reads 2x the bound against an f64 evaluation
+                # (the kernel path 1.1x; PERF.md §6, PR 15)
+                fan_in = math.sqrt(32 / D)
+                check_functions(f"D={D} cation N={N} (weights x {fan_in:.3f})", h,
+                                m_table * fan_in, {k: v * fan_in for k, v in gru.items()},
+                                *cation, cot, phase="widths")
+            if D == max(WIDTHS):
+                check_repeatable(f"D={D} cation h float32", h, m_table, gru, *cation,
+                                 phase="widths")
+            out["errs"][D] = worst
+        rows += width_times(D, h, m_table, gru, cot, *cation, worst)
+    launches = {D: {} for D in SCALING_DIMS}
+    for D in SCALING_DIMS:
+        arm = scaling_arm(D, records, vocab, batch, dev)
+        out["scaling"].append(arm)
+        launches[D] = arm["launches"]
+    out["cli"] = width_cli(WIDTH_CLI_DIM)
+    for k, v in out["cli"]["launches"].items():
+        launches[WIDTH_CLI_DIM][k] = launches[WIDTH_CLI_DIM].get(k, 0) + v
+    for r in rows:
+        r["launches"] = launches.get(r["shape"]["D"], {}).get(r["kernel"], 0)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[widths] launches per width {launches}; phase {out['seconds']:.1f} s")
+    return out, rows
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1519,7 +1842,7 @@ def kernel_records(fn):
             continue
         if "segment_sum_kernel" in e.name:
             counts["sorted_segment_sum"] += 1
-        elif "fused_message_tc_kernel" in e.name or "fused_message_rows_kernel" in e.name:
+        elif "fused_message_tc_kernel" in e.name or "fused_message_gen_kernel" in e.name:
             counts["fused_mp_step" if "true>" in e.name else "fused_message_aggregate"] += 1
     return counts
 
@@ -4607,6 +4930,7 @@ def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
     dst64 = g.dst.long()
     args = (g.bond_ids, g.src, g.dst, g.edge_mask, N)
     edge_bytes = E * (4 + 4 + 4 + 1)  # bond, src, dst, mask
+    fused = fused_bounds(N, E, E_real, D, V)
 
     specs = [  # name, source, replaces, CUDA symbol, kernel, plain, library, bytes, flops
         ("sorted_segment_sum", "ionic_mpnn_torch/csrc/segment_sum.cu",
@@ -4616,23 +4940,22 @@ def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
          lambda: torch.zeros(N, D, device=dev).index_add_(0, dst64, msg),
          E * D * 4 + E * 4 + N * D * 4, E * D),
         ("fused_message_aggregate", "ionic_mpnn_torch/csrc/fused_message.cu",
-         "ionic_mpnn_tpu/ops/pallas/fused_message.py:290", "fused_message_tc_kernel",
+         FUSED_REPLACES["fused_message_aggregate"], "fused_message_tc_kernel",
          lambda: fused_message.fused_message_aggregate(h, K, *args, rowptr=rowptr),
          lambda: fused_message.fused_message_aggregate_plain(h, K, *args),
-         None, N * D * 4 + K.numel() * 4 + edge_bytes + N * D * 4, 2 * E_real * D * D),
+         None, *fused["fused_message_aggregate"]),
         ("fused_mp_step", "ionic_mpnn_torch/csrc/fused_message.cu",
-         "ionic_mpnn_tpu/ops/pallas/fused_step.py:268", "fused_message_tc_kernel",
+         FUSED_REPLACES["fused_mp_step"], "fused_message_tc_kernel",
          lambda: fused_step.fused_mp_step(h, m_table, gru, *args, rowptr=rowptr),
          lambda: fused_step.fused_mp_step_plain(h, m_table, gru, *args),
-         None, N * D * 4 + K.numel() * 4 + 4 * (6 * D * D + 5 * D) + edge_bytes + N * D * 4,
-         2 * E_real * D * D + 12 * N * D * D),
+         None, *fused["fused_mp_step"]),
         # the backward's dh: the fused-message kernel on (g, Kᵀ); the call
         # includes the transpose of the table
         ("fused_message_aggregate_dh", "ionic_mpnn_torch/csrc/fused_message.cu",
-         "ionic_mpnn_tpu/ops/pallas/fused_message.py:324", "fused_message_tc_kernel",
+         FUSED_REPLACES["fused_message_aggregate_dh"], "fused_message_tc_kernel",
          lambda: fused_message.message_backward(cot, h, K, *args, rowptr, need_dK=False),
          lambda: fused_message.fused_message_aggregate_plain(cot, Kt, *args),
-         None, N * D * 4 + K.numel() * 4 + edge_bytes + N * D * 4, 2 * E_real * D * D),
+         None, *fused["fused_message_aggregate_dh"]),
     ]
     # the backward's dK: PyTorch ops, as the JAX package leaves it to XLA
     dK_call = lambda: fused_message.fused_message_table_grad(cot, h, *args[:4], V)
@@ -4759,6 +5082,7 @@ def main() -> int:
 
     errs = phase_kernels(batch0, V, dev)
     errs["fused_message_aggregate_dh"] = phase_backward(batch0, V, dev)
+    widths, width_rows = phase_widths(batch0, records, vocab, dev)
     models, batch0, launches, state = phase_main_path(records, plan, vocab, dev)
     train_steps, train_batch, train_launches = phase_train(records, plan, vocab, dev, state)
     fit_runs, fit_launches, one_epoch_fit, fit_data = phase_fit()
@@ -4795,7 +5119,10 @@ def main() -> int:
     screen["profile"] = screen_profile()
     device_ep["profile"] = device_ep_profile()
 
-    log(json.dumps({"kernels": rows, "not_kernels": [dK],
+    # the widths the paths ran (the D-scaling arm, the CLI) join the kernel rows
+    rows += [r for r in width_rows if r["launches"]]
+    widths["times"] = width_rows
+    log(json.dumps({"kernels": rows, "not_kernels": [dK], "widths": widths,
                     "forward_ms_per_batch": forward, "train_step": train,
                     "function_overhead": overhead, "fit": fit_runs,
                     "fit_profile": fit_profile, "graphs": graphs, "native": native,

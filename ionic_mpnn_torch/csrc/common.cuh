@@ -29,12 +29,6 @@ __device__ __forceinline__ float load_f32<float>(const float* p) {
   return __ldg(p);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
-  return v;
-}
-
 // Blocks to launch for a grid-stride kernel: enough to fill every SM at
 // the occupancy the kernel reaches, and no more than the work needs.
 template <typename Kernel>

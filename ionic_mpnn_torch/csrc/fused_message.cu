@@ -19,10 +19,19 @@
 // 12*N*D*D for the step's gates. Both products run f32-accurate on the
 // tensor cores as three TF32 passes, so the flop bound is over 495e12 / 3
 // (H100 SXM dense TF32). At the bench's cation shape the message kernel is
-// bound by bytes and the step by flops. What holds both back is latency:
-// each edge's h row is a dependent gather, and a warp's tiles run in order.
+// bound by bytes up to D = 64 and by flops at D = 128, the step by flops.
+// What holds both back is latency: each edge's h row is a dependent
+// gather, and a warp's tiles run in order.
 //
-// Design at D = 32 (fused_message_tc_kernel). The per-edge D x D matvec
+// The widths: every D that is a multiple of 8 from 8 to 128, and up to 32
+// bond types (the tile's type mask, and the 5 bits of a packed bond) at
+// each. Two kernels share one design and its arithmetic:
+// fused_message_tc_kernel, the D = 32 specialisation (the model's width:
+// the table and the step's weights staged in shared memory), and
+// fused_message_gen_kernel, every other width (column slices, operands read
+// through L2). dispatch_fused chooses by D.
+//
+// Design (fused_message_tc_kernel first). The per-edge D x D matvec
 // with a data-dependent matrix is rewritten with the identity of the JAX
 // package's ops/message.py::message_pass_aggregate_typed,
 //   agg[n] = sum_v M_v (sum over the edges of n with bond v of h[src]),
@@ -46,10 +55,10 @@
 //     (m16n8k16); the step uses 3xTF32 (m16n8k8, hi = rna(x), lo =
 //     rna(x - hi), rounded as cvt.rna.tf32.f32 does but by integer ops),
 //     which leaves 2^-22 in each operand. Both take three mma per 8 of depth.
-//     The largest products and the small ones go to two short chains added
-//     in f32 at the end, because the tensor cores truncate what they sum.
-//     Only the types a tile holds cost work: a bench cation tile holds ~1.5
-//     of 7.
+//     The largest products and the small ones go to two short chains (at
+//     most 8 depth steps each) added in f32, because the tensor cores
+//     truncate what they sum. Only the types a tile holds cost work: a bench
+//     cation tile holds ~1.5 of 7.
 //  3. Step epilogue (kGru), the function of fused_step.py:138-163 in f32:
 //     z|r = [h | agg] (16 x 2D) @ [Wz | Wr] and the candidate from
 //     [r*h | agg] @ Wh on the same 3xTF32 mma, with the weights pre-split
@@ -72,9 +81,29 @@
 // of the products and of the epilogue are free of bank conflicts. Tiles are
 // dealt to the blocks first, so the SMs' loads differ by one tile at most.
 //
-// D = 64 keeps the first design (fused_message_rows_kernel): one warp per
-// destination node, h_j broadcast by shuffles and a per-edge matvec on the
-// CUDA cores. dispatch_fused chooses the kernel by D alone.
+// Any other width (fused_message_gen_kernel). At D = 128 the table alone is
+// D * V*D * 4 = 458 KB at V = 7 and the step's weights 393 KB, more than a
+// block's 227 KB of shared memory, so neither is staged: the products read
+// their B fragments from global memory (__ldg; the table is at most 2 MB and
+// stays in L2). A tile's columns are split over a team of ceil(D / 32)
+// warps, each owning a slice of 32 output columns (the last one narrower):
+//  - every warp of the team walks the tile's edges (the same chunks and the
+//    same slot decisions) and gathers and sums only its slice of each
+//    h[src] row into the team's shared buckets;
+//  - a team barrier (bar.sync on the team's own id; __syncwarp for a team
+//    of one) before the products, which read whole rows of the buckets,
+//    and one after; each warp then zeroes its own columns;
+//  - each warp multiplies into its slice of agg (n-tiles of 8 columns);
+//    the message's bf16 depth is zero-padded to a multiple of 16 (the
+//    buckets' pad columns stay 0 and the table's rows past D read as 0:
+//    exact), the step's 3xTF32 takes D itself;
+//  - the step writes its slices of X = [h | agg] over the buckets, and
+//    every product and gate works on its slice: z and r (two slices of Wz
+//    and Wr, D columns apart), r*h back into X, the candidate; the
+//    LayerNorm's row sums add each warp's slice sum from shared memory, in
+//    slice order, so it reads the true D and never the padded width.
+// The arithmetic is the specialisation's step for step (the same splits,
+// chains and epilogue), so the two agree to rounding at D = 32.
 #include <climits>
 
 #include "common.cuh"
@@ -449,6 +478,63 @@ __device__ __forceinline__ void zero_slots(float* Y, uint32_t slots, int lane) {
   }
 }
 
+// The warp's edges as one stream of chunks (an empty tile is one empty
+// chunk), in three stages one step apart: a tile's rowptr entries, a
+// chunk's edge arrays, its h[src] rows. Chunk k + 1's rows and chunk k + 2's
+// edges are in flight while chunk k is summed and, at the end of a tile,
+// while the tile's products run. gather(b, chunk) starts the copies of a
+// chunk's rows into row buffer b (and commits them); visit(b, chunk) sums a
+// chunk whose rows have landed. The warp's tiles are first, first + stride,
+// ...
+template <int CH, typename Gather, typename Visit>
+__device__ __forceinline__ void walk_chunks(const int* __restrict__ rowptr,
+                                            const int* __restrict__ src,
+                                            const int* __restrict__ bond,
+                                            const uint8_t* __restrict__ mask, int n_nodes,
+                                            int first, int stride, int lane, Gather gather,
+                                            Visit visit) {
+  const int tiles = (n_nodes + kTile - 1) / kTile;
+  if (first >= tiles) return;
+  Cursor at;
+  enter_tile(at, first, load_rowptr(rowptr, first, n_nodes, lane), n_nodes);
+  int rp_next = first + stride < tiles ? load_rowptr(rowptr, first + stride, n_nodes, lane) : 0;
+  RawEdges raw = load_edges<CH>(src, bond, mask, at, lane);
+  bool more = true;  // the cursor is on a chunk
+  // the loaded edges become a chunk whose rows are gathered; the cursor moves
+  // on and loads the next chunk's edges
+  auto advance = [&](int b) {
+    const Chunk c = make_chunk<CH>(raw, at, lane);
+    gather(b, c);
+    if (c.last) {
+      const int next = at.tile + stride;
+      more = next < tiles;
+      if (more) {
+        enter_tile(at, next, rp_next, n_nodes);
+        if (next + stride < tiles) rp_next = load_rowptr(rowptr, next + stride, n_nodes, lane);
+      }
+    } else {
+      at.e0 += CH;
+    }
+    if (more) raw = load_edges<CH>(src, bond, mask, at, lane);
+    return c;
+  };
+  int buf = 0;
+  Chunk cur = advance(0);
+  while (true) {
+    const bool has_next = more;
+    Chunk nxt;
+    if (has_next) nxt = advance(buf ^ 1);
+    else cp_async_commit();  // empty: wait_group 1 still means "the current chunk"
+    cp_async_wait<1>();
+    __syncwarp();
+    visit(buf, cur);
+    if (!has_next) break;
+    cur = nxt;
+    buf ^= 1;
+  }
+  cp_async_wait<0>();
+}
+
 // The product phase: agg += each slot's buckets @ its type's block of the
 // table; then the slots are zeroed and free. The message kernel's output is
 // what the backward's sums over every node read (the remat and dh launches),
@@ -665,70 +751,29 @@ fused_message_tc_kernel(const T* __restrict__ h, const float* __restrict__ table
   mbar_wait(bar, 0);
   __syncthreads();
 
-  // ---- the warp's edges as one stream of chunks (an empty tile is one
-  // empty chunk), in three stages one step apart: a tile's rowptr entries,
-  // a chunk's edge arrays, its h[src] rows. Chunk k + 1's rows and chunk
-  // k + 2's edges are in flight while chunk k is summed and, at the end of
-  // a tile, while the tile's products run ----
-  constexpr int CH = kChunk;
-  const int tiles = (n_nodes + kTile - 1) / kTile;
-  const int stride = gridDim.x * (blockDim.x >> 5);
   // tiles are dealt to the blocks first: the SMs' tile counts differ by one
   // at most, and the last round of tiles spreads over every SM
-  const int first = warp * gridDim.x + blockIdx.x;
-  if (first >= tiles) return;
-  Cursor at;
-  enter_tile(at, first, load_rowptr(rowptr, first, n_nodes, lane), n_nodes);
-  int rp_next = first + stride < tiles ? load_rowptr(rowptr, first + stride, n_nodes, lane) : 0;
-  RawEdges raw = load_edges<CH>(src, bond, mask, at, lane);
-  bool more = true;  // the cursor is on a chunk
-  // the loaded edges become a chunk whose rows are gathered; the cursor moves
-  // on and loads the next chunk's edges
-  auto advance = [&](T* g) {
-    const Chunk c = make_chunk<CH>(raw, at, lane);
-    gather_rows_async<T, CH>(g, h, c, lane);
-    if (c.last) {
-      const int next = at.tile + stride;
-      more = next < tiles;
-      if (more) {
-        enter_tile(at, next, rp_next, n_nodes);
-        if (next + stride < tiles) rp_next = load_rowptr(rowptr, next + stride, n_nodes, lane);
-      }
-    } else {
-      at.e0 += CH;
-    }
-    if (more) raw = load_edges<CH>(src, bond, mask, at, lane);
-    return c;
-  };
-  int buf = 0;
-  Chunk cur = advance(G);
   Slots sl;
   float agg[4][4] = {};
-  while (true) {
-    const bool has_next = more;
-    Chunk nxt;
-    if (has_next) nxt = advance(G + (buf ^ 1) * CH * D);
-    else cp_async_commit();  // empty: wait_group 1 still means "the current chunk"
-    cp_async_wait<1>();
-    __syncwarp();
-    // the chunk's types take free slots; a tile that meets more than kSlots
-    // types runs the product on the full slots and starts them over
-    for (uint32_t todo = cur.types;;) {
-      const int bucket = take_slots(sl, todo, cur);
-      add_rows<CH, kGru>(Y, G + buf * CH * D, bucket, lane);
-      todo &= ~sl.mask;
-      if (!todo) break;
-      flush_slots<kGru>(agg, Y, sl, sK, ks, lane);
-    }
-    __syncwarp();
-    if (cur.last)
-      finish_tile<T, kGru>(agg, Y, sl, sK, ks, sW, ws, sB, sL, ln_eps, h, out, cur.tile,
-                           n_nodes, lane);
-    if (!has_next) break;
-    cur = nxt;
-    buf ^= 1;
-  }
-  cp_async_wait<0>();
+  walk_chunks<kChunk>(
+      rowptr, src, bond, mask, n_nodes, warp * gridDim.x + blockIdx.x,
+      gridDim.x * (blockDim.x >> 5), lane,
+      [&](int b, const Chunk& c) { gather_rows_async<T, kChunk>(G + b * kChunk * D, h, c, lane); },
+      [&](int b, const Chunk& cur) {
+        // the chunk's types take free slots; a tile that meets more than
+        // kSlots types runs the product on the full slots and starts them over
+        for (uint32_t todo = cur.types;;) {
+          const int bucket = take_slots(sl, todo, cur);
+          add_rows<kChunk, kGru>(Y, G + b * kChunk * D, bucket, lane);
+          todo &= ~sl.mask;
+          if (!todo) break;
+          flush_slots<kGru>(agg, Y, sl, sK, ks, lane);
+        }
+        __syncwarp();
+        if (cur.last)
+          finish_tile<T, kGru>(agg, Y, sl, sK, ks, sW, ws, sB, sL, ln_eps, h, out, cur.tile,
+                               n_nodes, lane);
+      });
 }
 
 template <typename T, bool kGru>
@@ -769,183 +814,455 @@ int run_tc(const void* h, const float* table, const int* bond, const int* src,
                             n_nodes, n_types, fixed, per_warp, warps, stream);
 }
 
-// ------------------------------------------------------------ D = 64: CUDA cores
+// ------------------------------------------------------------ any D: column slices
 
-constexpr int kRowsThreads = 512;
+constexpr int kSlice = 32;     // output columns a warp owns (the last slice may be narrower)
+constexpr int kMaxDim = 128;   // the widest D the kernels take
+constexpr int kMaxTypes = 32;  // the tile's type mask, and the 5 bits of a packed bond
+constexpr int kChain = 8;      // depth steps per accumulation chain
 
-inline size_t rows_smem_bytes(int dim, int n_types, bool gru) {
-  size_t floats = (size_t)dim * n_types * dim;
-  if (gru) floats += 6 * (size_t)dim * dim + 3 * dim + 2 * dim;
-  return floats * sizeof(float);
+// The warps that share a tile, one per slice of 32 output columns.
+__host__ __device__ constexpr int team_warps(int dim) { return (dim + kSlice - 1) / kSlice; }
+// The depth of a bucket's product: the message's bf16 mma takes 16 at a time
+// (zero-padded past D), the step's TF32 mma 8, which every D is a multiple of.
+__host__ __device__ constexpr int gen_depth(int dim, bool gru) {
+  return gru ? dim : (dim + 15) / 16 * 16;
+}
+// Rows of the buckets, padded as the specialisation's: 8 mod 32 floats for
+// the message's float2 fragment loads, 4 mod 32 for the step's single floats.
+__host__ __device__ constexpr int gen_y_stride(int dim, bool gru) {
+  return kSlots * gen_depth(dim, gru) + (gru ? 4 : 8);
+}
+// Shared memory of a team: its buckets (16 rows, the step's X over them)
+// and, for the step, the LayerNorm's per-warp row sums (2 x warps x 16).
+__host__ __device__ constexpr int gen_team_bytes(int dim, bool gru) {
+  return 4 * (kTile * gen_y_stride(dim, gru) + (gru ? 2 * kTile * team_warps(dim) : 0));
+}
+// A warp's two row buffers of its slice, kSlice wide.
+__host__ __device__ constexpr int gen_warp_bytes(int elem) { return 2 * kChunk * kSlice * elem; }
+
+// What one warp of a team works on: the width, its slice [c0, c0 + cw) of
+// the output columns (ntw n-tiles of 8), the buckets' depth and row stride,
+// the table's row length V*D.
+struct Slice {
+  int D, DK, ys, VD, W, w, c0, cw, ntw;
+};
+
+// The team's barrier: bar.sync on the team's own id (0 is __syncthreads'),
+// or the warp's for a team of one.
+__device__ __forceinline__ void team_sync(const Slice& s, int team) {
+  if (s.W == 1)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + team), "r"(32 * s.W) : "memory");
 }
 
-// One warp per destination node; lane i owns output features i, i+32, ...
-// K (and the GRU weights) sit in shared memory; for each edge the warp loads
-// h[src] as one row, broadcasts each h_j with __shfl_sync and accumulates in
-// f32 registers. The epilogue is the step's, as matvecs on the CUDA cores.
-template <typename T, int D, bool kGru>
-__global__ void __launch_bounds__(kRowsThreads)
-fused_message_rows_kernel(const T* __restrict__ h, const float* __restrict__ table,
-                          const int* __restrict__ bond, const int* __restrict__ src,
-                          const uint8_t* __restrict__ mask, const int* __restrict__ rowptr,
-                          const float* __restrict__ gru_w, const float* __restrict__ gru_b,
-                          const float* __restrict__ ln, float ln_eps,
-                          float* __restrict__ out, int n_nodes, int n_types) {
-  constexpr int F = D / 32;  // features per lane
-  extern __shared__ float smem[];
-  const int VD = n_types * D;
-  float* sK = smem;
-  float* sW = sK + D * VD;   // (2D, 3D)
-  float* sB = sW + 6 * D * D;  // (3D)
-  float* sL = sB + 3 * D;      // (2, D): scale, bias
-  for (int t = threadIdx.x; t < D * VD; t += blockDim.x) sK[t] = table[t];
-  if (kGru) {
-    for (int t = threadIdx.x; t < 6 * D * D; t += blockDim.x) sW[t] = gru_w[t];
-    for (int t = threadIdx.x; t < 3 * D; t += blockDim.x) sB[t] = gru_b[t];
-    for (int t = threadIdx.x; t < 2 * D; t += blockDim.x) sL[t] = ln[t];
+// n-tile nt's first column, relative to B: NT = 8 takes two slices of 4
+// n-tiles, `jump` columns apart (the step's z and r).
+__device__ __forceinline__ int tile_col(int nt, int jump) { return (nt & 3) * 8 + (nt >> 2) * jump; }
+
+// mma_3xtf32 with B in global memory (read through __ldg, split as it
+// loads), a depth of kt steps of 8 (runtime), chains of at most kChain
+// steps, and only the n-tiles nt with (nt & 3) < ntw.
+template <int NT>
+__device__ __forceinline__ void mma_3xtf32_gen(float (&acc)[NT][4], const float* A, int lda,
+                                               const float* __restrict__ B, int ldb, int kt,
+                                               int jump, int ntw, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  for (int k0 = 0; k0 < kt; k0 += kChain) {
+    float hh[NT][4] = {}, mx[NT][4] = {};
+    const int k1 = min(kt, k0 + kChain);
+    for (int kk = k0; kk < k1; ++kk) {
+      const float* a = A + kk * 8 + q;
+      const uint2 a0 = tf32_pair(a[g * lda]), a1 = tf32_pair(a[(g + 8) * lda]);
+      const uint2 a2 = tf32_pair(a[g * lda + 4]), a3 = tf32_pair(a[(g + 8) * lda + 4]);
+      const uint32_t ahi[4] = {a0.x, a1.x, a2.x, a3.x}, alo[4] = {a0.y, a1.y, a2.y, a3.y};
+      const float* b = B + (kk * 8 + q) * ldb + g;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if ((nt & 3) >= ntw) continue;
+        const int col = tile_col(nt, jump);
+        const uint2 b0 = tf32_pair(__ldg(b + col)), b1 = tf32_pair(__ldg(b + 4 * ldb + col));
+        mma_tf32(mx[nt], alo, b0.x, b1.x);
+        mma_tf32(mx[nt], ahi, b0.y, b1.y);
+        mma_tf32(hh[nt], ahi, b0.x, b1.x);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] += hh[nt][i] + mx[nt][i];
   }
+}
+
+// mma_bf16x3 with B in global memory, a depth of kt steps of 16 (runtime)
+// of which the rows from k_valid on read as 0 (A's pad columns are 0: the
+// padding is exact), chains of at most kChain steps, n-tiles nt < ntw.
+template <int NT>
+__device__ __forceinline__ void mma_bf16x3_gen(float (&acc)[NT][4], const float* A, int lda,
+                                               const float* __restrict__ B, int ldb, int kt,
+                                               int k_valid, int ntw, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  for (int k0 = 0; k0 < kt; k0 += kChain) {
+    float hh[NT][4] = {}, mx[NT][4] = {};
+    const int k1 = min(kt, k0 + kChain);
+    for (int kk = k0; kk < k1; ++kk) {
+      const float* a = A + kk * 16 + 2 * q;
+      uint32_t a1[4], a2[4], a3[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 v = *reinterpret_cast<const float2*>(a + (i & 1) * 8 * lda + (i >> 1) * 8 +
+                                                          g * lda);
+        split_bf16x3(v.x, v.y, a1[i], a2[i], a3[i]);
+      }
+      // B rows r, r + 1, r + 8, r + 9; r is even and k_valid a multiple of
+      // 8, so r + 1 is valid with r and r + 9 with r + 8
+      const int r = kk * 16 + 2 * q;
+      const bool lo_ok = r < k_valid, hi_ok = r + 8 < k_valid;
+      const float* b = B + r * ldb + g;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt >= ntw) continue;
+        const float* bn = b + nt * 8;
+        uint32_t b1[2], b2[2], b3[2];
+        split_bf16x3(lo_ok ? __ldg(bn) : 0.f, lo_ok ? __ldg(bn + ldb) : 0.f, b1[0], b2[0],
+                     b3[0]);
+        split_bf16x3(hi_ok ? __ldg(bn + 8 * ldb) : 0.f, hi_ok ? __ldg(bn + 9 * ldb) : 0.f,
+                     b1[1], b2[1], b3[1]);
+        mma_bf16(mx[nt], a3, b1);
+        mma_bf16(mx[nt], a2, b2);
+        mma_bf16(mx[nt], a1, b3);
+        mma_bf16(mx[nt], a2, b1);
+        mma_bf16(mx[nt], a1, b2);
+        mma_bf16(hh[nt], a1, b1);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] += hh[nt][i] + mx[nt][i];
+  }
+}
+
+// The chunk's real h[src] rows, this warp's slice of each, into g (CH rows
+// of kSlice), 16 bytes a copy.
+template <typename T, int CH>
+__device__ __forceinline__ void gather_slice_async(T* g, const T* __restrict__ h, const Chunk& c,
+                                                   const Slice& s, int lane) {
+  constexpr int kMaxPieces = kSlice * (int)sizeof(T) / 16;  // 16-byte pieces of a full slice
+  const int pieces = s.cw * (int)sizeof(T) / 16;
+#pragma unroll
+  for (int i = 0; i < CH * kMaxPieces / 32; ++i) {
+    const int piece = lane + 32 * i, t = min(piece / pieces, CH - 1), p = piece - t * pieces;
+    const int pk = __shfl_sync(kFullMask, c.packed, t);
+    const int src = __shfl_sync(kFullMask, c.s, t);
+    if (pk >= 0 && piece < CH * pieces)
+      cp_async16(reinterpret_cast<char*>(g + t * kSlice) + p * 16,
+                 reinterpret_cast<const char*>(h + (size_t)src * s.D + s.c0) + p * 16);
+  }
+  cp_async_commit();
+}
+
+// Add the pass's edges into the warp's columns of their buckets, in CSR
+// order.
+template <int CH, typename T>
+__device__ __forceinline__ void add_slice(float* Y, const T* g, int bucket, const Slice& s,
+                                          int lane) {
+#pragma unroll
+  for (int t = 0; t < CH; ++t) {
+    const int p = __shfl_sync(kFullMask, bucket, t);
+    if (p >= 0 && lane < s.cw)
+      Y[(p >> 2) * s.ys + (p & 3) * s.DK + s.c0 + lane] += to_f32(g[t * kSlice + lane]);
+  }
+}
+
+// Zero the warp's columns of the first `used` slots.
+__device__ __forceinline__ void zero_slice(float* Y, int used, const Slice& s, int lane) {
+  if (lane >= s.cw) return;
+  for (int k = 0; k < used; ++k)
+#pragma unroll 4
+    for (int r = 0; r < kTile; ++r) Y[r * s.ys + k * s.DK + s.c0 + lane] = 0.f;
+}
+
+// The product phase of a team: once every warp has summed its columns,
+// agg (this warp's slice) += each slot's buckets @ its type's block of the
+// table, then a barrier so that no bucket is reused while a warp reads it.
+template <bool kGru>
+__device__ __forceinline__ void products_gen(float (&agg)[4][4], const float* Y, const Slots& sl,
+                                             const float* __restrict__ table, const Slice& s,
+                                             int team, int lane) {
+  team_sync(s, team);
+  for (int k = 0; k < sl.used; ++k) {
+    const int v = (sl.types >> (8 * k)) & 255u;
+    const float* B = table + v * s.D + s.c0;
+    if (kGru)
+      mma_3xtf32_gen<4>(agg, Y + k * s.DK, s.ys, B, s.VD, s.D / 8, 0, s.ntw, lane);
+    else
+      mma_bf16x3_gen<4>(agg, Y + k * s.DK, s.ys, B, s.VD, s.DK / 16, s.D, s.ntw, lane);
+  }
+  team_sync(s, team);
+}
+
+// A finished tile: its last products, then the store (message) or the
+// GatedUpdate on the team's slices (step); the buckets are zero after it.
+template <typename T, bool kGru>
+__device__ __forceinline__ void finish_gen(float (&agg)[4][4], float* Y, float* red, Slots& sl,
+                                           const float* __restrict__ table,
+                                           const float* __restrict__ gru_w,
+                                           const float* __restrict__ gru_b,
+                                           const float* __restrict__ ln, float ln_eps,
+                                           const T* __restrict__ h, float* __restrict__ out,
+                                           int tile, int n_nodes, const Slice& s, int team,
+                                           int lane) {
+  const int D = s.D;
+  const int g = lane >> 2, q = lane & 3;
+  const int n0 = tile * kTile;
+  const int nrows = min(kTile, n_nodes - n0);
+  const bool ok0 = g < nrows, ok1 = g + 8 < nrows;  // the C rows g and g + 8
+  float hv[4][4] = {};  // the step's h (this slice), in the C layout; loaded ahead of the products
+  if (kGru) {
+    const T* h0 = h + (size_t)(n0 + g) * D + s.c0 + 2 * q;
+    const T* h1 = h0 + 8 * D;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= s.ntw) continue;
+      hv[j][0] = ok0 ? load_f32(h0 + 8 * j) : 0.f;
+      hv[j][1] = ok0 ? load_f32(h0 + 8 * j + 1) : 0.f;
+      hv[j][2] = ok1 ? load_f32(h1 + 8 * j) : 0.f;
+      hv[j][3] = ok1 ? load_f32(h1 + 8 * j + 1) : 0.f;
+    }
+  }
+  products_gen<kGru>(agg, Y, sl, table, s, team, lane);
+  float* o0 = out + (size_t)(n0 + g) * D + s.c0 + 2 * q;
+  float* o1 = o0 + 8 * D;
+  if (!kGru) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= s.ntw) continue;
+      if (ok0) *reinterpret_cast<float2*>(o0 + 8 * j) = make_float2(agg[j][0], agg[j][1]);
+      if (ok1) *reinterpret_cast<float2*>(o1 + 8 * j) = make_float2(agg[j][2], agg[j][3]);
+    }
+    zero_slice(Y, sl.used, s, lane);
+  } else {
+    // X = [h | agg] (16 x 2D, row xs) over the buckets, which every warp
+    // has read: each warp writes its slices of h and agg
+    const int xs = 2 * D + 4;
+    float* x0 = Y + g * xs + s.c0 + 2 * q;
+    float* x1 = x0 + 8 * xs;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= s.ntw) continue;
+      x0[8 * j] = hv[j][0];
+      x0[8 * j + 1] = hv[j][1];
+      x1[8 * j] = hv[j][2];
+      x1[8 * j + 1] = hv[j][3];
+      x0[D + 8 * j] = agg[j][0];
+      x0[D + 8 * j + 1] = agg[j][1];
+      x1[D + 8 * j] = agg[j][2];
+      x1[D + 8 * j + 1] = agg[j][3];
+    }
+    team_sync(s, team);
+    float zr[8][4] = {};  // n-tiles 0-3: this slice of z, 4-7: of r
+    mma_3xtf32_gen<8>(zr, Y, xs, gru_w + s.c0, 3 * D, 2 * D / 8, D, s.ntw, lane);
+    team_sync(s, team);  // X is read: r*h replaces h in it
+    float z[4][4] = {};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= s.ntw) continue;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int col = s.c0 + 8 * j + 2 * q + (k & 1);
+        z[j][k] = sigmoid_fast(zr[j][k] + __ldg(gru_b + col));
+        (k < 2 ? x0 : x1)[8 * j + (k & 1)] =
+            sigmoid_fast(zr[4 + j][k] + __ldg(gru_b + D + col)) * hv[j][k];
+      }
+    }
+    team_sync(s, team);
+    float cc[4][4] = {};
+    mma_3xtf32_gen<4>(cc, Y, xs, gru_w + 2 * D + s.c0, 3 * D, 2 * D / 8, 0, s.ntw, lane);
+    float nw[4][4] = {};
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= s.ntw) continue;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int col = s.c0 + 8 * j + 2 * q + (k & 1);
+        const float cand = tanhf(cc[j][k] + __ldg(gru_b + 2 * D + col));
+        nw[j][k] = (1.f - z[j][k]) * hv[j][k] + z[j][k] * cand;
+        if (k < 2) s0 += nw[j][k]; else s1 += nw[j][k];
+      }
+    }
+    // a row's slice sits in the 4 lanes of a quad; the slices' sums meet in
+    // red (slice w, row r at red[w * 16 + r]) and add in slice order
+    s0 += __shfl_xor_sync(kFullMask, s0, 1);
+    s0 += __shfl_xor_sync(kFullMask, s0, 2);
+    s1 += __shfl_xor_sync(kFullMask, s1, 1);
+    s1 += __shfl_xor_sync(kFullMask, s1, 2);
+    if (q == 0) {
+      red[s.w * kTile + g] = s0;
+      red[s.w * kTile + g + 8] = s1;
+    }
+    team_sync(s, team);
+    float t0 = 0.f, t1 = 0.f;
+    for (int w = 0; w < s.W; ++w) {
+      t0 += red[w * kTile + g];
+      t1 += red[w * kTile + g + 8];
+    }
+    const float mean0 = t0 / D, mean1 = t1 / D;
+    float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= s.ntw) continue;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float d = nw[j][k] - (k < 2 ? mean0 : mean1);
+        if (k < 2) v0 += d * d; else v1 += d * d;
+      }
+    }
+    v0 += __shfl_xor_sync(kFullMask, v0, 1);
+    v0 += __shfl_xor_sync(kFullMask, v0, 2);
+    v1 += __shfl_xor_sync(kFullMask, v1, 1);
+    v1 += __shfl_xor_sync(kFullMask, v1, 2);
+    float* sq = red + s.W * kTile;
+    if (q == 0) {
+      sq[s.w * kTile + g] = v0;
+      sq[s.w * kTile + g + 8] = v1;
+    }
+    team_sync(s, team);
+    t0 = t1 = 0.f;
+    for (int w = 0; w < s.W; ++w) {
+      t0 += sq[w * kTile + g];
+      t1 += sq[w * kTile + g + 8];
+    }
+    const float inv0 = rsqrtf(t0 / D + ln_eps), inv1 = rsqrtf(t1 / D + ln_eps);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= s.ntw) continue;
+      float y[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int col = s.c0 + 8 * j + 2 * q + (k & 1);
+        const float mean = k < 2 ? mean0 : mean1, inv = k < 2 ? inv0 : inv1;
+        y[k] = (nw[j][k] - mean) * inv * __ldg(ln + col) + __ldg(ln + D + col) + hv[j][k];
+      }
+      if (ok0) *reinterpret_cast<float2*>(o0 + 8 * j) = make_float2(y[0], y[1]);
+      if (ok1) *reinterpret_cast<float2*>(o1 + 8 * j) = make_float2(y[2], y[3]);
+    }
+    // every read of X and of the buckets is behind the syncs above: the
+    // team zeroes its buckets (X and every slot), a share a warp, and waits
+    // for that before the next tile's sums
+    float4* y4 = reinterpret_cast<float4*>(Y);
+    for (int i = s.w * 32 + lane; i < kTile * s.ys / 4; i += 32 * s.W)
+      y4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    team_sync(s, team);
+  }
+  sl = Slots();
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) agg[j][k] = 0.f;
+}
+
+// Any D (a multiple of 8, 8 to 128): a block holds `teams` teams of
+// team_warps(D) warps; a team walks its tiles together, each warp on its
+// slice of the columns. Shared memory: every team's buckets (and row sums),
+// then every warp's two row buffers.
+template <typename T, bool kGru>
+__global__ void __launch_bounds__(max_warps(kGru) * 32)
+fused_message_gen_kernel(const T* __restrict__ h, const float* __restrict__ table,
+                         const int* __restrict__ bond, const int* __restrict__ src,
+                         const uint8_t* __restrict__ mask, const int* __restrict__ rowptr,
+                         const float* __restrict__ gru_w, const float* __restrict__ gru_b,
+                         const float* __restrict__ ln, float ln_eps, float* __restrict__ out,
+                         int n_nodes, int dim, int n_types) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Slice s;
+  s.D = dim;
+  s.DK = gen_depth(dim, kGru);
+  s.ys = gen_y_stride(dim, kGru);
+  s.VD = n_types * dim;
+  s.W = team_warps(dim);
+  s.w = warp % s.W;
+  s.c0 = s.w * kSlice;
+  s.cw = min(kSlice, dim - s.c0);
+  s.ntw = s.cw / 8;
+  const int team = warp / s.W, teams = (blockDim.x >> 5) / s.W;
+  const int team_floats = gen_team_bytes(dim, kGru) / 4;
+  float* Y = reinterpret_cast<float*>(smem_raw) + team * team_floats;  // (16, kSlots*DK), row ys
+  float* red = Y + kTile * s.ys;  // the step's (2, W, 16) row sums
+  T* G = reinterpret_cast<T*>(smem_raw + teams * gen_team_bytes(dim, kGru)) +
+         warp * 2 * kChunk * kSlice;  // two (kChunk, kSlice) row buffers
+
+  float4* all4 = reinterpret_cast<float4*>(smem_raw);
+  for (int i = threadIdx.x; i < teams * team_floats / 4; i += blockDim.x)
+    all4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  for (long node = (long)blockIdx.x * warps + (threadIdx.x >> 5); node < n_nodes;
-       node += (long)gridDim.x * warps) {
-    float acc[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f) acc[f] = 0.f;
-
-    const int beg = rowptr[node];
-    const int end = rowptr[node + 1];
-    for (int e0 = beg; e0 < end; e0 += 32) {
-      // each lane fetches one edge's ids; the warp then walks them in order
-      const int e = e0 + lane;
-      int my_src = 0, my_bond = 0, my_mask = 0;
-      if (e < end) {
-        my_src = src[e];
-        my_bond = bond[e];
-        my_mask = mask[e];
-      }
-      const int cnt = min(32, end - e0);
-      for (int t = 0; t < cnt; ++t) {
-        if (!__shfl_sync(kFullMask, my_mask, t)) continue;  // warp-uniform
-        const long s = __shfl_sync(kFullMask, my_src, t);
-        const int b = __shfl_sync(kFullMask, my_bond, t);
-        float hv[F];
-#pragma unroll
-        for (int f = 0; f < F; ++f) hv[f] = load_f32(h + s * D + f * 32 + lane);
-        const float* kb = sK + b * D + lane;
-#pragma unroll
-        for (int g = 0; g < F; ++g) {
-#pragma unroll
-          for (int j = 0; j < 32; ++j) {
-            const float hj = __shfl_sync(kFullMask, hv[g], j);
-            const float* krow = kb + (g * 32 + j) * VD;
-#pragma unroll
-            for (int f = 0; f < F; ++f) acc[f] = fmaf(krow[f * 32], hj, acc[f]);
-          }
+  // tiles are dealt to the blocks first, as in the specialisation; every
+  // warp of a team takes the same tiles
+  Slots sl;
+  float agg[4][4] = {};
+  walk_chunks<kChunk>(
+      rowptr, src, bond, mask, n_nodes, team * gridDim.x + blockIdx.x, gridDim.x * teams, lane,
+      [&](int b, const Chunk& c) {
+        gather_slice_async<T, kChunk>(G + b * kChunk * kSlice, h, c, s, lane);
+      },
+      [&](int b, const Chunk& cur) {
+        for (uint32_t todo = cur.types;;) {
+          const int bucket = take_slots(sl, todo, cur);
+          add_slice<kChunk>(Y, G + b * kChunk * kSlice, bucket, s, lane);
+          todo &= ~sl.mask;
+          if (!todo) break;
+          products_gen<kGru>(agg, Y, sl, table, s, team, lane);
+          zero_slice(Y, sl.used, s, lane);
+          sl = Slots();
         }
-      }
-    }
-
-    float* o = out + node * D + lane;
-    if (!kGru) {
-#pragma unroll
-      for (int f = 0; f < F; ++f) o[f * 32] = acc[f];
-      continue;
-    }
-
-    // ---- GatedUpdate epilogue: h and agg of this node sit in the warp ----
-    float hn[F], z[F], r[F], c[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      hn[f] = load_f32(h + node * D + f * 32 + lane);
-      z[f] = r[f] = c[f] = 0.f;
-    }
-#pragma unroll
-    for (int g = 0; g < F; ++g) {
-#pragma unroll 8
-      for (int j = 0; j < 32; ++j) {
-        const int row = g * 32 + j;
-        const float hj = __shfl_sync(kFullMask, hn[g], j);
-        const float aj = __shfl_sync(kFullMask, acc[g], j);
-        const float* wh = sW + row * 3 * D + lane;        // row multiplying h
-        const float* wa = sW + (D + row) * 3 * D + lane;  // row multiplying agg
-#pragma unroll
-        for (int f = 0; f < F; ++f) {
-          z[f] = fmaf(hj, wh[f * 32], fmaf(aj, wa[f * 32], z[f]));
-          r[f] = fmaf(hj, wh[D + f * 32], fmaf(aj, wa[D + f * 32], r[f]));
-          c[f] = fmaf(aj, wa[2 * D + f * 32], c[f]);
-        }
-      }
-    }
-    float rh[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      const int i = f * 32 + lane;
-      z[f] = 1.f / (1.f + expf(-(z[f] + sB[i])));
-      r[f] = 1.f / (1.f + expf(-(r[f] + sB[D + i])));
-      rh[f] = r[f] * hn[f];
-    }
-#pragma unroll
-    for (int g = 0; g < F; ++g) {
-#pragma unroll 8
-      for (int j = 0; j < 32; ++j) {
-        const int row = g * 32 + j;
-        const float rj = __shfl_sync(kFullMask, rh[g], j);
-        const float* wc = sW + row * 3 * D + 2 * D + lane;
-#pragma unroll
-        for (int f = 0; f < F; ++f) c[f] = fmaf(rj, wc[f * 32], c[f]);
-      }
-    }
-    float nw[F];
-    float part = 0.f;
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      const float cand = tanhf(c[f] + sB[2 * D + lane + f * 32]);
-      nw[f] = (1.f - z[f]) * hn[f] + z[f] * cand;
-      part += nw[f];
-    }
-    const float mean = warp_sum(part) / D;
-    float sq = 0.f;
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      const float d = nw[f] - mean;
-      sq += d * d;
-    }
-    const float inv = rsqrtf(warp_sum(sq) / D + ln_eps);
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      const int i = f * 32 + lane;
-      o[f * 32] = (nw[f] - mean) * inv * sL[i] + sL[D + i] + hn[f];
-    }
-  }
+        __syncwarp();
+        if (cur.last)
+          finish_gen<T, kGru>(agg, Y, red, sl, table, gru_w, gru_b, ln, ln_eps, h, out,
+                              cur.tile, n_nodes, s, team, lane);
+      });
 }
 
-template <typename T, int D, bool kGru>
-int run_rows(const void* h, const float* table, const int* bond, const int* src,
-             const uint8_t* mask, const int* rowptr, const float* gru_w, const float* gru_b,
-             const float* ln, float ln_eps, float* out, int n_nodes, int n_types,
-             cudaStream_t stream) {
-  auto kernel = fused_message_rows_kernel<T, D, kGru>;
-  const size_t smem = rows_smem_bytes(D, n_types, kGru);
+// As many teams per block as shared memory holds, up to max_warps warps.
+template <typename T, bool kGru>
+int run_gen(const void* h, const float* table, const int* bond, const int* src,
+            const uint8_t* mask, const int* rowptr, const float* gru_w, const float* gru_b,
+            const float* ln, float ln_eps, float* out, int n_nodes, int dim, int n_types,
+            cudaStream_t stream) {
+  int device = 0, optin = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  const int W = team_warps(dim);
+  const size_t per_team = gen_team_bytes(dim, kGru) + W * gen_warp_bytes(sizeof(T));
+  if (per_team > (size_t)optin) return (int)cudaErrorInvalidValue;
+  const size_t fit = optin / per_team;
+  const int teams = (int)(fit < (size_t)(max_warps(kGru) / W) ? fit : max_warps(kGru) / W);
+  const size_t smem = teams * per_team;
+  auto kernel = fused_message_gen_kernel<T, kGru>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (n_nodes > 0) {
-    const int warps = kRowsThreads / 32;
-    const int grid = resident_grid(kernel, kRowsThreads, smem, (n_nodes + warps - 1) / warps);
-    kernel<<<grid, kRowsThreads, smem, stream>>>(static_cast<const T*>(h), table, bond, src,
-                                                 mask, rowptr, gru_w, gru_b, ln, ln_eps,
-                                                 out, n_nodes, n_types);
+    const long tiles = (n_nodes + kTile - 1) / kTile;
+    const int threads = teams * W * 32;
+    const int grid = resident_grid(kernel, threads, smem, (tiles + teams - 1) / teams);
+    kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(h), table, bond, src, mask,
+                                            rowptr, gru_w, gru_b, ln, ln_eps, out, n_nodes,
+                                            dim, n_types);
   }
   return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------ dispatch
 
-// The most bond types each width takes: V <= 32 for the tile's type mask at
-// D = 32; at D = 64 what the table and the epilogue's weights leave room for.
-inline int max_types(int dim) { return dim == 32 ? 32 : dim == 64 ? 8 : 0; }
+// The most bond types a width takes: 32 at every D that is a multiple of 8
+// from 8 to 128, none at any other.
+inline int max_types(int dim) {
+  return dim >= 8 && dim <= kMaxDim && dim % 8 == 0 ? kMaxTypes : 0;
+}
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
@@ -958,15 +1275,16 @@ int dispatch_fused(const void* h, int h_dtype, const float* table, const int* bo
   if (!aligned16(h) || !aligned16(table) || !aligned16(out) ||
       (kGru && (!aligned16(gru_w) || !aligned16(gru_b) || !aligned16(ln))))
     return (int)cudaErrorMisalignedAddress;
-#define IONIC_ARGS h, table, bond, src, mask, rowptr, gru_w, gru_b, ln, ln_eps, out, n_nodes, n_types, s
-  if (dim == 32) {
-    if (h_dtype == kF32) return run_tc<float, kGru>(IONIC_ARGS);
-    if (h_dtype == kBF16) return run_tc<__nv_bfloat16, kGru>(IONIC_ARGS);
+#define IONIC_ARGS h, table, bond, src, mask, rowptr, gru_w, gru_b, ln, ln_eps, out, n_nodes
+#ifndef IONIC_NO_D32_SPECIALISATION  // defined only to time the general kernel at D = 32
+  if (dim == kTcDim) {
+    if (h_dtype == kF32) return run_tc<float, kGru>(IONIC_ARGS, n_types, s);
+    if (h_dtype == kBF16) return run_tc<__nv_bfloat16, kGru>(IONIC_ARGS, n_types, s);
+    return (int)cudaErrorInvalidValue;
   }
-  if (dim == 64) {
-    if (h_dtype == kF32) return run_rows<float, 64, kGru>(IONIC_ARGS);
-    if (h_dtype == kBF16) return run_rows<__nv_bfloat16, 64, kGru>(IONIC_ARGS);
-  }
+#endif
+  if (h_dtype == kF32) return run_gen<float, kGru>(IONIC_ARGS, dim, n_types, s);
+  if (h_dtype == kBF16) return run_gen<__nv_bfloat16, kGru>(IONIC_ARGS, dim, n_types, s);
 #undef IONIC_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -987,13 +1305,15 @@ IONIC_API int ionic_max_dynamic_smem(void) {
 
 // The least dynamic shared memory a launch at this width and type count
 // needs (at D = 32: the staged operands and one warp's tile and row
-// buffers), or -1 for a shape the kernels do not take.
+// buffers; at any other D: one team's buckets and row buffers), or -1 for a
+// shape the kernels do not take.
 IONIC_API int ionic_fused_smem_bytes(int dim, int n_types, int gru) {
   if (n_types <= 0 || n_types > ionic::max_types(dim)) return -1;
   if (dim == ionic::kTcDim)
     return (int)(ionic::tc_fixed_bytes(n_types, gru != 0) +
                  ionic::tc_warp_bytes(sizeof(float), gru != 0));
-  return (int)ionic::rows_smem_bytes(dim, n_types, gru != 0);
+  return ionic::gen_team_bytes(dim, gru != 0) +
+         ionic::team_warps(dim) * ionic::gen_warp_bytes(sizeof(float));
 }
 
 IONIC_API int ionic_fused_message(const void* h, int h_dtype, const float* table,

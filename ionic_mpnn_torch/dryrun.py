@@ -19,7 +19,9 @@ arm                       configuration here
                           fused step kernel, else ``gather``), f32
 ``dp-onehot-aligned``     one DP step, ``onehot`` on ``window_aligned`` batches
 ``tp-fwd``, ``tp-train``  ``model_parallel=2`` (even rank counts), width 16 in
-                          f32 ``gather``: the CUDA kernels take D = 32 and 64
+                          f32 ``gather``: JAX's dry run builds on the config
+                          default ``message_impl="gather"``
+                          (``__graft_entry__.py:105,155``; its ``config.py:114``)
 ``ep``                    the edge-partitioned aggregate against the whole one
 ``halo-ep``               one halo step in f32 ``gather``, the only config the
                           halo step takes

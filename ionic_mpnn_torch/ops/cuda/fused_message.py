@@ -8,19 +8,21 @@ Replaces the JAX package's Pallas kernel ``ops/pallas/fused_message.py``
 (E, D) messages never written to memory. The TPU kernel gathers h[src]
 and scatters into dst as one-hot MXU matmuls over 128-node windows with a
 3-window src halo and a static tile budget, and rejects inputs outside
-them. The Hopper kernel reads the sorted dst as CSR rows and, at the
-model's width D = 32, runs on the tensor cores: one warp per tile of 16
-destination nodes sums each real edge's ``h[src]`` row into a
-(node, bond type) bucket in shared memory, in CSR order and without
-atomics, then multiplies the buckets of the types the tile holds by the
-lane-stacked table ``K (D, V·D)`` on the bf16 tensor cores, each operand
-split exactly into three bf16 parts (f32-accurate, so the backward's sums
-over every node read an aggregate as exact as the plain version's). D = 64
-keeps the first design, one warp per node with
-the per-edge matvec on the CUDA cores. Any degree and any |src − dst| are
-accepted; no edge is dropped; two launches on the same input give the
-same bits. Limits, checked before a launch: at most 32 bond types at
-D = 32 and 8 at D = 64.
+them. The Hopper kernel reads the sorted dst as CSR rows and runs on the
+tensor cores: a tile of 16 destination nodes sums each real edge's
+``h[src]`` row into a (node, bond type) bucket in shared memory, in CSR
+order and without atomics, then multiplies the buckets of the types the
+tile holds by the lane-stacked table ``K (D, V·D)`` on the bf16 tensor
+cores, each operand split exactly into three bf16 parts (f32-accurate, so
+the backward's sums over every node read an aggregate as exact as the
+plain version's). At the model's width D = 32 one warp owns a tile and the
+table sits in shared memory; at any other width a team of ``ceil(D / 32)``
+warps shares a tile, each on a slice of 32 output columns, and the table
+is read through L2 (at D = 128 it outgrows a block's shared memory). Any
+degree and any |src − dst| are accepted; no edge is dropped; two launches
+on the same input give the same bits. Limits, checked before a launch:
+D a multiple of 8 from 8 to 128 (:data:`FUSED_DIMS`; the JAX kernels take
+any D) and at most 32 bond types.
 
 Backward (:class:`FusedMessageAggregate`), as the JAX ``_vjp_bwd``:
 
@@ -77,7 +79,10 @@ launches = 0  # kernel launches since the last reset (ops.cuda.reset_launch_coun
 dh_launches = 0  # of those, the backward's dh launches on (g, Kᵀ)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SUPPORTED_DIMS = (32, 64)
+# The widths the fused kernels take: the library's ionic_fused_max_types is
+# nonzero at exactly these. The wrapper refuses any other D before it loads
+# the library; the bond-type limit and shared memory it asks the library.
+FUSED_DIMS = range(8, 129, 8)
 
 
 def message_table_to_lanes(m_table: torch.Tensor) -> torch.Tensor:
@@ -132,7 +137,8 @@ def check_fused_inputs(name: str, h, K, bond_ids, src, dst, edge_mask,
             f"h must be (N, D) float32 or bfloat16, got {tuple(h.shape)} {h.dtype}")
     N, D = h.shape
     require(N == num_nodes, f"h has {N} rows, num_nodes is {num_nodes}")
-    require(D in SUPPORTED_DIMS, f"D={D} not supported (supported: {SUPPORTED_DIMS})")
+    require(D in FUSED_DIMS, f"D={D} not supported: the kernels take D a multiple of 8 "
+                             f"from 8 to 128")
     require(K.dtype == torch.float32 and K.dim() == 2 and K.shape[0] == D
             and K.shape[1] % D == 0 and K.shape[1] > 0,
             f"table must be (D, V*D) float32, got {tuple(K.shape)} {K.dtype}")

@@ -7,25 +7,28 @@ the fused-message kernel twice.
 Replaces the JAX package's Pallas kernel ``ops/pallas/fused_step.py``
 (``fused_mp_step`` and its custom VJP): ``h' = GatedUpdate(h, Σ_{e→n} mask_e ·
 M[bond_e] @ h[src_e])`` where the aggregate never reaches memory. On the
-TPU the epilogue runs on a finished 128-node output window. Here, at
-D = 32, a warp finishes a tile of 16 nodes with their aggregate in
-registers and runs the gates on the tensor cores in three TF32 passes
+TPU the epilogue runs on a finished 128-node output window. Here the
+tile of 16 nodes that summed the aggregate finishes it with the aggregate
+in registers and runs the gates on the tensor cores in three TF32 passes
 (f32-accurate, as its aggregate): ``[h | agg] @ [Wz | Wr]`` for z and r,
-``[r·h | agg] @ Wh`` for the candidate, with ``[Wz | Wr | Wh]`` split into
-TF32 (hi, lo) pairs once per block in shared memory; sigmoid through
+``[r·h | agg] @ Wh`` for the candidate; sigmoid through
 ``__expf``/``__fdividef``, tanh stays ``tanhf``; the LayerNorm (the mean,
-then ``mean((x − μ)²)``) sums each row over the four lanes that hold it.
-D = 64 keeps the first design: one warp per node, the gate matvecs on the
-CUDA cores.
+then ``mean((x − μ)²)``). At D = 32 one warp owns the tile, with
+``[Wz | Wr | Wh]`` split into TF32 (hi, lo) pairs once per block in shared
+memory, and sums each row over the four lanes that hold it. At any other
+width (a multiple of 8 up to 128) a team of ``ceil(D / 32)`` warps owns
+it, each on a slice of 32 columns of every product and gate, the weights
+read through L2 (393 KB at D = 128); the LayerNorm adds the warps' slice
+sums in shared memory, over the true D.
 
 Numerics follow the JAX kernel: the result is f32 whatever the dtype of
 ``h`` (a bf16 ``h`` is read exactly and upcast), and the whole epilogue
 is f32-accurate with eps 1e-3 (sigmoid and tanh to a few ulp). That is
 not the composed bf16 GatedUpdate, whose gate matmuls round to bf16.
 
-Bound on the H100: operations at D = 32 (2·E_real·D² + 12·N·D² flops on
-the tensor cores at the f32-accurate rate, 495 TFLOP/s / 3, against the
-gathered h rows, the edge arrays and the weights); see
+Bound on the H100: operations at every width (2·E_real·D² + 12·N·D²
+flops on the tensor cores at the f32-accurate rate, 495 TFLOP/s / 3,
+against the gathered h rows, the edge arrays and the weights); see
 ``csrc/fused_message.cu``.
 
 Dispatch: a CPU tensor takes :func:`fused_mp_step_plain` (and the plain

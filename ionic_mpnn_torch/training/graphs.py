@@ -17,6 +17,11 @@ would. A capture that fails raises: nothing carries on eagerly on CUDA.
 On the CPU, or when the caller asks for the eager path, every call runs
 the function: that is the plain path, as the kernels' plain versions are.
 
+A graph that Python's cyclic collector frees during another graph's
+capture (a dropped train step's, held in a reference cycle) resets itself,
+which is not permitted while a stream captures and invalidates that
+capture. So a capture keeps the collector off until it ends.
+
 A train step's capture runs its backward on the side stream. No tensor
 may still hold an autograd graph of the same parameters from an earlier
 backward on another stream (a loss kept from an eager step, say): that
@@ -37,6 +42,7 @@ runs no padding batch, where JAX pads the group and skips the padding).
 
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
@@ -120,10 +126,14 @@ class Replay:
         for gen in (self.generators() if self.generators else ()):
             graph.register_generator_state(gen)
         before = kernels.launch_counts()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool, stream=side_stream(self.device)):
                 out = self.fn()
         finally:
+            if collecting:
+                gc.enable()
             after = kernels.launch_counts()
             kernels.set_launch_counts(before)  # the capture launched nothing
         self.launches = {k: after[k] - before[k] for k in after}

@@ -357,3 +357,38 @@ def test_static_slots_hold_the_batches_copied_in(setup):
     slots.upload(1)
     assert float(slots.batches[0].y[0]) == 7.0
     assert [t.data_ptr() for t in slots.arrays.values()] == ptrs
+
+
+@pytest.mark.parametrize("fails", [False, True])
+def test_a_capture_runs_with_the_cyclic_collector_off(monkeypatch, fails):
+    """A graph freed by the cyclic collector during another capture would
+    invalidate it, so ``Replay`` captures with the collector off and turns
+    it back on after, also when the capture raises. The capture itself is
+    faked here (no card): ``fn`` records whether the collector ran."""
+    import contextlib
+    import gc
+
+    from ionic_mpnn_torch.training import graphs
+
+    class FakeGraph:
+        def register_generator_state(self, gen):
+            pass
+
+    monkeypatch.setattr(graphs.torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(graphs.torch.cuda, "graph", lambda *a, **k: contextlib.nullcontext())
+    monkeypatch.setattr(graphs, "side_stream", lambda device: None)
+    calls = []
+
+    def fn():
+        calls.append(gc.isenabled())
+        if fails and len(calls) == 2:
+            raise RuntimeError("capture failed")
+        return torch.zeros(1)
+
+    replay = graphs.Replay(fn, "cuda", graphed=True)
+    monkeypatch.setattr(replay, "_eager", fn)
+    assert gc.isenabled()
+    with contextlib.suppress(RuntimeError) if fails else contextlib.nullcontext():
+        replay()
+    assert calls == [True, False]  # the eager first call, then the capture
+    assert gc.isenabled()

@@ -119,7 +119,11 @@ def test_gated_update(dtype):
     np.testing.assert_allclose(got.float().numpy(), _np(want), **tol)
 
 
-_CASES = [(256, 32, 7, 0), (384, 16, 5, 1)]  # (N, D, V, seed)
+# (N, D, V, seed): the model's width, and widths the general tensor-core
+# kernel serves on the card (D = 8 pads its bf16 depth to 16; D = 48 is a
+# team of a full and a half slice; 9 types at D = 64; D = 128, four slices)
+_CASES = [(256, 32, 7, 0), (384, 16, 5, 1), (256, 8, 3, 2), (256, 48, 7, 3),
+          (192, 64, 9, 4), (128, 128, 7, 5)]
 
 
 @pytest.mark.parametrize("kernel", ["sorted_segment_sum", "fused_message_aggregate",
@@ -152,6 +156,27 @@ def test_plain_version_matches_pallas_kernel(kernel, N, D, V, seed):
             bond, src, dst, mask, N)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("gru", [False, True])
+@pytest.mark.parametrize("D", [20, 136])
+def test_fused_inputs_refuse_widths_before_loading_the_library(D, gru, monkeypatch):
+    """A width the fused kernels do not take (not a multiple of 8, or above
+    128) is refused by the wrapper's check, before it asks the library."""
+
+    def no_library():
+        raise AssertionError("the check loaded the kernel library")
+
+    monkeypatch.setattr(kernels._lib, "library", no_library)
+    N, E, V = 64, 10, 3
+    h, K = torch.zeros(N, D), torch.zeros(D, V * D)
+    edges = [torch.zeros(E, dtype=torch.int32) for _ in range(3)]
+    mask = torch.ones(E, dtype=torch.bool)
+    rowptr = torch.zeros(N + 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"D={D} not supported: the kernels take D a "
+                                         f"multiple of 8 from 8 to 128"):
+        fused_message.check_fused_inputs("fused", h, K, *edges, mask, N, rowptr, gru=gru)
+    assert D not in fused_message.FUSED_DIMS
 
 
 @pytest.mark.parametrize("kernel", ["sorted_segment_sum", "fused_message_aggregate",

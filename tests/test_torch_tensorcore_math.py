@@ -1,20 +1,26 @@
-"""The arithmetic of the fused kernels' tensor-core design (D = 32 on the
-card, ``csrc/fused_message.cu``), mirrored step by step in plain PyTorch on
-the CPU and held against the JAX Pallas kernels it replaces (interpret
-mode) at rtol/atol 1e-5:
+"""The arithmetic of the fused kernels' tensor-core design
+(``csrc/fused_message.cu``: the D = 32 specialisation and the general
+kernel of every other width), mirrored step by step in plain PyTorch on the
+CPU and held against the JAX Pallas kernels it replaces (interpret mode)
+at rtol/atol 1e-5:
 
 * bucket sums per (node, bond type) in CSR order, over tiles of 16 nodes
   whose buckets hold 4 types at a time (a tile that meets more types runs
   the product on the full slots and starts them over);
+* the output columns in slices of 32, one warp each (at D = 48: 32 and
+  16; D <= 32 is one slice);
 * the message product: each operand split exactly into three bf16 parts,
-  the six products of order <= 2^-16 summed;
+  the six products of order <= 2^-16 summed, the depth zero-padded to a
+  multiple of 16 (D = 8, 24, ...);
 * the step's products as 3xTF32 (TF32 rounding as ``cvt.rna`` does it, on
   the int32 view): lo*hi and hi*lo into one chain, hi*hi into another,
   both added in f32;
+* chains of at most 8 depth steps, each pair added into the f32 sum;
 * only the types a tile holds are multiplied;
 * the step's gates on the same 3xTF32 products, the sigmoid as
-  ``1 / (1 + exp(-x))``, tanh, the LayerNorm (the mean, then
-  ``mean((x - mu)^2)``) and the residual.
+  ``1 / (1 + exp(-x))``, tanh, the LayerNorm (row sums per slice, added
+  over the slices in order; the mean, then ``mean((x - mu)^2)`` over the
+  true D) and the residual.
 
 The mirror lives here, not in the package: it pins the design's numerics,
 which the card's kernel then holds against its plain version."""
@@ -34,7 +40,7 @@ from ionic_mpnn_tpu.ops.pallas.fused_step import fused_mp_step as j_fused_step
 from test_pallas_fused_message import _molecular_edges
 
 F32 = dict(rtol=1e-5, atol=1e-5)
-TILE, SLOTS, CHUNK = 16, 4, 16
+TILE, SLOTS, CHUNK, SLICE, CHAIN = 16, 4, 16, 32, 8
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -50,35 +56,65 @@ def bf16_parts(x: torch.Tensor):
     return x1, x2, (r - x2).to(torch.bfloat16).float()
 
 
+def _slices(n):
+    """The column slices of the warps of a team: 32 wide, the last narrower."""
+    return [slice(c0, min(c0 + SLICE, n)) for c0 in range(0, n, SLICE)]
+
+
 def product_3xtf32(a, b, passes=3):
-    """a @ b as the step kernel's 3xTF32 mma: per depth step of 8, lo*hi and
-    hi*lo into one chain and hi*hi into another, added in f32 at the end.
+    """a @ b as the step kernel's 3xTF32 mma, per slice of 32 output
+    columns: per depth step of 8, lo*hi and hi*lo into one chain and hi*hi
+    into another; every CHAIN steps both are added into the f32 sum.
     ``passes=1`` keeps hi*hi alone."""
-    mx = torch.zeros(a.shape[0], b.shape[1])
-    hh = torch.zeros_like(mx)
-    for k in range(0, a.shape[1], 8):
-        ak, bk = a[:, k:k + 8], b[k:k + 8]
-        ahi, bhi = tf32(ak), tf32(bk)
-        if passes == 3:
-            mx += tf32(ak - ahi) @ bhi
-            mx += ahi @ tf32(bk - bhi)
-        hh += ahi @ bhi
-    return hh + mx
+    out = torch.zeros(a.shape[0], b.shape[1])
+    for cols in _slices(b.shape[1]):
+        acc = torch.zeros(a.shape[0], cols.stop - cols.start)
+        for c0 in range(0, a.shape[1], 8 * CHAIN):
+            mx, hh = torch.zeros_like(acc), torch.zeros_like(acc)
+            for k in range(c0, min(a.shape[1], c0 + 8 * CHAIN), 8):
+                ak, bk = a[:, k:k + 8], b[k:k + 8, cols]
+                ahi, bhi = tf32(ak), tf32(bk)
+                if passes == 3:
+                    mx += tf32(ak - ahi) @ bhi
+                    mx += ahi @ tf32(bk - bhi)
+                hh += ahi @ bhi
+            acc += hh + mx
+        out[:, cols] = acc
+    return out
 
 
 def product_bf16x3(a, b):
-    """a @ b as the message kernel's mma: per depth step of 16, the six
+    """a @ b as the message kernel's mma, per slice of 32 output columns:
+    the depth zero-padded to a multiple of 16; per depth step of 16, the six
     products of the exact three-part bf16 splits, small ones first into one
-    chain, x1*y1 into another, added in f32 at the end."""
-    mx = torch.zeros(a.shape[0], b.shape[1])
-    hh = torch.zeros_like(mx)
-    for k in range(0, a.shape[1], 16):
-        a1, a2, a3 = bf16_parts(a[:, k:k + 16])
-        b1, b2, b3 = bf16_parts(b[k:k + 16])
-        for x, y in ((a3, b1), (a2, b2), (a1, b3), (a2, b1), (a1, b2)):
-            mx += x @ y
-        hh += a1 @ b1
-    return hh + mx
+    chain, x1*y1 into another; every CHAIN steps both are added into the
+    f32 sum."""
+    pad = -a.shape[1] % 16
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    out = torch.zeros(a.shape[0], b.shape[1])
+    for cols in _slices(b.shape[1]):
+        acc = torch.zeros(a.shape[0], cols.stop - cols.start)
+        for c0 in range(0, a.shape[1], 16 * CHAIN):
+            mx, hh = torch.zeros_like(acc), torch.zeros_like(acc)
+            for k in range(c0, min(a.shape[1], c0 + 16 * CHAIN), 16):
+                a1, a2, a3 = bf16_parts(a[:, k:k + 16])
+                b1, b2, b3 = bf16_parts(b[k:k + 16, cols])
+                for x, y in ((a3, b1), (a2, b2), (a1, b3), (a2, b1), (a1, b2)):
+                    mx += x @ y
+                hh += a1 @ b1
+            acc += hh + mx
+        out[:, cols] = acc
+    return out
+
+
+def row_sum_by_slices(x):
+    """A row's sum as the step's LayerNorm takes it: each slice's sum, then
+    the slices' sums added in order."""
+    total = torch.zeros(x.shape[0], 1)
+    for cols in _slices(x.shape[1]):
+        total = total + x[:, cols].sum(dim=1, keepdim=True)
+    return total
 
 
 def aggregate_mirror(h, K, bond, src, dst, mask, N, product):
@@ -137,8 +173,8 @@ def step_mirror(h, m_table, gru, bond, src, dst, mask, N, ln_eps=1e-3, passes=3)
     r = sigmoid(zr[:, D:] + gru["br"])
     c = prod(torch.cat([r * h, agg], dim=1), W[:, 2 * D:]) + gru["bh"]
     new = (1.0 - z) * h + z * torch.tanh(c)
-    mean = new.mean(dim=1, keepdim=True)
-    var = ((new - mean) ** 2).mean(dim=1, keepdim=True)
+    mean = row_sum_by_slices(new) / D
+    var = row_sum_by_slices((new - mean) ** 2) / D
     return (new - mean) * torch.rsqrt(var + ln_eps) * gru["ln_scale"] + gru["ln_bias"] + h
 
 
@@ -159,10 +195,17 @@ def _every_type_edges(N, V):
 
 
 def _case(name):
-    """(N, D, V, seed) and the edges: the op tests' two graphs, and one of
-    N = 1001 whose tiles hold every type (more than the 4 slots)."""
+    """(N, D, V, seed) and the edges: the op tests' two graphs, graphs at
+    the general kernel's widths (D = 48: two slices, the second of 16;
+    D = 128: four slices and chains of the step's 32 depth steps of 8;
+    D = 24: one slice of 3 n-tiles, the bf16 depth padded to 32), and
+    one of N = 1001 whose tiles hold every type (more than the 4 slots)."""
     N, D, V, seed = {"molecules N=256": (256, 32, 7, 0), "molecules N=384 D=16": (384, 16, 5, 1),
-                     "every type N=1001": (1001, 32, 7, 2)}[name]
+                     "every type N=1001": (1001, 32, 7, 2),
+                     "molecules N=256 D=48": (256, 48, 7, 3),
+                     "every type N=97 D=48": (97, 48, 6, 4),
+                     "molecules N=128 D=128": (128, 128, 7, 5),
+                     "molecules N=192 D=24": (192, 24, 5, 6)}[name]
     rng = np.random.default_rng(seed)
     if name.startswith("every type"):
         src, dst, bond, mask = _every_type_edges(N, V)
@@ -175,7 +218,9 @@ def _case(name):
     return N, V, h, m_table, gru, src, dst, bond, mask
 
 
-CASES = ["molecules N=256", "molecules N=384 D=16", "every type N=1001"]
+CASES = ["molecules N=256", "molecules N=384 D=16", "every type N=1001",
+         "molecules N=256 D=48", "every type N=97 D=48", "molecules N=128 D=128",
+         "molecules N=192 D=24"]
 
 
 @pytest.mark.parametrize("kernel", ["fused_message_aggregate", "fused_mp_step"])
