@@ -8,9 +8,10 @@ Phases, in order (any failure raises and the script exits non-zero):
 
 1. Device: the card's name, ``nvidia-smi`` name and power limit.
 2. Build: compile ``ionic_mpnn_torch/csrc`` with nvcc (one process per
-   source) and print the build time, each kernel's registers and spills,
-   and, where the toolkit has ``cuobjdump``, each fused kernel's count of
-   HMMA (tensor-core) instructions; every fused kernel must have some.
+   source) and print the build time, each kernel's registers and spills
+   (the general fused kernel and its prologue must spill nothing), and,
+   where the toolkit has ``cuobjdump``, each fused product kernel's count
+   of HMMA (tensor-core) instructions; every one must have some.
 3. Kernel vs plain: each CUDA kernel against its plain PyTorch version on
    the card, at the cation and anion shapes of a batch-2048 bench batch with
    h in f32 and in bf16, and on hard cases (nodes with no in-edges, one node
@@ -41,8 +42,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    fan-in, 0.2 at D = 32), at D = 128 two launches bit-equal. Each
    kernel's device time per call at D = 8 to 128 (a CUDA graph of 20
    calls timed with events; D = 32 too, for comparison) beside its plain
-   version's and its bound. Then the paths that run these widths with the
-   card's default configuration (``message_impl`` "auto": ``pallas_step``
+   version's, its bound and the earlier design's time (``EARLIER_MS``);
+   at D = 64 and 128 also the backward's dK ops. Then the paths that run
+   these widths with the card's default configuration (``message_impl`` "auto": ``pallas_step``
    bf16): JAX's D-scaling arm at atom_dim 64 and 128 (fp_size = D, mixing
    max(20, D // 2), batch 2048, 4 message steps) — one train step against
    plain ``gather`` f32 with the same bf16-rounded weights (phase 6's
@@ -514,19 +516,33 @@ def phase_build():
     log(f"[build] {so.name} in {time.perf_counter() - t0:.2f} s")
     build_log = so.parent / _lib.BUILD_LOG
     if build_log.exists():
-        kernel = None
+        kernel, spilled = None, []
         for line in build_log.read_text().splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 kernel = m.group(1)
             if "registers" in line or "spill" in line:
                 log(f"[build] {kernel}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and any(k in (kernel or "") for k in GENERAL_KERNELS) and (
+                    int(m.group(1)) or int(m.group(2))):
+                spilled.append(f"{kernel}: {line.strip()}")
+        if spilled:
+            raise AssertionError("the general fused kernels spill:\n" + "\n".join(spilled))
     tensor_core_sass(so)
 
 
+# the kernels of every width but 32 (and their prologue), which must not spill
+GENERAL_KERNELS = ("fused_message_gen_kernel", "fused_message_split_kernel")
+# the fused product kernels, which must run on the tensor cores (the
+# prologue only splits the operands)
+PRODUCT_KERNELS = ("fused_message_tc_kernel", "fused_message_gen_kernel")
+
+
 def tensor_core_sass(so):
-    """Count each fused kernel's HMMA (tensor-core) instructions in the built
-    SASS, where the toolkit has cuobjdump; every one must hold some."""
+    """Count each fused product kernel's HMMA (tensor-core) instructions in
+    the built SASS, where the toolkit has cuobjdump; every one must hold
+    some."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -540,9 +556,10 @@ def tensor_core_sass(so):
         m = re.search(r"Function : (\S+)", line)
         if m:
             kernel = m.group(1)
-        elif kernel and "fused_message" in kernel and "HMMA" in line:
+        elif kernel and "HMMA" in line and any(k in kernel for k in PRODUCT_KERNELS):
             counts[kernel] = counts.get(kernel, 0) + 1
-    for kernel in sorted(k for k in re.findall(r"Function : (\S+)", sass) if "fused_message" in k):
+    for kernel in sorted(k for k in re.findall(r"Function : (\S+)", sass)
+                         if any(p in k for p in PRODUCT_KERNELS)):
         log(f"[build] {kernel}: {counts.get(kernel, 0)} HMMA instructions")
         if not counts.get(kernel):
             raise AssertionError(f"{kernel}: no tensor-core instruction in its SASS")
@@ -911,6 +928,20 @@ def graph_ms(fn, n=GRAPH_CALLS, replays=5):
     return statistics.median(times)
 
 
+# Each width's times (ms per call, as width_times reads them) under the
+# general kernel's earlier design (warp teams on 32-column slices, B read
+# through L2 per 16-row tile), from its final call on "NVIDIA H100 80GB
+# HBM3, 700.00 W" (PERF.md §6): the yardstick the redesign is read against.
+# D = 32 is the specialisation, which the redesign leaves as it was.
+EARLIER_MS = {
+    8: (0.02400, 0.02584, 0.05208), 16: (0.02560, 0.02708, 0.05847),
+    32: (0.02110, 0.02329, 0.06042), 48: (0.07272, 0.07358, 0.18364),
+    64: (0.09411, 0.09617, 0.23655), 128: (0.24136, 0.24133, 0.77679),
+}
+WIDTH_DK_DIMS = (64, 128)  # the widths whose paths run the backward's dK ops
+EARLIER_SCALING_MS = {64: 12.0990, 128: 26.0543}  # the D-scaling arm's step, same call
+
+
 def fused_bounds(N, E, E_real, D, V):
     """Each fused kernel's bytes (inputs read once, out written once) and
     flops at this shape, h f32, as [times] counts them."""
@@ -948,7 +979,7 @@ def width_times(D, h, m_table, gru, cot, bond, src, dst, mask, N, errs):
     bounds = fused_bounds(N, src.shape[0], int(mask.sum()), D, V)
     rows = []
     with torch.inference_mode():
-        for name, (kernel, plain) in calls.items():
+        for i, (name, (kernel, plain)) in enumerate(calls.items()):
             b_ms, b_by = bound_ms(*bounds[name], TC_F32[0])
             rows.append({"name": f"{name} D={D}", "kernel": name, "route": "cuda",
                          "source": "ionic_mpnn_torch/csrc/fused_message.cu",
@@ -959,9 +990,26 @@ def width_times(D, h, m_table, gru, cot, bond, src, dst, mask, N, errs):
                          "shape": {"N": N, "E": src.shape[0], "E_real": int(mask.sum()),
                                    "D": D, "V": V}})
             r = rows[-1]
+            r["earlier_ms"] = EARLIER_MS[D][i] if D in EARLIER_MS else None
+            earlier = (f", earlier design {r['earlier_ms']:.5f} ms "
+                       f"({r['earlier_ms'] / r['ms']:.2f}x this)" if r["earlier_ms"] else "")
             log(f"[widths] time {r['name']}: {r['ms']:.5f} ms (graph of {GRAPH_CALLS} calls), "
                 f"plain {r['plain_ms']:.5f} ms, bound {b_ms:.5f} ms ({b_by}), "
-                f"{r['ms'] / b_ms:.2f}x the bound")
+                f"{r['ms'] / b_ms:.2f}x the bound{earlier}")
+        if D in WIDTH_DK_DIMS:
+            # the backward's dK (PyTorch ops, as JAX leaves it to XLA): with the
+            # dh launch, what the message kernel's backward costs at this width
+            dK_bytes = 2 * N * D * 4 + src.shape[0] * 13 + K.numel() * 4
+            b_ms, b_by = bound_ms(dK_bytes, 2 * int(mask.sum()) * D * D)
+            ms = graph_ms(lambda: fused_message.fused_message_table_grad(cot, h, bond, src, dst,
+                                                                         mask, V))
+            rows.append({"name": f"fused_message_table_grad (dK) D={D}", "kernel": None,
+                         "route": "torch ops", "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "timing": f"CUDA graph of {GRAPH_CALLS} calls, events",
+                         "shape": rows[-1]["shape"]})
+            log(f"[widths] time dK D={D} (not a Pallas kernel; PyTorch ops): {ms:.5f} ms "
+                f"(graph of {GRAPH_CALLS} calls), bound {b_ms:.5f} ms ({b_by}), "
+                f"{ms / b_ms:.2f}x the bound")
     return rows
 
 
@@ -1014,8 +1062,8 @@ def scaling_arm(D, records, vocab, batch, dev):
            "device": r.device, "launches": launches}
     log(f"[widths] D-scaling arm atom_dim {D} ({impl} {dtype}, batch {BATCH}): one train step "
         f"losses {arm['losses']}{held}; bench_packed_train_step {out['step_ms']:.4f} ms per "
-        f"step, {r.edges_per_s:.6e} message-edges/s ({r.message_edges_per_step} per step), "
-        f"launches {counts}")
+        f"step (earlier design {EARLIER_SCALING_MS.get(D)} ms), {r.edges_per_s:.6e} "
+        f"message-edges/s ({r.message_edges_per_step} per step), launches {counts}")
     return out
 
 

@@ -151,9 +151,10 @@ class IonEncoder(nn.Module):
 
         if ep is not None and cfg.message_impl == "onehot":
             # node-sharded (aligned EP): this shard's rows pooled into the
-            # global graph slots, in f32 as the windowed readout sums, then
-            # one (B, D) sum over the group completes the readout
-            pooled = ep.sum(graph_sum_pool(h.float(), graphs.node_graph, graphs.n_graphs,
+            # global graph slots in the compute dtype, as JAX pools them
+            # (models/dual_encoder.py:134-143), then one (B, D) sum over the
+            # group completes the readout
+            pooled = ep.sum(graph_sum_pool(h, graphs.node_graph, graphs.n_graphs,
                                            graphs.node_mask,
                                            node_sorted=graphs.node_sorted))
         elif graphs.pool_slot is not None and cfg.ep_axis is None:

@@ -46,14 +46,18 @@ _SIGNATURES = {
     # dim, n_types, gru -> the least dynamic shared memory a fused launch
     # needs, or -1 for a shape the kernels do not take
     "ionic_fused_smem_bytes": ([_I, _I, _I], _I),
+    # dim, n_types, gru -> bytes of the scratch a fused launch splits its
+    # operands into (0 at D = 32), or -1 for a shape the kernels do not take
+    "ionic_fused_scratch_bytes": ([_I, _I, _I], _I),
     # msg, msg_dtype, rowptr, out, n_nodes, dim, stream
     "ionic_segment_sum": ([_P, _I, _P, _P, _I, _I, _P], _I),
-    # h, h_dtype, table, bond, src, mask, rowptr, out, n_nodes, dim, n_types, stream
-    "ionic_fused_message": ([_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    # h, h_dtype, table, bond, src, mask, rowptr, out, n_nodes, dim, n_types,
+    # scratch, stream
+    "ionic_fused_message": ([_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     # h, h_dtype, table, bond, src, mask, rowptr, gru_w, gru_b, ln, ln_eps,
-    # out, n_nodes, dim, n_types, stream
+    # out, n_nodes, dim, n_types, scratch, stream
     "ionic_fused_step": ([_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
-                          _P, _I, _I, _I, _P], _I),
+                          _P, _I, _I, _I, _P, _P], _I),
 }
 
 

@@ -16,9 +16,11 @@ tile holds by the lane-stacked table ``K (D, V·D)`` on the bf16 tensor
 cores, each operand split exactly into three bf16 parts (f32-accurate, so
 the backward's sums over every node read an aggregate as exact as the
 plain version's). At the model's width D = 32 one warp owns a tile and the
-table sits in shared memory; at any other width a team of ``ceil(D / 32)``
-warps shares a tile, each on a slice of 32 output columns, and the table
-is read through L2 (at D = 128 it outgrows a block's shared memory). Any
+table sits in shared memory; at any other width a block owns 64 nodes (4
+tiles), a prologue splits the table once per call into scratch the wrapper
+allocates (:func:`fused_scratch`), and each type's panel streams through
+shared memory by TMA once per block (at D = 128 the table outgrows a
+block's shared memory). Any
 degree and any |src − dst| are accepted; no edge is dropped; two launches
 on the same input give the same bits. Limits, checked before a launch:
 D a multiple of 8 from 8 to 128 (:data:`FUSED_DIMS`; the JAX kernels take
@@ -73,6 +75,7 @@ __all__ = [
     "lanes_to_message_table",
     "transpose_lane_table",
     "check_fused_inputs",
+    "fused_scratch",
 ]
 
 launches = 0  # kernel launches since the last reset (ops.cuda.reset_launch_counts)
@@ -166,6 +169,16 @@ def check_fused_inputs(name: str, h, K, bond_ids, src, dst, edge_mask,
     require(N < 2 ** 31 and E < 2 ** 31, "size out of range")
 
 
+def fused_scratch(h: torch.Tensor, D: int, V: int, gru: bool) -> Optional[torch.Tensor]:
+    """The scratch a launch at width D with V bond types splits its operands
+    into (the library says how many bytes), or None at D = 32, which needs
+    none."""
+    nbytes = _lib.library().ionic_fused_scratch_bytes(D, V, int(gru))
+    if nbytes < 0:
+        raise ValueError(f"{V} bond types at D={D}: not a shape the fused kernels take")
+    return torch.empty(nbytes, dtype=torch.uint8, device=h.device) if nbytes else None
+
+
 def _aggregate(h, K, bond_ids, src, dst, edge_mask, num_nodes: int, rowptr,
                dh: bool = False):
     """One forward evaluation, no autograd: the plain version for a CPU
@@ -182,13 +195,15 @@ def _aggregate(h, K, bond_ids, src, dst, edge_mask, num_nodes: int, rowptr,
 
     global launches, dh_launches
     h, K = _lib.aligned16(h), _lib.aligned16(K)
-    out = torch.empty(num_nodes, h.shape[1], dtype=torch.float32, device=h.device)
+    D = h.shape[1]
+    out = torch.empty(num_nodes, D, dtype=torch.float32, device=h.device)
+    scratch = fused_scratch(h, D, K.shape[1] // D, gru=False)
     with torch.cuda.device(h.device):
         code = _lib.library().ionic_fused_message(
             h.data_ptr(), _DTYPES[h.dtype], K.data_ptr(), bond_ids.data_ptr(),
             src.data_ptr(), edge_mask.data_ptr(), rowptr.data_ptr(),
-            out.data_ptr(), num_nodes, h.shape[1], K.shape[1] // h.shape[1],
-            _lib.stream_ptr(h.device))
+            out.data_ptr(), num_nodes, D, K.shape[1] // D,
+            None if scratch is None else scratch.data_ptr(), _lib.stream_ptr(h.device))
     _lib.check(code, "fused_message_aggregate")
     launches += 1
     if dh:

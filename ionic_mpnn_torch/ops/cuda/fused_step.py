@@ -16,10 +16,13 @@ in registers and runs the gates on the tensor cores in three TF32 passes
 then ``mean((x − μ)²)``). At D = 32 one warp owns the tile, with
 ``[Wz | Wr | Wh]`` split into TF32 (hi, lo) pairs once per block in shared
 memory, and sums each row over the four lanes that hold it. At any other
-width (a multiple of 8 up to 128) a team of ``ceil(D / 32)`` warps owns
-it, each on a slice of 32 columns of every product and gate, the weights
-read through L2 (393 KB at D = 128); the LayerNorm adds the warps' slice
-sums in shared memory, over the true D.
+width (a multiple of 8 up to 128) a block owns 64 nodes: a prologue splits
+the table into bf16 (hi, mid, lo) planes (the aggregate takes the message
+kernel's exact split) and ``[Wz | Wr | Wh]`` into TF32 (hi, lo) planes once
+per call, into scratch the wrapper allocates; the weights (983 KB split,
+rows padded, at D = 128) stream through shared memory once per block, the
+gates run on the 64 rows there, and the LayerNorm reduces each row over the
+true D.
 
 Numerics follow the JAX kernel: the result is f32 whatever the dtype of
 ``h`` (a bf16 ``h`` is read exactly and upcast), and the whole epilogue
@@ -50,6 +53,7 @@ from .fused_message import (
     _aggregate,
     check_fused_inputs,
     fused_message_aggregate_plain,
+    fused_scratch,
     lanes_to_message_table,
     message_backward,
     message_table_to_lanes,
@@ -110,13 +114,14 @@ def _step(h, m_table, gru, bond_ids, src, dst, edge_mask, num_nodes: int,
     global launches
     h = _lib.aligned16(h)
     out = torch.empty(num_nodes, D, dtype=torch.float32, device=h.device)
+    scratch = fused_scratch(h, D, K.shape[1] // D, gru=True)
     with torch.cuda.device(h.device):
         code = _lib.library().ionic_fused_step(
             h.data_ptr(), _DTYPES[h.dtype], K.data_ptr(), bond_ids.data_ptr(),
             src.data_ptr(), edge_mask.data_ptr(), rowptr.data_ptr(),
             w.data_ptr(), b.data_ptr(), ln.data_ptr(), float(ln_eps),
             out.data_ptr(), num_nodes, D, K.shape[1] // D,
-            _lib.stream_ptr(h.device))
+            None if scratch is None else scratch.data_ptr(), _lib.stream_ptr(h.device))
     _lib.check(code, "fused_mp_step")
     launches += 1
     return out

@@ -72,7 +72,13 @@ def _no_dropout(config_fn):
 def recorded(tmp_path_factory):
     """``(JAX's rows, the port's rows, the flax inits in the JAX run's
     order)``."""
-    tmp = tmp_path_factory.mktemp("quality")
+    return run_both(tmp_path_factory.mktemp("quality"), ARGS)
+
+
+def run_both(tmp, args):
+    """JAX's script with ``args``, recording every flax ``init``, then the
+    port's CLI with the same ``args`` from those weights: ``(JAX's rows, the
+    port's rows, the inits)``."""
     inits = []  # (model class name, flax variables), in the JAX run's order
     mp = pytest.MonkeyPatch()
     try:
@@ -87,7 +93,7 @@ def recorded(tmp_path_factory):
             mp.setattr(cls, "init", init)
         mp.setattr(jconfig, "viscosity_config", _no_dropout(jconfig.viscosity_config))
         mp.setenv("IONIC_MPNN_NO_CACHE", "1")
-        mp.setattr(sys, "argv", ["quality_protocols.py", *ARGS,
+        mp.setattr(sys, "argv", ["quality_protocols.py", *args,
                                  "--out", str(tmp / "jax.json")])
         with pytest.raises(SystemExit) as done:
             runpy.run_path(str(SCRIPT), run_name="__main__")
@@ -109,7 +115,7 @@ def recorded(tmp_path_factory):
         mp.setattr(tmodels, "MeltingPointModel", port_model(tmodels.MeltingPointModel))
         mp.setattr(tpipeline, "TransferMPModel", port_model(tpipeline.TransferMPModel))
         mp.setattr(tconfig, "viscosity_config", _no_dropout(tconfig.viscosity_config))
-        assert quality_protocols.main([*ARGS, "--device", "cpu",
+        assert quality_protocols.main([*args, "--device", "cpu",
                                        "--out", str(tmp / "port.json")]) == 0
         assert not queue  # the port built every model the JAX run built
     finally:
@@ -134,7 +140,10 @@ def test_the_out_file_names_the_same_protocol(runs):
 
 @pytest.mark.parametrize("row", range(6))
 def test_a_row_equals_jax(runs, row):
-    want, got = runs[0]["rows"][row], runs[1]["rows"][row]
+    assert_row_equal(runs[1]["rows"][row], runs[0]["rows"][row])
+
+
+def assert_row_equal(got, want):
     assert set(got) == set(want)
     assert got["n"] == want["n"]
     assert got.get("epochs_run") == want.get("epochs_run")

@@ -4,23 +4,28 @@ kernel of every other width), mirrored step by step in plain PyTorch on the
 CPU and held against the JAX Pallas kernels it replaces (interpret mode)
 at rtol/atol 1e-5:
 
-* bucket sums per (node, bond type) in CSR order, over tiles of 16 nodes
-  whose buckets hold 4 types at a time (a tile that meets more types runs
-  the product on the full slots and starts them over);
-* the output columns in slices of 32, one warp each (at D = 48: 32 and
-  16; D <= 32 is one slice);
+* bucket sums per (node, bond type) in CSR order. At D = 32 a warp owns a
+  tile of 16 nodes whose buckets hold 4 types at a time (a tile that meets
+  more types runs the product on the full slots and starts them over). At
+  any other D a block owns 64 nodes, 4 tiles of 16 whose buckets hold
+  ``gen_slots(D)`` types each (the most the block's shared memory takes:
+  2 at D = 64 and 128); the tiles' walkers go in rounds of a chunk
+  each, and a round in which any tile meets more types than its free slots
+  runs the products of every tile's slots (a flush) before that tile goes
+  on; the products take the types the block holds in type order;
 * the message product: each operand split exactly into three bf16 parts,
   the six products of order <= 2^-16 summed, the depth zero-padded to a
-  multiple of 16 (D = 8, 24, ...);
-* the step's products as 3xTF32 (TF32 rounding as ``cvt.rna`` does it, on
+  multiple of 16 (32 in the general kernel: the same sums). The general
+  kernel's step takes the same split for its aggregate; the D = 32 step
+  takes 3xTF32;
+* the step's gates as 3xTF32 (TF32 rounding as ``cvt.rna`` does it, on
   the int32 view): lo*hi and hi*lo into one chain, hi*hi into another,
   both added in f32;
 * chains of at most 8 depth steps, each pair added into the f32 sum;
 * only the types a tile holds are multiplied;
 * the step's gates on the same 3xTF32 products, the sigmoid as
-  ``1 / (1 + exp(-x))``, tanh, the LayerNorm (row sums per slice, added
-  over the slices in order; the mean, then ``mean((x - mu)^2)`` over the
-  true D) and the residual.
+  ``1 / (1 + exp(-x))``, tanh, the LayerNorm over the true D (the mean,
+  then ``mean((x - mu)^2)``) and the residual.
 
 The mirror lives here, not in the package: it pins the design's numerics,
 which the card's kernel then holds against its plain version."""
@@ -40,7 +45,27 @@ from ionic_mpnn_tpu.ops.pallas.fused_step import fused_mp_step as j_fused_step
 from test_pallas_fused_message import _molecular_edges
 
 F32 = dict(rtol=1e-5, atol=1e-5)
-TILE, SLOTS, CHUNK, SLICE, CHAIN = 16, 4, 16, 32, 8
+TILE, SLOTS, CHUNK, CHAIN = 16, 4, 16, 8
+BLOCK_TILES = 4  # the general kernel's 64-row blocks
+
+
+def gen_slots(D):
+    """The general kernel's bucket slots per tile at width D (``gen_slots``
+    in ``csrc/fused_message.cu``): the most, up to 4, with which a block of
+    the f32 step fits its shared memory, two blocks an SM at D <= 64
+    (115,712 bytes each, a ring of 2 stages) and one above (232,448, a ring
+    of 3)."""
+    nt = 4 if D <= 64 else 8
+    depth = -(-D // 32) * 32
+    k_stage = 3 * D * 40 * 2
+    w_stage = 2 * (32 if nt == 4 else 128) * ((64 if nt == 4 else 16) + 4) * 4
+    ring = (2 if nt == 4 else 3) * (-(-max(k_stage, w_stage) // 128) * 128)
+    for s in (4, 3, 2):
+        walk = 4 * 4 * s * TILE * (depth + 8) + 4 * 2 * CHUNK * D * 4
+        gates = 4 * 2 * 64 * (2 * D + 4)
+        if 256 + ring + max(walk, gates) <= (115712 if nt == 4 else 232448):
+            return s
+    return 1
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -56,116 +81,178 @@ def bf16_parts(x: torch.Tensor):
     return x1, x2, (r - x2).to(torch.bfloat16).float()
 
 
-def _slices(n):
-    """The column slices of the warps of a team: 32 wide, the last narrower."""
-    return [slice(c0, min(c0 + SLICE, n)) for c0 in range(0, n, SLICE)]
-
-
 def product_3xtf32(a, b, passes=3):
-    """a @ b as the step kernel's 3xTF32 mma, per slice of 32 output
-    columns: per depth step of 8, lo*hi and hi*lo into one chain and hi*hi
-    into another; every CHAIN steps both are added into the f32 sum.
-    ``passes=1`` keeps hi*hi alone."""
-    out = torch.zeros(a.shape[0], b.shape[1])
-    for cols in _slices(b.shape[1]):
-        acc = torch.zeros(a.shape[0], cols.stop - cols.start)
-        for c0 in range(0, a.shape[1], 8 * CHAIN):
-            mx, hh = torch.zeros_like(acc), torch.zeros_like(acc)
-            for k in range(c0, min(a.shape[1], c0 + 8 * CHAIN), 8):
-                ak, bk = a[:, k:k + 8], b[k:k + 8, cols]
-                ahi, bhi = tf32(ak), tf32(bk)
-                if passes == 3:
-                    mx += tf32(ak - ahi) @ bhi
-                    mx += ahi @ tf32(bk - bhi)
-                hh += ahi @ bhi
-            acc += hh + mx
-        out[:, cols] = acc
-    return out
+    """a @ b as the kernels' 3xTF32 mma: per depth step of 8, lo*hi and
+    hi*lo into one chain and hi*hi into another; every CHAIN steps both are
+    added into the f32 sum. ``passes=1`` keeps hi*hi alone."""
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for c0 in range(0, a.shape[1], 8 * CHAIN):
+        mx, hh = torch.zeros_like(acc), torch.zeros_like(acc)
+        for k in range(c0, min(a.shape[1], c0 + 8 * CHAIN), 8):
+            ak, bk = a[:, k:k + 8], b[k:k + 8]
+            ahi, bhi = tf32(ak), tf32(bk)
+            if passes == 3:
+                mx += tf32(ak - ahi) @ bhi
+                mx += ahi @ tf32(bk - bhi)
+            hh += ahi @ bhi
+        acc += hh + mx
+    return acc
 
 
-def product_bf16x3(a, b):
-    """a @ b as the message kernel's mma, per slice of 32 output columns:
-    the depth zero-padded to a multiple of 16; per depth step of 16, the six
-    products of the exact three-part bf16 splits, small ones first into one
-    chain, x1*y1 into another; every CHAIN steps both are added into the
-    f32 sum."""
+def product_bf16x3(a, b, chain=CHAIN):
+    """a @ b as the message kernel's mma: the depth zero-padded to a
+    multiple of 16; per depth step of 16, the six products of the exact
+    three-part bf16 splits, small ones first into one chain, x1*y1 into
+    another; every ``chain`` steps both are added into the f32 sum."""
     pad = -a.shape[1] % 16
     a = torch.nn.functional.pad(a, (0, pad))
     b = torch.nn.functional.pad(b, (0, 0, 0, pad))
-    out = torch.zeros(a.shape[0], b.shape[1])
-    for cols in _slices(b.shape[1]):
-        acc = torch.zeros(a.shape[0], cols.stop - cols.start)
-        for c0 in range(0, a.shape[1], 16 * CHAIN):
-            mx, hh = torch.zeros_like(acc), torch.zeros_like(acc)
-            for k in range(c0, min(a.shape[1], c0 + 16 * CHAIN), 16):
-                a1, a2, a3 = bf16_parts(a[:, k:k + 16])
-                b1, b2, b3 = bf16_parts(b[k:k + 16, cols])
-                for x, y in ((a3, b1), (a2, b2), (a1, b3), (a2, b1), (a1, b2)):
-                    mx += x @ y
-                hh += a1 @ b1
-            acc += hh + mx
-        out[:, cols] = acc
-    return out
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for c0 in range(0, a.shape[1], 16 * chain):
+        mx, hh = torch.zeros_like(acc), torch.zeros_like(acc)
+        for k in range(c0, min(a.shape[1], c0 + 16 * chain), 16):
+            a1, a2, a3 = bf16_parts(a[:, k:k + 16])
+            b1, b2, b3 = bf16_parts(b[k:k + 16])
+            for x, y in ((a3, b1), (a2, b2), (a1, b3), (a2, b1), (a1, b2)):
+                mx += x @ y
+            hh += a1 @ b1
+        acc += hh + mx
+    return acc
 
 
-def row_sum_by_slices(x):
-    """A row's sum as the step's LayerNorm takes it: each slice's sum, then
-    the slices' sums added in order."""
-    total = torch.zeros(x.shape[0], 1)
-    for cols in _slices(x.shape[1]):
-        total = total + x[:, cols].sum(dim=1, keepdim=True)
-    return total
+def _tile_chunks(rowptr, n0, N, mask):
+    """A tile's CSR edges in chunks of 16, each chunk's real edges."""
+    rows = min(TILE, N - n0)
+    e_beg, e_end = rowptr[n0], rowptr[n0 + rows]
+    return [[e for e in range(c0, min(c0 + CHUNK, e_end)) if mask[e]]
+            for c0 in range(e_beg, e_end, CHUNK)]
 
 
-def aggregate_mirror(h, K, bond, src, dst, mask, N, product):
-    """The kernel's aggregate: per tile of 16 nodes, its CSR edges in chunks
-    of 16; a chunk's types take free slots (lowest first), its edges add
-    h[src] into their (row, slot) bucket in CSR order, and when types are
-    left over the full slots run their products (``product`` with the
-    type's block of the table) into agg and start over."""
+def _add_chunk(Y, slots, todo, chunk, h, src, dst, bond, n0):
+    """A chunk's types take free slots (lowest first), and its edges of
+    those types add h[src] into their (slot, row) bucket in CSR order;
+    returns the chunk's types left without a slot."""
+    for v in sorted(todo - set(slots)):
+        if len(slots) < Y.shape[0]:
+            slots.append(v)
+    for e in chunk:
+        if int(bond[e]) in todo and int(bond[e]) in slots:
+            Y[slots.index(int(bond[e])), dst[e] - n0] += h[src[e]]
+    return todo - set(slots)
+
+
+def aggregate_tiles(h, K, bond, src, dst, mask, N, product):
+    """The D = 32 kernel's aggregate: per tile of 16 nodes, its CSR edges in
+    chunks of 16; a chunk's types take free slots, its edges add into their
+    buckets, and when types are left over the full slots run their products
+    (``product`` with the type's block of the table) into agg, in slot
+    order, and start over."""
     D = h.shape[1]
     rowptr = np.searchsorted(dst, np.arange(N + 1))
     agg = torch.zeros(N, D)
     for n0 in range(0, N, TILE):
-        rows = min(TILE, N - n0)
-        e_beg, e_end = rowptr[n0], rowptr[n0 + rows]
-        Y = torch.zeros(TILE, SLOTS, D)
+        Y = torch.zeros(SLOTS, TILE, D)
         slots, acc = [], torch.zeros(TILE, D)
 
         def flush():
             nonlocal acc
             for k, v in enumerate(slots):
-                acc = acc + product(Y[:, k], K[:, v * D:(v + 1) * D])
+                acc = acc + product(Y[k], K[:, v * D:(v + 1) * D])
             Y.zero_()
             slots.clear()
 
-        for c0 in range(e_beg, e_end, CHUNK):
-            chunk = [e for e in range(c0, min(c0 + CHUNK, e_end)) if mask[e]]
+        for chunk in _tile_chunks(rowptr, n0, N, mask):
             todo = set(int(bond[e]) for e in chunk)
             while True:
-                for v in sorted(todo - set(slots)):
-                    if len(slots) < SLOTS:
-                        slots.append(v)
-                for e in chunk:
-                    if int(bond[e]) in todo and int(bond[e]) in slots:
-                        Y[dst[e] - n0, slots.index(int(bond[e]))] += h[src[e]]
-                todo -= set(slots)
+                todo = _add_chunk(Y, slots, todo, chunk, h, src, dst, bond, n0)
                 if not todo:
                     break
                 flush()
         flush()
+        rows = min(TILE, N - n0)
         agg[n0:n0 + rows] = acc[:rows]
     return agg
 
 
-def step_mirror(h, m_table, gru, bond, src, dst, mask, N, ln_eps=1e-3, passes=3):
-    """The step kernel: its aggregate on 3xTF32, then the gates on 3xTF32
-    products of X = [h | agg] and [r*h | agg], the sigmoid, tanh, the
-    LayerNorm and the residual, all f32."""
+def aggregate_blocks(h, K, bond, src, dst, mask, N, product=None, rounds=None):
+    """The general kernel's aggregate: a block of 4 tiles, ``gen_slots(D)``
+    slots a tile; the tiles' walkers add a chunk each per round; after a
+    round in which a tile's chunk had types left over, every tile's slots
+    run their products (the types of the block in type order, each on the
+    tiles that hold it) and start over, and that tile adds the rest; after
+    the last round, the same products. ``rounds``, a list, gets each
+    block's count of product rounds."""
+    product = product or product_bf16x3
     D = h.shape[1]
+    S = gen_slots(D)
+    rowptr = np.searchsorted(dst, np.arange(N + 1))
+    agg = torch.zeros(N, D)
+    for b0 in range(0, N, BLOCK_TILES * TILE):
+        tiles = []
+        for n0 in range(b0, min(N, b0 + BLOCK_TILES * TILE), TILE):
+            chunks = _tile_chunks(rowptr, n0, N, mask)
+            tiles.append({"n0": n0, "chunks": chunks, "i": 0, "slots": [],
+                          "Y": torch.zeros(S, TILE, D), "acc": torch.zeros(TILE, D),
+                          "todo": set(int(bond[e]) for e in chunks[0]) if chunks else set()})
+
+        def products():
+            for v in sorted(set().union(*(t["slots"] for t in tiles))):
+                for t in tiles:
+                    if v in t["slots"]:
+                        t["acc"] = t["acc"] + product(t["Y"][t["slots"].index(v)],
+                                                      K[:, v * D:(v + 1) * D])
+            for t in tiles:
+                t["Y"].zero_()
+                t["slots"].clear()
+
+        n_rounds = 0
+        while True:
+            pend = False
+            for t in tiles:
+                if t["i"] == len(t["chunks"]):
+                    continue
+                chunk = t["chunks"][t["i"]]
+                t["todo"] = _add_chunk(t["Y"], t["slots"], t["todo"], chunk, h, src, dst,
+                                       bond, t["n0"])
+                if t["todo"]:
+                    pend = True
+                else:
+                    t["i"] += 1
+                    if t["i"] < len(t["chunks"]):
+                        t["todo"] = set(int(bond[e]) for e in t["chunks"][t["i"]])
+            if pend:
+                products()
+                n_rounds += 1
+            elif all(t["i"] == len(t["chunks"]) for t in tiles):
+                products()
+                n_rounds += 1
+                break
+        if rounds is not None:
+            rounds.append(n_rounds)
+        for t in tiles:
+            rows = min(TILE, N - t["n0"])
+            agg[t["n0"]:t["n0"] + rows] = t["acc"][:rows]
+    return agg
+
+
+def aggregate_mirror(h, K, bond, src, dst, mask, N, product=None):
+    """The message kernel's aggregate at h's width: the specialisation's at
+    D = 32, the general kernel's at any other."""
+    if h.shape[1] == 32:
+        return aggregate_tiles(h, K, bond, src, dst, mask, N, product or product_bf16x3)
+    return aggregate_blocks(h, K, bond, src, dst, mask, N, product)
+
+
+def step_mirror(h, m_table, gru, bond, src, dst, mask, N, ln_eps=1e-3, passes=3):
+    """The step kernel: its aggregate (3xTF32 at D = 32, the message
+    kernel's bf16 split at any other D), then the gates on 3xTF32 products
+    of X = [h | agg] and [r*h | agg], the sigmoid, tanh, the LayerNorm and
+    the residual, all f32."""
+    D = h.shape[1]
+    h = h.float()
     K = _t(np.asarray(j_lanes(jnp.asarray(m_table))))
     prod = lambda a, b: product_3xtf32(a, b, passes)
-    agg = aggregate_mirror(h, K, bond, src, dst, mask, N, prod)
+    agg = aggregate_mirror(h, K, bond, src, dst, mask, N, prod if D == 32 else None)
     W = torch.cat([gru["wz"], gru["wr"], gru["wh"]], dim=1)
     zr = prod(torch.cat([h, agg], dim=1), W[:, :2 * D])
     sigmoid = lambda x: 1.0 / (1.0 + torch.exp(-x))
@@ -173,8 +260,8 @@ def step_mirror(h, m_table, gru, bond, src, dst, mask, N, ln_eps=1e-3, passes=3)
     r = sigmoid(zr[:, D:] + gru["br"])
     c = prod(torch.cat([r * h, agg], dim=1), W[:, 2 * D:]) + gru["bh"]
     new = (1.0 - z) * h + z * torch.tanh(c)
-    mean = row_sum_by_slices(new) / D
-    var = row_sum_by_slices((new - mean) ** 2) / D
+    mean = new.sum(dim=1, keepdim=True) / D
+    var = ((new - mean) ** 2).sum(dim=1, keepdim=True) / D
     return (new - mean) * torch.rsqrt(var + ln_eps) * gru["ln_scale"] + gru["ln_bias"] + h
 
 
@@ -196,22 +283,30 @@ def _every_type_edges(N, V):
 
 def _case(name):
     """(N, D, V, seed) and the edges: the op tests' two graphs, graphs at
-    the general kernel's widths (D = 48: two slices, the second of 16;
-    D = 128: four slices and chains of the step's 32 depth steps of 8;
-    D = 24: one slice of 3 n-tiles, the bf16 depth padded to 32), and
-    one of N = 1001 whose tiles hold every type (more than the 4 slots)."""
+    the general kernel's widths (D = 48: 3 n-tiles a column half; D = 128:
+    chains of the step's 32 depth steps of 8; D = 24 and 8: the bf16 depth
+    padded to 32), graphs whose tiles hold every type (at D = 32 more than
+    the 4 slots; at D = 48 and 64 more than a 64-row block's slots, so the
+    block flushes inside its walk), and h in bf16 at D = 128 (its values
+    reach both kernels as the same numbers; the kernels read a bf16 h
+    exactly)."""
     N, D, V, seed = {"molecules N=256": (256, 32, 7, 0), "molecules N=384 D=16": (384, 16, 5, 1),
                      "every type N=1001": (1001, 32, 7, 2),
                      "molecules N=256 D=48": (256, 48, 7, 3),
                      "every type N=97 D=48": (97, 48, 6, 4),
                      "molecules N=128 D=128": (128, 128, 7, 5),
-                     "molecules N=192 D=24": (192, 24, 5, 6)}[name]
+                     "molecules N=192 D=24": (192, 24, 5, 6),
+                     "every type N=160 D=64": (160, 64, 6, 7),
+                     "molecules N=192 D=128 h bf16": (192, 128, 7, 8),
+                     "molecules N=128 D=8": (128, 8, 5, 9)}[name]
     rng = np.random.default_rng(seed)
     if name.startswith("every type"):
         src, dst, bond, mask = _every_type_edges(N, V)
     else:
         src, dst, bond, mask = _molecular_edges(rng, N // 6, 20, N, V)
     h = rng.normal(size=(N, D)).astype(np.float32)
+    if name.endswith("h bf16"):
+        h = torch.from_numpy(h).to(torch.bfloat16).float().numpy()
     m_table = (rng.normal(size=(V, D, D)) * 0.3).astype(np.float32)
     gru = {k: (rng.normal(size=s) * 0.2).astype(np.float32)
            for k, s in jgru.GATED_UPDATE_PARAM_SHAPES(D).items()}
@@ -220,7 +315,8 @@ def _case(name):
 
 CASES = ["molecules N=256", "molecules N=384 D=16", "every type N=1001",
          "molecules N=256 D=48", "every type N=97 D=48", "molecules N=128 D=128",
-         "molecules N=192 D=24"]
+         "molecules N=192 D=24", "every type N=160 D=64", "molecules N=192 D=128 h bf16",
+         "molecules N=128 D=8"]
 
 
 @pytest.mark.parametrize("kernel", ["fused_message_aggregate", "fused_mp_step"])
@@ -228,16 +324,37 @@ CASES = ["molecules N=256", "molecules N=384 D=16", "every type N=1001",
 def test_mirror_matches_pallas_kernel(kernel, case):
     N, V, h, m_table, gru, src, dst, bond, mask = _case(case)
     jh, jm = jnp.asarray(h), jnp.asarray(m_table)
+    th = _t(h).to(torch.bfloat16) if case.endswith("h bf16") else _t(h)
     if kernel == "fused_message_aggregate":
         K = np.asarray(j_lanes(jm))
         want = j_fused_message(jh, jnp.asarray(K), bond, src, dst, mask > 0, N, interpret=True)
-        got = aggregate_mirror(_t(h), _t(K), bond, src, dst, mask > 0, N, product_bf16x3)
+        got = aggregate_mirror(th, _t(K), bond, src, dst, mask > 0, N)
     else:
         want = j_fused_step(jh, jm, {k: jnp.asarray(v) for k, v in gru.items()}, bond, src,
                             dst, mask, N, interpret=True)
-        got = step_mirror(_t(h), m_table, {k: _t(v) for k, v in gru.items()}, bond, src,
+        got = step_mirror(th, m_table, {k: _t(v) for k, v in gru.items()}, bond, src,
                           dst, mask > 0, N)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_general_blocks_take_the_slots_their_budget_allows_and_flush_past_them():
+    """The slot counts ``csrc/fused_message.cu`` asserts (2 at D = 64 and
+    128, 4 at the small widths), and the D = 64 every-type case, whose
+    tiles hold 6 types, flushes inside every block (each chunk of 16 edges
+    meets all 6 types: 3 passes a chunk, 6 chunks a tile), while molecules
+    of 3 bond types flush in none."""
+    assert [gen_slots(D) for D in (8, 16, 24, 48, 64, 72, 128)] == [4, 4, 4, 3, 2, 4, 2]
+    N, V, h, m_table, gru, src, dst, bond, mask = _case("every type N=160 D=64")
+    K = _t(np.asarray(j_lanes(jnp.asarray(m_table))))
+    rounds = []
+    aggregate_blocks(_t(h), K, bond, src, dst, mask > 0, N, rounds=rounds)
+    assert rounds == [14, 14, 14]
+    rng = np.random.default_rng(3)
+    src, dst, bond, mask = _molecular_edges(rng, 256 // 6, 20, 256, 3)
+    rounds = []
+    aggregate_blocks(torch.zeros(256, 64), torch.zeros(64, 3 * 64), bond, src, dst, mask > 0,
+                     256, rounds=rounds)
+    assert rounds == [1, 1, 1, 1]
 
 
 def test_one_tf32_pass_misses_the_f32_tolerance():

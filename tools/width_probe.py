@@ -1,19 +1,22 @@
 """Two probes of the fused kernels' widths on one CUDA card, run from the
 repository root with the tree to measure first on ``PYTHONPATH``:
 
-    PYTHONPATH=. python tools/width_probe.py times [--general]
+    PYTHONPATH=. python tools/width_probe.py times [--general] [--dim {32,64,128}]
     PYTHONPATH=. python tools/width_probe.py grads
 
 ``times``: the device time (torch.profiler, mean of 60 launches) of the
 fused message kernel, its backward ``dh`` launch and the step kernel at
-the bench batch's cation shape (batch 2048, N = 59,040, V = 7), D = 32,
-h f32, as ``chip_smoke.py`` ``[times]`` reads them; one JSON line. With
-``--general`` the library is built with ``IONIC_NO_D32_SPECIALISATION``,
-so D = 32 runs the general kernel (``fused_message_gen_kernel``). To hold
-two trees against each other, unpack the other one (``git archive``) into a
-git-ignored directory and run both in one call, in turns:
-``PYTHONPATH=<dir> python tools/width_probe.py times`` and the same with
-``.``.
+the bench batch's cation shape (batch 2048, N = 59,040, V = 7), at width
+``--dim`` (32 by default), h f32, as ``chip_smoke.py`` ``[times]`` reads
+them, per CUDA kernel the call launches (the general kernel's prologue
+``fused_message_split_kernel`` beside it) and the time the card spends in
+any of them (``total``); one JSON line.
+With ``--general`` the library is built with
+``IONIC_NO_D32_SPECIALISATION``, so D = 32 runs the general kernel
+(``fused_message_gen_kernel``). To hold two trees against each other,
+unpack the other one (``git archive``) into a git-ignored directory and run
+both in one call, in turns: ``PYTHONPATH=<dir> python tools/width_probe.py
+times --dim 64`` and the same with ``.``.
 
 ``grads``: ``FusedMPStep``'s gradients (the kernels) and plain autograd of
 the plain forward, both in f32, each held against the same gradient in
@@ -40,7 +43,9 @@ def cation_batch(dev):
 
 
 def device_ms(fn, n=60):
-    """Device time per call of each fused kernel ``fn`` launches."""
+    """Device time per call of each fused kernel ``fn`` launches, and
+    ``total``: the time per call the card spends in any of them (the union
+    of their spans)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
@@ -50,15 +55,22 @@ def device_ms(fn, n=60):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    out, spans = {}, []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA and "fused_message" in e.name:
-            name = e.name.split("<")[0].split("::")[-1]
+            name = e.name.split("<")[0].split("(")[0].split("::")[-1]
             out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / n
+            spans.append((e.time_range.start, e.time_range.end))
+    busy, last = 0.0, -1.0
+    for start, end in sorted(spans):
+        if end > last:
+            busy += end - max(start, last)
+            last = end
+    out["total"] = busy / 1e3 / n
     return out
 
 
-def times(general):
+def times(general, D):
     from ionic_mpnn_torch.ops.cuda import _lib, fused_message, fused_step
     from ionic_mpnn_torch.ops.cuda.segment_sum import csr_rowptr
     from ionic_mpnn_torch.ops.gru import GATED_UPDATE_PARAM_SHAPES
@@ -68,7 +80,7 @@ def times(general):
     _lib.library()
     dev = torch.device("cuda", 0)
     g, V = cation_batch(dev)
-    N, D = g.node_capacity, 32
+    N = g.node_capacity
     gen = torch.Generator().manual_seed(3)
     h = torch.randn(N, D, generator=gen).to(dev)
     m = (torch.randn(V, D, D, generator=gen) * 0.2).to(dev)
@@ -89,7 +101,7 @@ def times(general):
         out = {name: device_ms(fn) for name, fn in calls.items()}
     import ionic_mpnn_torch
 
-    print(json.dumps({"tree": ionic_mpnn_torch.__file__, "general": general,
+    print(json.dumps({"tree": ionic_mpnn_torch.__file__, "general": general, "D": D,
                       "card": torch.cuda.get_device_name(0), "ms": out}), flush=True)
 
 
@@ -145,7 +157,11 @@ def grads():
 if __name__ == "__main__":
     mode = sys.argv[1] if len(sys.argv) > 1 else ""
     if mode == "times":
-        times("--general" in sys.argv[2:])
+        rest = sys.argv[2:]
+        dim = int(rest[rest.index("--dim") + 1]) if "--dim" in rest else 32
+        if dim not in (32, 64, 128):
+            sys.exit(f"--dim {dim}: one of 32, 64, 128")
+        times("--general" in rest, dim)
     elif mode == "grads":
         grads()
     else:
