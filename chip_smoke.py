@@ -34,23 +34,30 @@ Phases, in order (any failure raises and the script exits non-zero):
    dgru; ``SortedSegmentSum``: dmsg) against torch autograd of each plain
    forward on the card, at rtol/atol 1e-4.
    [widths]: the fused kernels at the widths the general kernel serves,
-   D = 8, 16, 48, 64 and 128 (D = 32 is the specialisation of phases 3-4).
-   At each: forward, ``dh`` and step against their plain versions at the
-   cation and anion shapes (V = 7) and on a graph whose tiles hold all 32
-   bond types, h in f32 (1e-5) and bf16 (1e-3); at D = 64 and 128 the three
-   Functions' gradients against plain autograd at 1e-4 (weights scaled by
-   fan-in, 0.2 at D = 32), at D = 128 two launches bit-equal. Each
-   kernel's device time per call at D = 8 to 128 (a CUDA graph of 20
-   calls timed with events; D = 32 too, for comparison) beside its plain
-   version's, its bound and the earlier design's time (``EARLIER_MS``);
-   at D = 64 and 128 also the backward's dK ops. Then the paths that run
+   D = 8, 16, 48, 64 and 128 (D = 32 is the specialisation of phases 3-4),
+   in each of its two designs, forced in turn (``DESIGNS``: the 64-row
+   blocks and the warp teams; the library chooses by D, node count and
+   kernel). At each: forward, ``dh`` and step against their plain versions
+   at the cation and anion shapes (V = 7) and on a graph whose tiles hold
+   all 32 bond types, h in f32 (1e-5) and bf16 (1e-3); at D = 64 and 128
+   the three Functions' gradients against plain autograd at 1e-4 (weights
+   scaled by fan-in, 0.2 at D = 32), at D = 128 two launches bit-equal.
+   Each kernel's device time per call at D = 8 to 128 in each design (a
+   CUDA graph of 20 calls timed with events; D = 32 too, for comparison)
+   beside its plain version's and its bound (the log adds the earlier
+   release's time, ``EARLIER_MS``); at D = 64 and 128 the anion shape's
+   times in both designs, the blocks' prologue (its planes bit for bit
+   against the plain split, its time and bound) and the backward's dK
+   ops. Then the paths that run
    these widths with the card's default configuration (``message_impl`` "auto": ``pallas_step``
    bf16): JAX's D-scaling arm at atom_dim 64 and 128 (fp_size = D, mixing
    max(20, D // 2), batch 2048, 4 message steps) — one train step against
    plain ``gather`` f32 with the same bf16-rounded weights (phase 6's
    tolerances) and ``bench_packed_train_step``'s message-edges/s, launches
-   exact — and ``train_melting_point --atom-dim 64`` for 2 epochs in a
-   process of its own as phase 12 runs the CLIs, launches exact.
+   exact, the launches that ran the blocks counted per kernel — and
+   ``train_melting_point --atom-dim 64`` for 2 epochs in a process of its
+   own as phase 12 runs the CLIs, launches exact (its batches take the
+   teams).
 5. Main path (serving): the viscosity model at full width (atom_dim 32,
    bond_dim 8, fp 32, mixing 20, 4 message steps) with seeded random
    weights, serving 3 batches of 2048 records through ``predict`` in five
@@ -342,8 +349,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    Then one epoch of the default configuration's ``fit()`` under the
    profiler: the card's busy time and its share of the epoch.
 
-Output: one ``{"kernels": [...]}`` JSON line (the rows of D = 64 and 128,
-from [widths], beside the model's D = 32; every width's times under
+Output: one ``{"kernels": [...]}`` JSON line (the rows of D = 64 and 128
+that the paths launched, per design and the prologue, from [widths],
+beside the model's D = 32; every width's times under
 ``"widths"``), then the last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
 repository, it exits non-zero before printing either.
@@ -532,11 +540,14 @@ def phase_build():
     tensor_core_sass(so)
 
 
-# the kernels of every width but 32 (and their prologue), which must not spill
+# the 64-row blocks of every width but 32 and their prologue, which must not
+# spill (the warp teams, the earlier design kept for small grids and D < 64,
+# spill as they did: [build] prints their lines)
 GENERAL_KERNELS = ("fused_message_gen_kernel", "fused_message_split_kernel")
 # the fused product kernels, which must run on the tensor cores (the
 # prologue only splits the operands)
-PRODUCT_KERNELS = ("fused_message_tc_kernel", "fused_message_gen_kernel")
+PRODUCT_KERNELS = ("fused_message_tc_kernel", "fused_message_gen_kernel",
+                   "fused_message_team_kernel")
 
 
 def tensor_core_sass(so):
@@ -911,7 +922,7 @@ def graph_ms(fn, n=GRAPH_CALLS, replays=5):
     from ionic_mpnn_torch.ops import cuda as kernels
     from ionic_mpnn_torch.training.graphs import Replay
 
-    before = kernels.launch_counts()
+    before = kernels.launch_counts(designs=True)
     graph = Replay(lambda: [fn() for _ in range(n)], torch.device("cuda"), graphed=True)
     graph()  # eagerly, then the capture
     graph()
@@ -928,11 +939,15 @@ def graph_ms(fn, n=GRAPH_CALLS, replays=5):
     return statistics.median(times)
 
 
-# Each width's times (ms per call, as width_times reads them) under the
-# general kernel's earlier design (warp teams on 32-column slices, B read
-# through L2 per 16-row tile), from its final call on "NVIDIA H100 80GB
-# HBM3, 700.00 W" (PERF.md §6): the yardstick the redesign is read against.
-# D = 32 is the specialisation, which the redesign leaves as it was.
+# The general kernel's two designs: its CUDA kernel, ionic_fused_force_design's
+# code. The library chooses the blocks where their grid fills the card twice
+# at D >= 64, the teams elsewhere; [widths] forces each in turn.
+DESIGNS = {"teams": ("fused_message_team_kernel", 1), "blocks": ("fused_message_gen_kernel", 2)}
+# Each width's times (ms per call, as width_times reads them) in the final
+# call of the release before the 64-row blocks, where the teams served every
+# width but 32, on "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md §6): printed
+# beside this run's times in the log, never in a row. D = 32 is the
+# specialisation.
 EARLIER_MS = {
     8: (0.02400, 0.02584, 0.05208), 16: (0.02560, 0.02708, 0.05847),
     32: (0.02110, 0.02329, 0.06042), 48: (0.07272, 0.07358, 0.18364),
@@ -953,9 +968,23 @@ def fused_bounds(N, E, E_real, D, V):
                               2 * E_real * D * D + 12 * N * D * D)}
 
 
+@contextlib.contextmanager
+def forced_design(design):
+    """The general kernel's design forced (``None``: the library's choice)."""
+    from ionic_mpnn_torch.ops.cuda import _lib
+
+    lib = _lib.library()
+    before = lib.ionic_fused_force_design(DESIGNS[design][1] if design else 0)
+    try:
+        yield
+    finally:
+        lib.ionic_fused_force_design(before)
+
+
 def width_times(D, h, m_table, gru, cot, bond, src, dst, mask, N, errs):
     """Each fused kernel at width D against its plain version and its bound,
-    by graph_ms (device ms per call)."""
+    by graph_ms (device ms per call); at every D but 32 in each general
+    design, and at the widths whose paths run the blocks their prologue."""
     from ionic_mpnn_torch.ops.cuda import fused_message, fused_step
     from ionic_mpnn_torch.ops.cuda.segment_sum import csr_rowptr
 
@@ -977,25 +1006,32 @@ def width_times(D, h, m_table, gru, cot, bond, src, dst, mask, N, errs):
             lambda: fused_step.fused_mp_step_plain(h, m_table, gru, *args)),
     }
     bounds = fused_bounds(N, src.shape[0], int(mask.sum()), D, V)
+    shape = {"N": N, "E": src.shape[0], "E_real": int(mask.sum()), "D": D, "V": V}
     rows = []
     with torch.inference_mode():
         for i, (name, (kernel, plain)) in enumerate(calls.items()):
             b_ms, b_by = bound_ms(*bounds[name], TC_F32[0])
-            rows.append({"name": f"{name} D={D}", "kernel": name, "route": "cuda",
-                         "source": "ionic_mpnn_torch/csrc/fused_message.cu",
-                         "replaces": FUSED_REPLACES[name], "max_abs_err": errs.get(name),
-                         "ms": graph_ms(kernel), "plain_ms": graph_ms(plain),
-                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                         "timing": f"CUDA graph of {GRAPH_CALLS} calls, events",
-                         "shape": {"N": N, "E": src.shape[0], "E_real": int(mask.sum()),
-                                   "D": D, "V": V}})
-            r = rows[-1]
-            r["earlier_ms"] = EARLIER_MS[D][i] if D in EARLIER_MS else None
-            earlier = (f", earlier design {r['earlier_ms']:.5f} ms "
-                       f"({r['earlier_ms'] / r['ms']:.2f}x this)" if r["earlier_ms"] else "")
-            log(f"[widths] time {r['name']}: {r['ms']:.5f} ms (graph of {GRAPH_CALLS} calls), "
-                f"plain {r['plain_ms']:.5f} ms, bound {b_ms:.5f} ms ({b_by}), "
-                f"{r['ms'] / b_ms:.2f}x the bound{earlier}")
+            plain_ms = graph_ms(plain)
+            for design in ((None,) if D == 32 else tuple(DESIGNS)):
+                with forced_design(design):
+                    ms = graph_ms(kernel)
+                cuda = DESIGNS[design][0] if design else "fused_message_tc_kernel"
+                rows.append({"name": f"{name} D={D}" + (f" {design}" if design else ""),
+                             "kernel": name, "design": design, "cuda_kernel": cuda,
+                             "route": "cuda", "source": "ionic_mpnn_torch/csrc/fused_message.cu",
+                             "replaces": FUSED_REPLACES[name],
+                             "max_abs_err": errs.get(f"{name} {design}"),
+                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                             "library_ms": None,
+                             "timing": f"CUDA graph of {GRAPH_CALLS} calls, events",
+                             "shape": shape})
+                earlier = EARLIER_MS[D][i] if D in EARLIER_MS else None
+                log(f"[widths] time {rows[-1]['name']} ({cuda}): {ms:.5f} ms (graph of "
+                    f"{GRAPH_CALLS} calls), plain {plain_ms:.5f} ms, bound {b_ms:.5f} ms "
+                    f"({b_by}), {ms / b_ms:.2f}x the bound"
+                    + (f"; the earlier release {earlier:.5f} ms" if earlier else ""))
+        if D in SCALING_DIMS:
+            rows.append(prologue_row(D, K, gru, shape))
         if D in WIDTH_DK_DIMS:
             # the backward's dK (PyTorch ops, as JAX leaves it to XLA): with the
             # dh launch, what the message kernel's backward costs at this width
@@ -1013,6 +1049,74 @@ def width_times(D, h, m_table, gru, cot, bond, src, dst, mask, N, errs):
     return rows
 
 
+def prologue_row(D, K, gru, shape):
+    """The blocks' prologue (fused_message_split_kernel) at width D, as a
+    step launch runs it (the table and W): its planes against the plain
+    split bit for bit, its time and its bound (the table and W read once,
+    the planes written once)."""
+    from ionic_mpnn_torch.ops.cuda import fused_message
+    from ionic_mpnn_torch.ops.cuda.fused_step import pack_gru_weights
+
+    w = pack_gru_weights(gru)[0]
+    got, want = fused_message.fused_split(K, w), fused_message.fused_split_plain(K, w)
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    if err != 0.0:
+        raise AssertionError(f"[widths] fused_message_split D={D}: planes differ by {err:.3e}")
+    scratch = torch.empty(fused_message.fused_split_bytes(K, w), dtype=torch.uint8,
+                          device=K.device)
+    nbytes = 4 * (K.numel() + w.numel()) + scratch.numel()
+    b_ms, b_by = bound_ms(nbytes, 5 * K.numel() + 4 * w.numel())
+    row = {"name": f"fused_message_split D={D}", "kernel": "fused_message_split",
+           "design": "blocks", "cuda_kernel": "fused_message_split_kernel", "route": "cuda",
+           "source": "ionic_mpnn_torch/csrc/fused_message.cu",
+           "replaces": FUSED_REPLACES["fused_mp_step"] + " (the operands of its general-width "
+                       "port, split once a call)",
+           "max_abs_err": err,
+           "ms": graph_ms(lambda: fused_message.fused_split(K, w, scratch, read=False)),
+           "plain_ms": graph_ms(lambda: fused_message.fused_split_plain(K, w)),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "timing": f"CUDA graph of {GRAPH_CALLS} calls, events; the step's prologue (the "
+                     "table and W), the message's splits the table alone",
+           "shape": shape}
+    log(f"[widths] time {row['name']} (the blocks' prologue, the step's: table and W): "
+        f"{row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, bound {b_ms:.5f} ms ({b_by}), "
+        f"{row['ms'] / b_ms:.2f}x the bound; planes equal to the plain split bit for bit")
+    return row
+
+
+def anion_times(D, h, m_table, gru, bond, src, dst, mask, N):
+    """The message and step kernels on the bench batch's anion graph (159
+    blocks of 64 rows) in each general design, by graph_ms: the shape on
+    which the library takes the teams."""
+    from ionic_mpnn_torch.ops.cuda import fused_message, fused_step
+    from ionic_mpnn_torch.ops.cuda.segment_sum import csr_rowptr
+
+    K = fused_message.message_table_to_lanes(m_table)
+    rowptr = csr_rowptr(dst, N)
+    args = (bond, src, dst, mask, N)
+    calls = {"fused_message_aggregate": lambda: fused_message.fused_message_aggregate(
+                 h, K, *args, rowptr=rowptr),
+             "fused_mp_step": lambda: fused_step.fused_mp_step(h, m_table, gru, *args,
+                                                              rowptr=rowptr)}
+    out = {}
+    with torch.inference_mode():
+        for name, fn in calls.items():
+            for design in DESIGNS:
+                with forced_design(design):
+                    out[f"{name} {design}"] = graph_ms(fn)
+    log(f"[widths] anion N={N} D={D}, ms per call (graph of {GRAPH_CALLS} calls): "
+        + ", ".join(f"{k} {v:.5f}" for k, v in out.items()))
+    return out
+
+
+def block_counts():
+    """The fused launches since the last reset that ran the 64-row blocks."""
+    from ionic_mpnn_torch.ops import cuda as kernels
+
+    return {k: v for k, v in kernels.launch_counts(designs=True).items()
+            if k.endswith("_blocks")}
+
+
 def scaling_arm(D, records, vocab, batch, dev):
     """JAX's D-scaling arm at atom_dim D on the card's default
     configuration (``message_impl`` and ``compute_dtype`` "auto"): one train
@@ -1025,7 +1129,9 @@ def scaling_arm(D, records, vocab, batch, dev):
                                          resolve_message_impl, viscosity_config)
     from ionic_mpnn_torch.models import ViscosityModel
     from ionic_mpnn_torch.ops import cuda as kernels
+    from ionic_mpnn_torch.ops.cuda import _lib
 
+    V = vocab.bond_vocab_size + 1
     impl, dtype = resolve_message_impl("auto", dev), resolve_compute_dtype("auto", dev)
     if (impl, dtype) != ("pallas_step", "bfloat16"):
         raise AssertionError(f"[widths] auto resolved to {impl} {dtype} on the card")
@@ -1045,6 +1151,17 @@ def scaling_arm(D, records, vocab, batch, dev):
     held = hold_train_arm(f"D={D} {impl} {dtype}", arm, ref, ref_name, dtype)
     launches = dict(arm["counts"])
     per_step = kernel_launches(impl, "xla")[0]
+    # the checked step's launches that ran the blocks: every launch on each
+    # graph whose node count takes them (half of each count a graph)
+    lib = _lib.library()
+    nodes = [g.node_capacity for g in (batch.cation, batch.anion)]
+    takes = {k: [n for n in nodes if lib.ionic_fused_scratch_bytes(
+                 D, V, int(k == "fused_mp_step"), n) > 0] for k in FUSED_REPLACES}
+    blocks = block_counts()
+    want = {f"{k}_blocks": per_step.get(k, 0) // 2 * len(takes[k]) for k in FUSED_REPLACES}
+    if blocks != want:
+        raise AssertionError(f"[widths] D-scaling arm D={D}: blocks launches {blocks}, "
+                             f"expected {want} (the graphs that take the blocks: {takes})")
     kernels.reset_launch_counts()
     r = bench_packed_train_step(records, vocab, batch_size=BATCH, num_steps=4,
                                 iters=SCALING_ITERS, warmup=SCALING_WARMUP,
@@ -1054,6 +1171,16 @@ def scaling_arm(D, records, vocab, batch, dev):
     want = {k: (SCALING_ITERS + SCALING_WARMUP) * per_step.get(k, 0) for k in counts}
     if counts != want:
         raise AssertionError(f"[widths] D-scaling arm D={D}: launches {counts}, expected {want}")
+    # the bench packs its own batch: each graph takes the blocks in all of its
+    # launches or in none
+    n = SCALING_ITERS + SCALING_WARMUP
+    for k, v in block_counts().items():
+        whole = n * per_step.get(k[:-len("_blocks")], 0) // 2
+        if whole == 0 or v % whole:
+            raise AssertionError(f"[widths] D-scaling arm D={D}: {k} {v} is not a whole "
+                                 f"graph's {whole}")
+        blocks[k] += v
+    launches.update(blocks)
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
     out = {"atom_dim": D, "config": f"{impl} {dtype}", "losses": arm["losses"],
@@ -1062,8 +1189,9 @@ def scaling_arm(D, records, vocab, batch, dev):
            "device": r.device, "launches": launches}
     log(f"[widths] D-scaling arm atom_dim {D} ({impl} {dtype}, batch {BATCH}): one train step "
         f"losses {arm['losses']}{held}; bench_packed_train_step {out['step_ms']:.4f} ms per "
-        f"step (earlier design {EARLIER_SCALING_MS.get(D)} ms), {r.edges_per_s:.6e} "
-        f"message-edges/s ({r.message_edges_per_step} per step), launches {counts}")
+        f"step (the earlier release {EARLIER_SCALING_MS.get(D)} ms), {r.edges_per_s:.6e} "
+        f"message-edges/s ({r.message_edges_per_step} per step), launches {counts}; of all "
+        f"the arm's launches, the blocks ran {blocks}")
     return out
 
 
@@ -1113,6 +1241,11 @@ def width_cli(D):
                                edge_layout="sorted",
                                window=resolve_onehot_window("bfloat16", 0, atom_dim=D))
         train_b, dev_b, test_b = (sum(1 for _ in iter_batches(x, plan)) for x in split)
+    from ionic_mpnn_torch.ops.cuda import _lib
+
+    if any(_lib.library().ionic_fused_scratch_bytes(D, 1, gru, plan.node_cap) for gru in (0, 1)):
+        raise AssertionError(f"[widths] the CLI's batches of {plan.node_cap} nodes take the "
+                             "blocks: its launches would count as the teams'")
     steps, rem = divmod(counts["fused_message_aggregate_dh"], 8)
     forwards = WIDTH_CLI_EPOCHS * dev_b + train_b + dev_b + test_b
     want = {"sorted_segment_sum": 0, "fused_message_aggregate": 16 * steps,
@@ -1159,37 +1292,52 @@ def phase_widths(batch, records, vocab, dev):
                           a.bond_ids, a.src, a.dst, a.edge_mask, a.node_capacity))
             t_case = typed_case(dev, rng, 32, 8, D=D)
             cases.append((f"every type in every tile V=32 N={t_case[-1]}", *t_case))
-            for tag, h_, m_, bond, src, dst, mask, n in cases:
-                for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-                    errs = check_kernels(f"D={D} {tag} h {str(dt)[6:]}", h_.to(dt), m_, gru,
-                                         bond, src, dst, mask, n, tol, phase="widths")
-                    if dt == torch.float32:
-                        for k, v in errs.items():
-                            worst[k] = max(worst.get(k, 0.0), v)
-                K = fused_message.message_table_to_lanes(m_)
-                g_ = torch.randn(n, D, generator=gen).to(dev)
-                dh, _ = fused_message.message_backward(g_, h_, K, bond, src, dst, mask, n,
-                                                       csr_rowptr(dst, n), need_dK=False)
-                want = fused_message.fused_message_aggregate_plain(
-                    g_, fused_message.transpose_lane_table(K), bond, src, dst, mask, n)
-                err = close(f"dh launch D={D} {tag}", dh, want, F32_TOL, F32_TOL)
-                worst["fused_message_aggregate_dh"] = max(
-                    worst.get("fused_message_aggregate_dh", 0.0), err)
-                log(f"[widths] dh launch D={D} {tag}: max|err| {err:.3e}")
-            if D in WIDTH_GRAD_DIMS:
-                # weights scaled by fan-in (0.2 at D = 32, as in [backward]): at
-                # 0.2 the gates saturate as D grows, and at D = 128 plain f32
-                # autograd itself reads 2x the bound against an f64 evaluation
-                # (the kernel path 1.1x; PERF.md §6, PR 15)
-                fan_in = math.sqrt(32 / D)
-                check_functions(f"D={D} cation N={N} (weights x {fan_in:.3f})", h,
-                                m_table * fan_in, {k: v * fan_in for k, v in gru.items()},
-                                *cation, cot, phase="widths")
-            if D == max(WIDTHS):
-                check_repeatable(f"D={D} cation h float32", h, m_table, gru, *cation,
-                                 phase="widths")
+            # each case in each general design (the library's choice serves
+            # the bench's cation graph with the blocks at D >= 64, its anion
+            # graph and D < 64 with the teams)
+            for design in DESIGNS:
+                with forced_design(design):
+                    for tag, h_, m_, bond, src, dst, mask, n in cases:
+                        tag = f"{tag} {design}"
+                        for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+                            errs = check_kernels(f"D={D} {tag} h {str(dt)[6:]}", h_.to(dt), m_,
+                                                 gru, bond, src, dst, mask, n, tol,
+                                                 phase="widths")
+                            if dt == torch.float32:
+                                for k, v in errs.items():
+                                    worst[f"{k} {design}"] = max(
+                                        worst.get(f"{k} {design}", 0.0), v)
+                        K = fused_message.message_table_to_lanes(m_)
+                        g_ = torch.randn(n, D, generator=gen).to(dev)
+                        dh, _ = fused_message.message_backward(g_, h_, K, bond, src, dst, mask,
+                                                               n, csr_rowptr(dst, n),
+                                                               need_dK=False)
+                        want = fused_message.fused_message_aggregate_plain(
+                            g_, fused_message.transpose_lane_table(K), bond, src, dst, mask, n)
+                        err = close(f"dh launch D={D} {tag}", dh, want, F32_TOL, F32_TOL)
+                        key = f"fused_message_aggregate_dh {design}"
+                        worst[key] = max(worst.get(key, 0.0), err)
+                        log(f"[widths] dh launch D={D} {tag}: max|err| {err:.3e}")
+                    if D in WIDTH_GRAD_DIMS:
+                        # weights scaled by fan-in (0.2 at D = 32, as in [backward]):
+                        # at 0.2 the gates saturate as D grows, and at D = 128 plain
+                        # f32 autograd itself reads 2x the bound against an f64
+                        # evaluation (the kernel path 1.1x; PERF.md §6)
+                        fan_in = math.sqrt(32 / D)
+                        check_functions(f"D={D} cation N={N} {design} (weights x "
+                                        f"{fan_in:.3f})", h, m_table * fan_in,
+                                        {k: v * fan_in for k, v in gru.items()},
+                                        *cation, cot, phase="widths")
+                    if D == max(WIDTHS):
+                        check_repeatable(f"D={D} cation h float32 {design}", h, m_table, gru,
+                                         *cation, phase="widths")
             out["errs"][D] = worst
         rows += width_times(D, h, m_table, gru, cot, *cation, worst)
+        if D in SCALING_DIMS:
+            a = batch.anion
+            out.setdefault("anion_ms", {})[D] = anion_times(
+                D, torch.randn(a.node_capacity, D, generator=gen).to(dev), m_table, gru,
+                a.bond_ids, a.src, a.dst, a.edge_mask, a.node_capacity)
     launches = {D: {} for D in SCALING_DIMS}
     for D in SCALING_DIMS:
         arm = scaling_arm(D, records, vocab, batch, dev)
@@ -1199,7 +1347,15 @@ def phase_widths(batch, records, vocab, dev):
     for k, v in out["cli"]["launches"].items():
         launches[WIDTH_CLI_DIM][k] = launches[WIDTH_CLI_DIM].get(k, 0) + v
     for r in rows:
-        r["launches"] = launches.get(r["shape"]["D"], {}).get(r["kernel"], 0)
+        at = launches.get(r["shape"]["D"], {})
+        if r["kernel"] == "fused_message_split":  # one a launch of the blocks
+            r["launches"] = (at.get("fused_message_aggregate_blocks", 0)
+                             + at.get("fused_mp_step_blocks", 0))
+        elif r.get("design") is None:
+            r["launches"] = at.get(r["kernel"], 0)
+        else:
+            blocks = at.get(f"{r['kernel']}_blocks", 0)
+            r["launches"] = blocks if r["design"] == "blocks" else at.get(r["kernel"], 0) - blocks
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[widths] launches per width {launches}; phase {out['seconds']:.1f} s")
     return out, rows
@@ -1873,6 +2029,14 @@ def optimizer_state(step):
             [v.clone() for v in o.nu], int(o.count))
 
 
+def replay_kernels(launches):
+    """A graph's launches per replay as kernel_records counts them: the
+    three wrappers' (the dh share and the designs' counts are parts of
+    those)."""
+    return {k: launches[k] for k in ("sorted_segment_sum", "fused_message_aggregate",
+                                     "fused_mp_step")}
+
+
 def kernel_records(fn):
     """Our kernels' launches in the card's own records (torch.profiler) of
     one call of ``fn``, by wrapper name: a fused kernel with the GRU
@@ -1890,8 +2054,10 @@ def kernel_records(fn):
             continue
         if "segment_sum_kernel" in e.name:
             counts["sorted_segment_sum"] += 1
-        elif "fused_message_tc_kernel" in e.name or "fused_message_gen_kernel" in e.name:
-            counts["fused_mp_step" if "true>" in e.name else "fused_message_aggregate"] += 1
+        elif any(k in e.name for k in PRODUCT_KERNELS):
+            # kGru, the template's second argument, tells the step
+            counts["fused_mp_step" if re.search(r"\btrue\b", e.name)
+                   else "fused_message_aggregate"] += 1
     return counts
 
 
@@ -2111,8 +2277,7 @@ def phase_graphs(records, vocab, fit_data, state):
         for name, (step, b) in kept.items():
             g = step.graphs(b[0])
             got = kernel_records(lambda: step.run(b))
-            want = {k: v for k, v in g.group.launches.items()
-                    if k != "fused_message_aggregate_dh"}
+            want = replay_kernels(g.group.launches)
             if got != want:
                 raise AssertionError(f"[graphs] {name}: the profiler saw {got} kernels in "
                                      f"one replay of the K = {GRAPH_K} graph, the capture "

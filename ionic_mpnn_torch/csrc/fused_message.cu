@@ -25,11 +25,15 @@
 //
 // The widths: every D that is a multiple of 8 from 8 to 128, and up to 32
 // bond types (the tile's type mask, and the 5 bits of a packed bond) at
-// each. Two kernels share one design and its arithmetic:
+// each. Three kernels share one design and its arithmetic:
 // fused_message_tc_kernel, the D = 32 specialisation (the model's width:
-// the table and the step's weights staged in shared memory), and
-// fused_message_gen_kernel, every other width (64-row blocks, operands split
-// once per call by a prologue and staged by TMA). dispatch_fused chooses by D.
+// the table and the step's weights staged in shared memory); at every other
+// width fused_message_gen_kernel (64-row blocks, operands split once per
+// call by a prologue and staged by TMA) where its grid fills the card, and
+// fused_message_team_kernel (warp teams on 32-column slices of a 16-row
+// tile, operands read through L2) where it does not: a small graph, D < 64,
+// and the message at D = 64. dispatch_fused chooses by D, the node count
+// and kGru (use_blocks).
 //
 // Design (fused_message_tc_kernel first). The per-edge D x D matvec
 // with a data-dependent matrix is rewritten with the identity of the JAX
@@ -1599,6 +1603,20 @@ fused_message_gen_kernel(const T* __restrict__ h, const unsigned char* __restric
   }
 }
 
+// The prologue: every B operand of a launch at this width split into
+// scratch, on a grid of at most 8 blocks an SM.
+inline void launch_split(const float* table, const float* gru_w, unsigned char* scratch, int dim,
+                         int n_types, bool gru, int sms, cudaStream_t stream) {
+  const int nt = gen_nt(dim);
+  const long items = (long)n_types * (gen_depth(dim) / kKs) * (kKs / 8) * dim +
+                     (gru ? (long)gate_groups(dim) * gate_slices(dim) * (gate_ks(nt) / 4) *
+                                gate_cols(nt)
+                          : 0);
+  const long blocks = (items + 255) / 256;
+  fused_message_split_kernel<<<(int)(blocks < 8L * sms ? blocks : 8L * sms), 256, 0, stream>>>(
+      table, gru_w, scratch, dim, n_types, gru);
+}
+
 // The prologue, then one block per 64 destination nodes.
 template <typename T, bool kGru, int NT>
 int run_gen(const void* h, const float* table, const int* bond, const int* src,
@@ -1621,13 +1639,7 @@ int run_gen(const void* h, const float* table, const int* bond, const int* src,
   if (err != cudaSuccess) return (int)err;
   if (n_nodes > 0) {
     auto* scr = static_cast<unsigned char*>(scratch);
-    const long items = (long)n_types * (gen_depth(dim) / kKs) * (kKs / 8) * dim +
-                       (kGru ? (long)gate_groups(dim) * gate_slices(dim) * (gate_ks(NT) / 4) *
-                                   gate_cols(NT)
-                             : 0);
-    const long split_blocks = (items + 255) / 256;
-    fused_message_split_kernel<<<(int)(split_blocks < 8L * sms ? split_blocks : 8L * sms), 256, 0,
-                                 stream>>>(table, gru_w, scr, dim, n_types, kGru);
+    launch_split(table, gru_w, scr, dim, n_types, kGru, sms, stream);
     const long blocks = (n_nodes + kBlockRows - 1) / kBlockRows;
     kernel<<<(unsigned)blocks, kGenWarps * 32, smem, stream>>>(
         static_cast<const T*>(h), scr, bond, src, mask, rowptr, gru_b, ln, ln_eps, out, n_nodes,
@@ -1635,6 +1647,453 @@ int run_gen(const void* h, const float* table, const int* bond, const int* src,
   }
   return (int)cudaGetLastError();
 }
+
+// ------------------------------------------------------------ any D: warp teams
+//
+// The general kernel's other design (fused_message_team_kernel), for the
+// launches the 64-row blocks serve badly: a grid of few blocks (a small
+// graph) and the narrow widths, where a block's walk, not its products, sets
+// its time and a team of ceil(D / 32) warps per 16-row tile keeps more tiles
+// in flight. No prologue and no scratch: B is read through L2 and split as
+// its fragments load. use_blocks, below, chooses between the two.
+
+constexpr int kSlice = 32;     // output columns a warp owns (the last slice may be narrower)
+
+// The warps that share a tile, one per slice of 32 output columns.
+__host__ __device__ constexpr int team_warps(int dim) { return (dim + kSlice - 1) / kSlice; }
+// The depth of a bucket's product: the message's bf16 mma takes 16 at a time
+// (zero-padded past D), the step's TF32 mma 8, which every D is a multiple of.
+__host__ __device__ constexpr int team_depth(int dim, bool gru) {
+  return gru ? dim : (dim + 15) / 16 * 16;
+}
+// Rows of the buckets, padded as the specialisation's: 8 mod 32 floats for
+// the message's float2 fragment loads, 4 mod 32 for the step's single floats.
+__host__ __device__ constexpr int team_y_stride(int dim, bool gru) {
+  return kSlots * team_depth(dim, gru) + (gru ? 4 : 8);
+}
+// Shared memory of a team: its buckets (16 rows, the step's X over them)
+// and, for the step, the LayerNorm's per-warp row sums (2 x warps x 16).
+__host__ __device__ constexpr int team_bytes(int dim, bool gru) {
+  return 4 * (kTile * team_y_stride(dim, gru) + (gru ? 2 * kTile * team_warps(dim) : 0));
+}
+// A warp's two row buffers of its slice, kSlice wide.
+__host__ __device__ constexpr int team_warp_bytes(int elem) { return 2 * kChunk * kSlice * elem; }
+
+// What one warp of a team works on: the width, its slice [c0, c0 + cw) of
+// the output columns (ntw n-tiles of 8), the buckets' depth and row stride,
+// the table's row length V*D.
+struct Slice {
+  int D, DK, ys, VD, W, w, c0, cw, ntw;
+};
+
+// The team's barrier: bar.sync on the team's own id (0 is __syncthreads'),
+// or the warp's for a team of one.
+__device__ __forceinline__ void team_sync(const Slice& s, int team) {
+  if (s.W == 1)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + team), "r"(32 * s.W) : "memory");
+}
+
+// n-tile nt's first column, relative to B: NT = 8 takes two slices of 4
+// n-tiles, `jump` columns apart (the step's z and r).
+__device__ __forceinline__ int tile_col(int nt, int jump) { return (nt & 3) * 8 + (nt >> 2) * jump; }
+
+// mma_3xtf32 with B in global memory (read through __ldg, split as it
+// loads), a depth of kt steps of 8 (runtime), chains of at most kChain
+// steps, and only the n-tiles nt with (nt & 3) < ntw.
+template <int NT>
+__device__ __forceinline__ void mma_3xtf32_team(float (&acc)[NT][4], const float* A, int lda,
+                                               const float* __restrict__ B, int ldb, int kt,
+                                               int jump, int ntw, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  for (int k0 = 0; k0 < kt; k0 += kChain) {
+    float hh[NT][4] = {}, mx[NT][4] = {};
+    const int k1 = min(kt, k0 + kChain);
+    for (int kk = k0; kk < k1; ++kk) {
+      const float* a = A + kk * 8 + q;
+      const uint2 a0 = tf32_pair(a[g * lda]), a1 = tf32_pair(a[(g + 8) * lda]);
+      const uint2 a2 = tf32_pair(a[g * lda + 4]), a3 = tf32_pair(a[(g + 8) * lda + 4]);
+      const uint32_t ahi[4] = {a0.x, a1.x, a2.x, a3.x}, alo[4] = {a0.y, a1.y, a2.y, a3.y};
+      const float* b = B + (kk * 8 + q) * ldb + g;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if ((nt & 3) >= ntw) continue;
+        const int col = tile_col(nt, jump);
+        const uint2 b0 = tf32_pair(__ldg(b + col)), b1 = tf32_pair(__ldg(b + 4 * ldb + col));
+        mma_tf32(mx[nt], alo, b0.x, b1.x);
+        mma_tf32(mx[nt], ahi, b0.y, b1.y);
+        mma_tf32(hh[nt], ahi, b0.x, b1.x);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] += hh[nt][i] + mx[nt][i];
+  }
+}
+
+// mma_bf16x3 with B in global memory, a depth of kt steps of 16 (runtime)
+// of which the rows from k_valid on read as 0 (A's pad columns are 0: the
+// padding is exact), chains of at most kChain steps, n-tiles nt < ntw.
+template <int NT>
+__device__ __forceinline__ void mma_bf16x3_team(float (&acc)[NT][4], const float* A, int lda,
+                                               const float* __restrict__ B, int ldb, int kt,
+                                               int k_valid, int ntw, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  for (int k0 = 0; k0 < kt; k0 += kChain) {
+    float hh[NT][4] = {}, mx[NT][4] = {};
+    const int k1 = min(kt, k0 + kChain);
+    for (int kk = k0; kk < k1; ++kk) {
+      const float* a = A + kk * 16 + 2 * q;
+      uint32_t a1[4], a2[4], a3[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 v = *reinterpret_cast<const float2*>(a + (i & 1) * 8 * lda + (i >> 1) * 8 +
+                                                          g * lda);
+        split_bf16x3(v.x, v.y, a1[i], a2[i], a3[i]);
+      }
+      // B rows r, r + 1, r + 8, r + 9; r is even and k_valid a multiple of
+      // 8, so r + 1 is valid with r and r + 9 with r + 8
+      const int r = kk * 16 + 2 * q;
+      const bool lo_ok = r < k_valid, hi_ok = r + 8 < k_valid;
+      const float* b = B + r * ldb + g;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt >= ntw) continue;
+        const float* bn = b + nt * 8;
+        uint32_t b1[2], b2[2], b3[2];
+        split_bf16x3(lo_ok ? __ldg(bn) : 0.f, lo_ok ? __ldg(bn + ldb) : 0.f, b1[0], b2[0],
+                     b3[0]);
+        split_bf16x3(hi_ok ? __ldg(bn + 8 * ldb) : 0.f, hi_ok ? __ldg(bn + 9 * ldb) : 0.f,
+                     b1[1], b2[1], b3[1]);
+        mma_bf16(mx[nt], a3, b1);
+        mma_bf16(mx[nt], a2, b2);
+        mma_bf16(mx[nt], a1, b3);
+        mma_bf16(mx[nt], a2, b1);
+        mma_bf16(mx[nt], a1, b2);
+        mma_bf16(hh[nt], a1, b1);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] += hh[nt][i] + mx[nt][i];
+  }
+}
+
+// The chunk's real h[src] rows, this warp's slice of each, into g (CH rows
+// of kSlice), 16 bytes a copy.
+template <typename T, int CH>
+__device__ __forceinline__ void gather_slice_async(T* g, const T* __restrict__ h, const Chunk& c,
+                                                   const Slice& s, int lane) {
+  constexpr int kMaxPieces = kSlice * (int)sizeof(T) / 16;  // 16-byte pieces of a full slice
+  const int pieces = s.cw * (int)sizeof(T) / 16;
+#pragma unroll
+  for (int i = 0; i < CH * kMaxPieces / 32; ++i) {
+    const int piece = lane + 32 * i, t = min(piece / pieces, CH - 1), p = piece - t * pieces;
+    const int pk = __shfl_sync(kFullMask, c.packed, t);
+    const int src = __shfl_sync(kFullMask, c.s, t);
+    if (pk >= 0 && piece < CH * pieces)
+      cp_async16(reinterpret_cast<char*>(g + t * kSlice) + p * 16,
+                 reinterpret_cast<const char*>(h + (size_t)src * s.D + s.c0) + p * 16);
+  }
+  cp_async_commit();
+}
+
+// Add the pass's edges into the warp's columns of their buckets, in CSR
+// order.
+template <int CH, typename T>
+__device__ __forceinline__ void add_slice(float* Y, const T* g, int bucket, const Slice& s,
+                                          int lane) {
+#pragma unroll
+  for (int t = 0; t < CH; ++t) {
+    const int p = __shfl_sync(kFullMask, bucket, t);
+    if (p >= 0 && lane < s.cw)
+      Y[(p >> 2) * s.ys + (p & 3) * s.DK + s.c0 + lane] += to_f32(g[t * kSlice + lane]);
+  }
+}
+
+// Zero the warp's columns of the first `used` slots.
+__device__ __forceinline__ void zero_slice(float* Y, int used, const Slice& s, int lane) {
+  if (lane >= s.cw) return;
+  for (int k = 0; k < used; ++k)
+#pragma unroll 4
+    for (int r = 0; r < kTile; ++r) Y[r * s.ys + k * s.DK + s.c0 + lane] = 0.f;
+}
+
+// The product phase of a team: once every warp has summed its columns,
+// agg (this warp's slice) += each slot's buckets @ its type's block of the
+// table, then a barrier so that no bucket is reused while a warp reads it.
+template <bool kGru>
+__device__ __forceinline__ void products_team(float (&agg)[4][4], const float* Y, const Slots& sl,
+                                             const float* __restrict__ table, const Slice& s,
+                                             int team, int lane) {
+  team_sync(s, team);
+  for (int k = 0; k < sl.used; ++k) {
+    const int v = (sl.types >> (8 * k)) & 255u;
+    const float* B = table + v * s.D + s.c0;
+    if (kGru)
+      mma_3xtf32_team<4>(agg, Y + k * s.DK, s.ys, B, s.VD, s.D / 8, 0, s.ntw, lane);
+    else
+      mma_bf16x3_team<4>(agg, Y + k * s.DK, s.ys, B, s.VD, s.DK / 16, s.D, s.ntw, lane);
+  }
+  team_sync(s, team);
+}
+
+// A finished tile: its last products, then the store (message) or the
+// GatedUpdate on the team's slices (step); the buckets are zero after it.
+template <typename T, bool kGru>
+__device__ __forceinline__ void finish_team(float (&agg)[4][4], float* Y, float* red, Slots& sl,
+                                           const float* __restrict__ table,
+                                           const float* __restrict__ gru_w,
+                                           const float* __restrict__ gru_b,
+                                           const float* __restrict__ ln, float ln_eps,
+                                           const T* __restrict__ h, float* __restrict__ out,
+                                           int tile, int n_nodes, const Slice& s, int team,
+                                           int lane) {
+  const int D = s.D;
+  const int g = lane >> 2, q = lane & 3;
+  const int n0 = tile * kTile;
+  const int nrows = min(kTile, n_nodes - n0);
+  const bool ok0 = g < nrows, ok1 = g + 8 < nrows;  // the C rows g and g + 8
+  float hv[4][4] = {};  // the step's h (this slice), in the C layout; loaded ahead of the products
+  if (kGru) {
+    const T* h0 = h + (size_t)(n0 + g) * D + s.c0 + 2 * q;
+    const T* h1 = h0 + 8 * D;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= s.ntw) continue;
+      hv[j][0] = ok0 ? load_f32(h0 + 8 * j) : 0.f;
+      hv[j][1] = ok0 ? load_f32(h0 + 8 * j + 1) : 0.f;
+      hv[j][2] = ok1 ? load_f32(h1 + 8 * j) : 0.f;
+      hv[j][3] = ok1 ? load_f32(h1 + 8 * j + 1) : 0.f;
+    }
+  }
+  products_team<kGru>(agg, Y, sl, table, s, team, lane);
+  float* o0 = out + (size_t)(n0 + g) * D + s.c0 + 2 * q;
+  float* o1 = o0 + 8 * D;
+  if (!kGru) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= s.ntw) continue;
+      if (ok0) *reinterpret_cast<float2*>(o0 + 8 * j) = make_float2(agg[j][0], agg[j][1]);
+      if (ok1) *reinterpret_cast<float2*>(o1 + 8 * j) = make_float2(agg[j][2], agg[j][3]);
+    }
+    zero_slice(Y, sl.used, s, lane);
+  } else {
+    // X = [h | agg] (16 x 2D, row xs) over the buckets, which every warp
+    // has read: each warp writes its slices of h and agg
+    const int xs = 2 * D + 4;
+    float* x0 = Y + g * xs + s.c0 + 2 * q;
+    float* x1 = x0 + 8 * xs;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= s.ntw) continue;
+      x0[8 * j] = hv[j][0];
+      x0[8 * j + 1] = hv[j][1];
+      x1[8 * j] = hv[j][2];
+      x1[8 * j + 1] = hv[j][3];
+      x0[D + 8 * j] = agg[j][0];
+      x0[D + 8 * j + 1] = agg[j][1];
+      x1[D + 8 * j] = agg[j][2];
+      x1[D + 8 * j + 1] = agg[j][3];
+    }
+    team_sync(s, team);
+    float zr[8][4] = {};  // n-tiles 0-3: this slice of z, 4-7: of r
+    mma_3xtf32_team<8>(zr, Y, xs, gru_w + s.c0, 3 * D, 2 * D / 8, D, s.ntw, lane);
+    team_sync(s, team);  // X is read: r*h replaces h in it
+    float z[4][4] = {};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= s.ntw) continue;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int col = s.c0 + 8 * j + 2 * q + (k & 1);
+        z[j][k] = sigmoid_fast(zr[j][k] + __ldg(gru_b + col));
+        (k < 2 ? x0 : x1)[8 * j + (k & 1)] =
+            sigmoid_fast(zr[4 + j][k] + __ldg(gru_b + D + col)) * hv[j][k];
+      }
+    }
+    team_sync(s, team);
+    float cc[4][4] = {};
+    mma_3xtf32_team<4>(cc, Y, xs, gru_w + 2 * D + s.c0, 3 * D, 2 * D / 8, 0, s.ntw, lane);
+    float nw[4][4] = {};
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= s.ntw) continue;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int col = s.c0 + 8 * j + 2 * q + (k & 1);
+        const float cand = tanhf(cc[j][k] + __ldg(gru_b + 2 * D + col));
+        nw[j][k] = (1.f - z[j][k]) * hv[j][k] + z[j][k] * cand;
+        if (k < 2) s0 += nw[j][k]; else s1 += nw[j][k];
+      }
+    }
+    // a row's slice sits in the 4 lanes of a quad; the slices' sums meet in
+    // red (slice w, row r at red[w * 16 + r]) and add in slice order
+    s0 += __shfl_xor_sync(kFullMask, s0, 1);
+    s0 += __shfl_xor_sync(kFullMask, s0, 2);
+    s1 += __shfl_xor_sync(kFullMask, s1, 1);
+    s1 += __shfl_xor_sync(kFullMask, s1, 2);
+    if (q == 0) {
+      red[s.w * kTile + g] = s0;
+      red[s.w * kTile + g + 8] = s1;
+    }
+    team_sync(s, team);
+    float t0 = 0.f, t1 = 0.f;
+    for (int w = 0; w < s.W; ++w) {
+      t0 += red[w * kTile + g];
+      t1 += red[w * kTile + g + 8];
+    }
+    const float mean0 = t0 / D, mean1 = t1 / D;
+    float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= s.ntw) continue;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float d = nw[j][k] - (k < 2 ? mean0 : mean1);
+        if (k < 2) v0 += d * d; else v1 += d * d;
+      }
+    }
+    v0 += __shfl_xor_sync(kFullMask, v0, 1);
+    v0 += __shfl_xor_sync(kFullMask, v0, 2);
+    v1 += __shfl_xor_sync(kFullMask, v1, 1);
+    v1 += __shfl_xor_sync(kFullMask, v1, 2);
+    float* sq = red + s.W * kTile;
+    if (q == 0) {
+      sq[s.w * kTile + g] = v0;
+      sq[s.w * kTile + g + 8] = v1;
+    }
+    team_sync(s, team);
+    t0 = t1 = 0.f;
+    for (int w = 0; w < s.W; ++w) {
+      t0 += sq[w * kTile + g];
+      t1 += sq[w * kTile + g + 8];
+    }
+    const float inv0 = rsqrtf(t0 / D + ln_eps), inv1 = rsqrtf(t1 / D + ln_eps);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= s.ntw) continue;
+      float y[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int col = s.c0 + 8 * j + 2 * q + (k & 1);
+        const float mean = k < 2 ? mean0 : mean1, inv = k < 2 ? inv0 : inv1;
+        y[k] = (nw[j][k] - mean) * inv * __ldg(ln + col) + __ldg(ln + D + col) + hv[j][k];
+      }
+      if (ok0) *reinterpret_cast<float2*>(o0 + 8 * j) = make_float2(y[0], y[1]);
+      if (ok1) *reinterpret_cast<float2*>(o1 + 8 * j) = make_float2(y[2], y[3]);
+    }
+    // every read of X and of the buckets is behind the syncs above: the
+    // team zeroes its buckets (X and every slot), a share a warp, and waits
+    // for that before the next tile's sums
+    float4* y4 = reinterpret_cast<float4*>(Y);
+    for (int i = s.w * 32 + lane; i < kTile * s.ys / 4; i += 32 * s.W)
+      y4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    team_sync(s, team);
+  }
+  sl = Slots();
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) agg[j][k] = 0.f;
+}
+
+// Any D (a multiple of 8, 8 to 128): a block holds `teams` teams of
+// team_warps(D) warps; a team walks its tiles together, each warp on its
+// slice of the columns. Shared memory: every team's buckets (and row sums),
+// then every warp's two row buffers.
+template <typename T, bool kGru>
+__global__ void __launch_bounds__(max_warps(kGru) * 32)
+fused_message_team_kernel(const T* __restrict__ h, const float* __restrict__ table,
+                         const int* __restrict__ bond, const int* __restrict__ src,
+                         const uint8_t* __restrict__ mask, const int* __restrict__ rowptr,
+                         const float* __restrict__ gru_w, const float* __restrict__ gru_b,
+                         const float* __restrict__ ln, float ln_eps, float* __restrict__ out,
+                         int n_nodes, int dim, int n_types) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Slice s;
+  s.D = dim;
+  s.DK = team_depth(dim, kGru);
+  s.ys = team_y_stride(dim, kGru);
+  s.VD = n_types * dim;
+  s.W = team_warps(dim);
+  s.w = warp % s.W;
+  s.c0 = s.w * kSlice;
+  s.cw = min(kSlice, dim - s.c0);
+  s.ntw = s.cw / 8;
+  const int team = warp / s.W, teams = (blockDim.x >> 5) / s.W;
+  const int team_floats = team_bytes(dim, kGru) / 4;
+  float* Y = reinterpret_cast<float*>(smem_raw) + team * team_floats;  // (16, kSlots*DK), row ys
+  float* red = Y + kTile * s.ys;  // the step's (2, W, 16) row sums
+  T* G = reinterpret_cast<T*>(smem_raw + teams * team_bytes(dim, kGru)) +
+         warp * 2 * kChunk * kSlice;  // two (kChunk, kSlice) row buffers
+
+  float4* all4 = reinterpret_cast<float4*>(smem_raw);
+  for (int i = threadIdx.x; i < teams * team_floats / 4; i += blockDim.x)
+    all4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+
+  // tiles are dealt to the blocks first, as in the specialisation; every
+  // warp of a team takes the same tiles
+  Slots sl;
+  float agg[4][4] = {};
+  walk_chunks<kChunk>(
+      rowptr, src, bond, mask, n_nodes, team * gridDim.x + blockIdx.x, gridDim.x * teams, lane,
+      [&](int b, const Chunk& c) {
+        gather_slice_async<T, kChunk>(G + b * kChunk * kSlice, h, c, s, lane);
+      },
+      [&](int b, const Chunk& cur) {
+        for (uint32_t todo = cur.types;;) {
+          const int bucket = take_slots(sl, todo, cur);
+          add_slice<kChunk>(Y, G + b * kChunk * kSlice, bucket, s, lane);
+          todo &= ~sl.mask;
+          if (!todo) break;
+          products_team<kGru>(agg, Y, sl, table, s, team, lane);
+          zero_slice(Y, sl.used, s, lane);
+          sl = Slots();
+        }
+        __syncwarp();
+        if (cur.last)
+          finish_team<T, kGru>(agg, Y, red, sl, table, gru_w, gru_b, ln, ln_eps, h, out,
+                              cur.tile, n_nodes, s, team, lane);
+      });
+}
+
+// As many teams per block as shared memory holds, up to max_warps warps.
+template <typename T, bool kGru>
+int run_team(const void* h, const float* table, const int* bond, const int* src,
+            const uint8_t* mask, const int* rowptr, const float* gru_w, const float* gru_b,
+            const float* ln, float ln_eps, float* out, int n_nodes, int dim, int n_types,
+            cudaStream_t stream) {
+  int device = 0, optin = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  const int W = team_warps(dim);
+  const size_t per_team = team_bytes(dim, kGru) + W * team_warp_bytes(sizeof(T));
+  if (per_team > (size_t)optin) return (int)cudaErrorInvalidValue;
+  const size_t fit = optin / per_team;
+  const int teams = (int)(fit < (size_t)(max_warps(kGru) / W) ? fit : max_warps(kGru) / W);
+  const size_t smem = teams * per_team;
+  auto kernel = fused_message_team_kernel<T, kGru>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (n_nodes > 0) {
+    const long tiles = (n_nodes + kTile - 1) / kTile;
+    const int threads = teams * W * 32;
+    const int grid = resident_grid(kernel, threads, smem, (tiles + teams - 1) / teams);
+    kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(h), table, bond, src, mask,
+                                            rowptr, gru_w, gru_b, ln, ln_eps, out, n_nodes,
+                                            dim, n_types);
+  }
+  return (int)cudaGetLastError();
+}
+
 
 // ------------------------------------------------------------ dispatch
 
@@ -1655,6 +2114,42 @@ inline bool specialised(int dim) {
 #endif
 }
 
+// Which general design a launch takes, where a probe or a check has not
+// forced one (ionic_fused_force_design): 0 chooses, 1 the warp teams, 2 the
+// 64-row blocks.
+int g_forced_design = 0;
+
+// Whether a launch at this width over n_nodes runs the 64-row blocks (the
+// prologue, scratch) rather than the warp teams. Both designs timed on an
+// H100 on the bench data's cation and anion graphs at batch 256 to 2048 and
+// D = 8 to 128 (tools/width_probe.py designs; PERF.md §6):
+//  - the blocks' time goes up in whole waves of the grid (two blocks an SM
+//    at D <= 64, one above), and a tile that meets more types than its 2
+//    slots (at 64 and 128) flushes the whole block: on every anion graph
+//    (up to 1.2 waves) the blocks take 1.1-2.0x the teams' time;
+//  - the step's staged W pays from 1.5 waves at D >= 64: 3-16% faster on
+//    every cation graph from 466 blocks at 64 and 235 at 128;
+//  - the message gains only at D > 64 from 2 waves (2-14% on 352 to 923
+//    blocks); at D = 64 it ties at 3.5 waves and loses below, and at
+//    D < 64 it loses everywhere (up to 2.6x at 8 and 16), as does the
+//    step at 8 and 16; so both keep the teams there.
+// What the rule misses (the blocks 5-21% faster where it takes the teams):
+// the step on one wave of a cation graph (235 blocks at 48 and 64, 117 at
+// 128), where the anion graphs of as many blocks lose (their tiles meet
+// more types, which the host does not see), and the step at D = 48 on 466
+// blocks (at 352, 692 and 923 the teams win or tie).
+inline bool use_blocks(int dim, int n_nodes, bool gru) {
+  if (specialised(dim) || n_nodes <= 0) return false;
+  if (g_forced_design) return g_forced_design == 2;
+  if (dim < 64 || (!gru && dim == 64)) return false;
+  int device = 0, sms = 1;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long blocks = (n_nodes + kBlockRows - 1) / kBlockRows;
+  const long wave = (gen_nt(dim) == 4 ? 2 : 1) * (long)sms;  // __launch_bounds__' blocks an SM
+  return gru ? 2 * blocks >= 3 * wave : blocks >= 2 * wave;
+}
+
 template <bool kGru>
 int dispatch_fused(const void* h, int h_dtype, const float* table, const int* bond,
                    const int* src, const uint8_t* mask, const int* rowptr,
@@ -1669,6 +2164,11 @@ int dispatch_fused(const void* h, int h_dtype, const float* table, const int* bo
   if (specialised(dim)) {
     if (h_dtype == kF32) return run_tc<float, kGru>(IONIC_ARGS, n_types, s);
     if (h_dtype == kBF16) return run_tc<__nv_bfloat16, kGru>(IONIC_ARGS, n_types, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!use_blocks(dim, n_nodes, kGru)) {
+    if (h_dtype == kF32) return run_team<float, kGru>(IONIC_ARGS, dim, n_types, s);
+    if (h_dtype == kBF16) return run_team<__nv_bfloat16, kGru>(IONIC_ARGS, dim, n_types, s);
     return (int)cudaErrorInvalidValue;
   }
   if (!scratch || !aligned16(scratch)) return (int)cudaErrorInvalidValue;
@@ -1698,23 +2198,57 @@ IONIC_API int ionic_max_dynamic_smem(void) {
 }
 
 // The least dynamic shared memory a launch at this width and type count
-// needs (at D = 32: the staged operands and one warp's tile and row
-// buffers; at any other D: a 64-row block with h in f32), or -1 for a shape
-// the kernels do not take.
-IONIC_API int ionic_fused_smem_bytes(int dim, int n_types, int gru) {
+// over n_nodes needs on the current device (at D = 32: the staged operands
+// and one warp's tile and row buffers; the 64-row blocks: a block with h in
+// f32; the warp teams: one team's buckets and row buffers), or -1 for a
+// shape the kernels do not take.
+IONIC_API int ionic_fused_smem_bytes(int dim, int n_types, int gru, int n_nodes) {
   if (n_types <= 0 || n_types > ionic::max_types(dim)) return -1;
   if (ionic::specialised(dim))
     return (int)(ionic::tc_fixed_bytes(n_types, gru != 0) +
                  ionic::tc_warp_bytes(sizeof(float), gru != 0));
-  return (int)ionic::gen_smem_bytes(dim, ionic::gen_slots(dim), sizeof(float), gru != 0);
+  if (ionic::use_blocks(dim, n_nodes, gru != 0))
+    return (int)ionic::gen_smem_bytes(dim, ionic::gen_slots(dim), sizeof(float), gru != 0);
+  return ionic::team_bytes(dim, gru != 0) +
+         ionic::team_warps(dim) * ionic::team_warp_bytes(sizeof(float));
 }
 
-// Bytes of the scratch a launch needs for its split operands (0 at D = 32),
-// or -1 for a shape the kernels do not take. The wrapper allocates it.
-IONIC_API int ionic_fused_scratch_bytes(int dim, int n_types, int gru) {
+// Bytes of the scratch a launch over n_nodes on the current device splits
+// its operands into: nonzero exactly where it runs the 64-row blocks, whose
+// prologue (fused_message_split_kernel) it then launches first; -1 for a
+// shape the kernels do not take. The wrapper allocates it.
+IONIC_API int ionic_fused_scratch_bytes(int dim, int n_types, int gru, int n_nodes) {
   if (n_types <= 0 || n_types > ionic::max_types(dim)) return -1;
-  if (ionic::specialised(dim)) return 0;
+  if (!ionic::use_blocks(dim, n_nodes, gru != 0)) return 0;
   return (int)ionic::scratch_bytes(dim, n_types, gru != 0);
+}
+
+// The blocks' prologue alone, as a launch that runs them launches it first:
+// the operands of a launch at this width split into scratch (of
+// ionic_fused_scratch_bytes' size at a node count that takes the blocks).
+// For the checks and timings of the prologue; the fused entry points launch
+// it themselves.
+IONIC_API int ionic_fused_split(const float* table, const float* gru_w, void* scratch, int dim,
+                                int n_types, int gru, void* stream) {
+  if (n_types <= 0 || n_types > ionic::max_types(dim) || dim == ionic::kTcDim)
+    return (int)cudaErrorInvalidValue;
+  if (!ionic::aligned16(table) || !ionic::aligned16(scratch) || (gru && !ionic::aligned16(gru_w)))
+    return (int)cudaErrorMisalignedAddress;
+  int device = 0, sms = 1;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  ionic::launch_split(table, gru_w, static_cast<unsigned char*>(scratch), dim, n_types,
+                      gru != 0, sms, static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+// Force the general kernel's design (1 the warp teams, 2 the 64-row blocks)
+// or, with 0, let use_blocks choose; returns the setting it replaces. For
+// probes and checks that hold both designs at one shape.
+IONIC_API int ionic_fused_force_design(int design) {
+  const int before = ionic::g_forced_design;
+  ionic::g_forced_design = design == 1 || design == 2 ? design : 0;
+  return before;
 }
 
 IONIC_API int ionic_fused_message(const void* h, int h_dtype, const float* table,

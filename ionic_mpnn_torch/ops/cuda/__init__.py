@@ -19,6 +19,13 @@ table (counted as a ``fused_message_aggregate`` launch); the backward of
 ``fused_mp_step`` launches that kernel twice (the remat of ``agg`` and
 the ``dh``); the segment sum's backward is a gather.
 
+At every width but 32 a fused launch runs one of two designs: the 64-row
+blocks, after their prologue (``fused_message_split_kernel``, which splits
+the launch's operands), or the warp teams. ``block_launches`` in both fused
+modules (and ``fused_message.dh_block_launches``) count the launches that
+ran the blocks, each with one prologue launch; ``launch_counts(designs=True)``
+adds them as ``<wrapper>_blocks``.
+
 A CUDA graph launches its kernels when it replays, not when it is
 captured: the graph helpers (``training/graphs.py``) take back the counts
 a capture raised, keep them as the graph's per-replay launches, and add
@@ -37,12 +44,24 @@ _MODULES = {
 }
 
 
-def launch_counts() -> dict:
+# the counters of the launches that ran the 64-row blocks: (module, attribute)
+_BLOCKS = {
+    "fused_message_aggregate_blocks": (fused_message, "block_launches"),
+    "fused_message_aggregate_dh_blocks": (fused_message, "dh_block_launches"),
+    "fused_mp_step_blocks": (fused_step, "block_launches"),
+}
+
+
+def launch_counts(designs: bool = False) -> dict:
     """Kernel launches per wrapper since the last reset, and
     ``fused_message_aggregate_dh``: how many of the
-    ``fused_message_aggregate`` launches were backward ``dh`` launches."""
+    ``fused_message_aggregate`` launches were backward ``dh`` launches;
+    with ``designs``, ``<wrapper>_blocks``: how many of each ran the 64-row
+    blocks (and their prologue) rather than the warp teams."""
     counts = {name: mod.launches for name, mod in _MODULES.items()}
     counts["fused_message_aggregate_dh"] = fused_message.dh_launches
+    if designs:
+        counts.update({k: getattr(mod, a) for k, (mod, a) in _BLOCKS.items()})
     return counts
 
 
@@ -50,17 +69,23 @@ def reset_launch_counts() -> None:
     for mod in _MODULES.values():
         mod.launches = 0
     fused_message.dh_launches = 0
+    for mod, attr in _BLOCKS.values():
+        setattr(mod, attr, 0)
 
 
 def set_launch_counts(counts: dict) -> None:
-    """Set the counters to ``counts`` (a :func:`launch_counts` dict)."""
+    """Set the counters to ``counts`` (a :func:`launch_counts` dict; the
+    designs' counters too where it holds them)."""
     for name, mod in _MODULES.items():
         mod.launches = counts[name]
     fused_message.dh_launches = counts["fused_message_aggregate_dh"]
+    for k, (mod, attr) in _BLOCKS.items():
+        if k in counts:
+            setattr(mod, attr, counts[k])
 
 
 def add_launch_counts(per_call: dict) -> None:
     """Add ``per_call`` (a :func:`launch_counts` dict) to the counters: the
     launches of one replay of a graph."""
-    now = launch_counts()
+    now = launch_counts(designs=all(k in per_call for k in _BLOCKS))
     set_launch_counts({k: now[k] + per_call[k] for k in now})

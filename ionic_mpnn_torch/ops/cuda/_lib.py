@@ -43,12 +43,19 @@ _SIGNATURES = {
     "ionic_max_dynamic_smem": ([], _I),
     # dim -> the most bond types the fused kernels take at that width
     "ionic_fused_max_types": ([_I], _I),
-    # dim, n_types, gru -> the least dynamic shared memory a fused launch
-    # needs, or -1 for a shape the kernels do not take
-    "ionic_fused_smem_bytes": ([_I, _I, _I], _I),
-    # dim, n_types, gru -> bytes of the scratch a fused launch splits its
-    # operands into (0 at D = 32), or -1 for a shape the kernels do not take
-    "ionic_fused_scratch_bytes": ([_I, _I, _I], _I),
+    # dim, n_types, gru, n_nodes -> the least dynamic shared memory a fused
+    # launch needs, or -1 for a shape the kernels do not take
+    "ionic_fused_smem_bytes": ([_I, _I, _I, _I], _I),
+    # dim, n_types, gru, n_nodes -> bytes of the scratch a fused launch splits
+    # its operands into (nonzero where it runs the 64-row blocks and their
+    # prologue), or -1 for a shape the kernels do not take
+    "ionic_fused_scratch_bytes": ([_I, _I, _I, _I], _I),
+    # design (0 chosen by width and size, 1 warp teams, 2 64-row blocks) ->
+    # the setting it replaces
+    "ionic_fused_force_design": ([_I], _I),
+    # table, gru_w, scratch, dim, n_types, gru, stream: the blocks' prologue
+    # alone (checks and timings)
+    "ionic_fused_split": ([_P, _P, _P, _I, _I, _I, _P], _I),
     # msg, msg_dtype, rowptr, out, n_nodes, dim, stream
     "ionic_segment_sum": ([_P, _I, _P, _P, _I, _I, _P], _I),
     # h, h_dtype, table, bond, src, mask, rowptr, out, n_nodes, dim, n_types,

@@ -20,7 +20,10 @@ table sits in shared memory; at any other width a block owns 64 nodes (4
 tiles), a prologue splits the table once per call into scratch the wrapper
 allocates (:func:`fused_scratch`), and each type's panel streams through
 shared memory by TMA once per block (at D = 128 the table outgrows a
-block's shared memory). Any
+block's shared memory). Where those blocks would not fill the card twice
+(a small graph) or D < 64, a team of ``ceil(D / 32)`` warps owns a tile
+instead, each on 32 output columns, the table read through L2, and no
+scratch is needed. Any
 degree and any |src − dst| are accepted; no edge is dropped; two launches
 on the same input give the same bits. Limits, checked before a launch:
 D a multiple of 8 from 8 to 128 (:data:`FUSED_DIMS`; the JAX kernels take
@@ -76,10 +79,17 @@ __all__ = [
     "transpose_lane_table",
     "check_fused_inputs",
     "fused_scratch",
+    "fused_split",
+    "fused_split_plain",
 ]
 
 launches = 0  # kernel launches since the last reset (ops.cuda.reset_launch_counts)
 dh_launches = 0  # of those, the backward's dh launches on (g, Kᵀ)
+# of those, the launches that ran the 64-row blocks, each after their
+# prologue (fused_message_split_kernel), and the dh launches among them
+block_launches = 0
+dh_block_launches = 0
+split_launches = 0  # launches of the prologue alone (fused_split: checks and timings)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The widths the fused kernels take: the library's ionic_fused_max_types is
@@ -154,7 +164,8 @@ def check_fused_inputs(name: str, h, K, bond_ids, src, dst, edge_mask,
             "rowptr must be (N+1,) int32")
     V = K.shape[1] // D
     lib = _lib.library()
-    smem = lib.ionic_fused_smem_bytes(D, V, int(gru))
+    with torch.cuda.device(h.device):
+        smem = lib.ionic_fused_smem_bytes(D, V, int(gru), N)
     require(smem >= 0, f"{V} bond types at D={D}: the kernels take at most "
                        f"{lib.ionic_fused_max_types(D)}")
     limit = lib.ionic_max_dynamic_smem()
@@ -170,13 +181,96 @@ def check_fused_inputs(name: str, h, K, bond_ids, src, dst, edge_mask,
 
 
 def fused_scratch(h: torch.Tensor, D: int, V: int, gru: bool) -> Optional[torch.Tensor]:
-    """The scratch a launch at width D with V bond types splits its operands
-    into (the library says how many bytes), or None at D = 32, which needs
-    none."""
-    nbytes = _lib.library().ionic_fused_scratch_bytes(D, V, int(gru))
+    """The scratch a launch on ``h`` (N, D) with V bond types splits its
+    operands into (the library says how many bytes), or None where the
+    launch needs none: D = 32, and the warp teams, which the library takes
+    over the 64-row blocks for a small N or D < 64. Call it with ``h``'s
+    card current. A launch with scratch runs the blocks' prologue."""
+    nbytes = _lib.library().ionic_fused_scratch_bytes(D, V, int(gru), h.shape[0])
     if nbytes < 0:
         raise ValueError(f"{V} bond types at D={D}: not a shape the fused kernels take")
     return torch.empty(nbytes, dtype=torch.uint8, device=h.device) if nbytes else None
+
+
+def _split_layout(D: int, V: int):
+    """Where the blocks' prologue puts its planes in the scratch
+    (``csrc/fused_message.cu``: ``k_scratch_bytes``, ``w_scratch_offset``,
+    ``gate_group``): the table's k-slices of 32 in rows of 40 bf16, then W's
+    column groups in k-slices, rows of ``ks + 4`` TF32 words."""
+    wide = D > 64
+    nks = -(-D // 32)
+    w_off = -(-(V * nks * 3 * D * 40 * 2) // 128) * 128
+    cols, ks = (128, 16) if wide else (32, 64)
+    groups = ([(c0, min(cols, 2 * D - c0)) for c0 in range(0, 2 * D, cols)]
+              + [(2 * D + c0, min(cols, D - c0)) for c0 in range(0, D, cols)])
+    return nks, w_off, cols, ks, -(-2 * D // ks), groups
+
+
+def fused_split_plain(K: torch.Tensor, w: Optional[torch.Tensor] = None):
+    """The plain version of the blocks' prologue: the table's entries split
+    exactly into three bf16 parts, ``parts[v, t, n, k]`` part t of
+    ``K[k, v·D + n]`` (as f32), and with ``w`` (2D, 3D) its TF32 (hi, lo)
+    pairs, ``pairs[0] = rna(w)``, ``pairs[1] = rna(w − hi)`` (to nearest,
+    ties away from zero, on the int32 view)."""
+    D = K.shape[0]
+    x = K.float().view(D, K.shape[1] // D, D).permute(1, 2, 0)
+    p1 = x.to(torch.bfloat16).float()
+    p2 = (x - p1).to(torch.bfloat16).float()
+    parts = torch.stack([p1, p2, (x - p1 - p2).to(torch.bfloat16).float()], dim=1)
+    if w is None:
+        return parts, None
+    rna = lambda t: ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(w.float())
+    return parts, torch.stack([hi, rna(w.float() - hi)])
+
+
+def fused_split_bytes(K: torch.Tensor, w: Optional[torch.Tensor] = None) -> int:
+    """Bytes of the planes the blocks' prologue writes for this table (and
+    W)."""
+    D = K.shape[0]
+    nks, w_off, cols, ks, nkw, groups = _split_layout(D, K.shape[1] // D)
+    return w_off + (len(groups) * nkw * 2 * cols * (ks + 4) * 4 if w is not None else 0)
+
+
+def fused_split(K: torch.Tensor, w: Optional[torch.Tensor] = None, scratch=None,
+                read: bool = True):
+    """The blocks' prologue alone (``fused_message_split_kernel``), as a
+    launch that runs the 64-row blocks launches it first, for its checks and
+    timings: on a CUDA table, one launch into ``scratch`` (allocated when
+    None), its planes read back in :func:`fused_split_plain`'s layout (with
+    ``read``; else the scratch itself); on a CPU table, the plain
+    version."""
+    if K.device.type == "cpu":
+        return fused_split_plain(K, w)
+    global split_launches
+    D = K.shape[0]
+    V = K.shape[1] // D
+    nks, w_off, cols, ks, nkw, groups = _split_layout(D, V)
+    pad = ks + 4
+    nbytes = fused_split_bytes(K, w)
+    if scratch is None:
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=K.device)
+    K = _lib.aligned16(K.contiguous())
+    w = None if w is None else _lib.aligned16(w.float().contiguous())
+    with torch.cuda.device(K.device):
+        code = _lib.library().ionic_fused_split(
+            K.data_ptr(), None if w is None else w.data_ptr(), scratch.data_ptr(), D, V,
+            int(w is not None), _lib.stream_ptr(K.device))
+    _lib.check(code, "fused_message_split")
+    split_launches += 1
+    if not read:
+        return scratch
+    kp = scratch[:V * nks * 3 * D * 40 * 2].view(torch.bfloat16).view(V, nks, 3, D, 40)
+    parts = kp[..., :32].permute(0, 2, 3, 1, 4).reshape(V, 3, D, nks * 32)[..., :D].float()
+    if w is None:
+        return parts, None
+    wp = scratch[w_off:nbytes].view(torch.int32).view(len(groups), nkw, 2, cols, pad)
+    wp = wp[..., :ks].permute(0, 2, 3, 1, 4).reshape(len(groups), 2, cols, nkw * ks)
+    wp = wp[..., :2 * D].contiguous().view(torch.float32)
+    pairs = torch.empty(2, 2 * D, 3 * D, dtype=torch.float32, device=K.device)
+    for gi, (c0, width) in enumerate(groups):
+        pairs[:, :, c0:c0 + width] = wp[gi, :, :width].transpose(1, 2)
+    return parts, pairs
 
 
 def _aggregate(h, K, bond_ids, src, dst, edge_mask, num_nodes: int, rowptr,
@@ -193,12 +287,12 @@ def _aggregate(h, K, bond_ids, src, dst, edge_mask, num_nodes: int, rowptr,
     check_fused_inputs("fused_message_aggregate", h, K, bond_ids, src, dst,
                        edge_mask, num_nodes, rowptr)
 
-    global launches, dh_launches
+    global launches, dh_launches, block_launches, dh_block_launches
     h, K = _lib.aligned16(h), _lib.aligned16(K)
     D = h.shape[1]
     out = torch.empty(num_nodes, D, dtype=torch.float32, device=h.device)
-    scratch = fused_scratch(h, D, K.shape[1] // D, gru=False)
     with torch.cuda.device(h.device):
+        scratch = fused_scratch(h, D, K.shape[1] // D, gru=False)
         code = _lib.library().ionic_fused_message(
             h.data_ptr(), _DTYPES[h.dtype], K.data_ptr(), bond_ids.data_ptr(),
             src.data_ptr(), edge_mask.data_ptr(), rowptr.data_ptr(),
@@ -208,6 +302,9 @@ def _aggregate(h, K, bond_ids, src, dst, edge_mask, num_nodes: int, rowptr,
     launches += 1
     if dh:
         dh_launches += 1
+    if scratch is not None:
+        block_launches += 1
+        dh_block_launches += int(dh)
     return out
 
 

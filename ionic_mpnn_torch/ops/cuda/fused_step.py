@@ -22,7 +22,11 @@ kernel's exact split) and ``[Wz | Wr | Wh]`` into TF32 (hi, lo) planes once
 per call, into scratch the wrapper allocates; the weights (983 KB split,
 rows padded, at D = 128) stream through shared memory once per block, the
 gates run on the 64 rows there, and the LayerNorm reduces each row over the
-true D.
+true D. Where those blocks would not fill the card twice (a small graph) or
+D < 64, a team of ``ceil(D / 32)`` warps owns a 16-node tile instead, each
+on a slice of 32 columns of every product and gate, the weights read
+through L2 (the aggregate in 3xTF32), and the LayerNorm adds the warps'
+slice sums over the true D.
 
 Numerics follow the JAX kernel: the result is f32 whatever the dtype of
 ``h`` (a bf16 ``h`` is read exactly and upcast), and the whole epilogue
@@ -67,6 +71,7 @@ __all__ = ["FusedMPStep", "GRU_KEYS", "fused_mp_step", "fused_mp_step_plain",
 GRU_KEYS = ("wz", "bz", "wr", "br", "wh", "bh", "ln_scale", "ln_bias")
 
 launches = 0  # kernel launches since the last reset (ops.cuda.reset_launch_counts)
+block_launches = 0  # of those, the launches that ran the 64-row blocks (and their prologue)
 
 
 def pack_gru_weights(gru: Dict[str, torch.Tensor]):
@@ -111,11 +116,11 @@ def _step(h, m_table, gru, bond_ids, src, dst, edge_mask, num_nodes: int,
                        num_nodes, rowptr,
                        extra=(("gru_w", w), ("gru_b", b), ("ln", ln)), gru=True)
 
-    global launches
+    global launches, block_launches
     h = _lib.aligned16(h)
     out = torch.empty(num_nodes, D, dtype=torch.float32, device=h.device)
-    scratch = fused_scratch(h, D, K.shape[1] // D, gru=True)
     with torch.cuda.device(h.device):
+        scratch = fused_scratch(h, D, K.shape[1] // D, gru=True)
         code = _lib.library().ionic_fused_step(
             h.data_ptr(), _DTYPES[h.dtype], K.data_ptr(), bond_ids.data_ptr(),
             src.data_ptr(), edge_mask.data_ptr(), rowptr.data_ptr(),
@@ -124,6 +129,8 @@ def _step(h, m_table, gru, bond_ids, src, dst, edge_mask, num_nodes: int,
             None if scratch is None else scratch.data_ptr(), _lib.stream_ptr(h.device))
     _lib.check(code, "fused_mp_step")
     launches += 1
+    if scratch is not None:
+        block_launches += 1
     return out
 
 

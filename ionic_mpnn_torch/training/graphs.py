@@ -125,7 +125,7 @@ class Replay:
         graph = torch.cuda.CUDAGraph()
         for gen in (self.generators() if self.generators else ()):
             graph.register_generator_state(gen)
-        before = kernels.launch_counts()
+        before = kernels.launch_counts(designs=True)
         collecting = gc.isenabled()
         gc.disable()
         try:
@@ -134,7 +134,7 @@ class Replay:
         finally:
             if collecting:
                 gc.enable()
-            after = kernels.launch_counts()
+            after = kernels.launch_counts(designs=True)
             kernels.set_launch_counts(before)  # the capture launched nothing
         self.launches = {k: after[k] - before[k] for k in after}
         self.graph, self.out = graph, out

@@ -30,6 +30,8 @@ at rtol/atol 1e-5:
 The mirror lives here, not in the package: it pins the design's numerics,
 which the card's kernel then holds against its plain version."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -235,24 +237,38 @@ def aggregate_blocks(h, K, bond, src, dst, mask, N, product=None, rounds=None):
     return agg
 
 
-def aggregate_mirror(h, K, bond, src, dst, mask, N, product=None):
+def aggregate_mirror(h, K, bond, src, dst, mask, N, product=None, design="blocks"):
     """The message kernel's aggregate at h's width: the specialisation's at
-    D = 32, the general kernel's at any other."""
-    if h.shape[1] == 32:
+    D = 32; at any other D the general kernel's in ``design``: the 64-row
+    blocks, or the warp teams (a 16-node tile with 4 slots, as at D = 32;
+    their column slices change no column's sums)."""
+    if h.shape[1] == 32 or design == "teams":
         return aggregate_tiles(h, K, bond, src, dst, mask, N, product or product_bf16x3)
     return aggregate_blocks(h, K, bond, src, dst, mask, N, product)
 
 
-def step_mirror(h, m_table, gru, bond, src, dst, mask, N, ln_eps=1e-3, passes=3):
-    """The step kernel: its aggregate (3xTF32 at D = 32, the message
-    kernel's bf16 split at any other D), then the gates on 3xTF32 products
-    of X = [h | agg] and [r*h | agg], the sigmoid, tanh, the LayerNorm and
-    the residual, all f32."""
+def row_sum_by_slices(x):
+    """A row's sum as the warp teams' LayerNorm takes it: each 32-column
+    slice's sum, then the slices' sums added in order."""
+    total = torch.zeros(x.shape[0], 1)
+    for c0 in range(0, x.shape[1], 32):
+        total = total + x[:, c0:c0 + 32].sum(dim=1, keepdim=True)
+    return total
+
+
+def step_mirror(h, m_table, gru, bond, src, dst, mask, N, ln_eps=1e-3, passes=3,
+                design="blocks"):
+    """The step kernel: its aggregate (3xTF32 at D = 32 and in the warp
+    teams, the message kernel's bf16 split in the 64-row blocks), then the
+    gates on 3xTF32 products of X = [h | agg] and [r*h | agg], the sigmoid,
+    tanh, the LayerNorm (the teams' row sums by slices) and the residual,
+    all f32."""
     D = h.shape[1]
     h = h.float()
     K = _t(np.asarray(j_lanes(jnp.asarray(m_table))))
     prod = lambda a, b: product_3xtf32(a, b, passes)
-    agg = aggregate_mirror(h, K, bond, src, dst, mask, N, prod if D == 32 else None)
+    teams = D == 32 or design == "teams"
+    agg = aggregate_mirror(h, K, bond, src, dst, mask, N, prod if teams else None, design)
     W = torch.cat([gru["wz"], gru["wr"], gru["wh"]], dim=1)
     zr = prod(torch.cat([h, agg], dim=1), W[:, :2 * D])
     sigmoid = lambda x: 1.0 / (1.0 + torch.exp(-x))
@@ -260,8 +276,9 @@ def step_mirror(h, m_table, gru, bond, src, dst, mask, N, ln_eps=1e-3, passes=3)
     r = sigmoid(zr[:, D:] + gru["br"])
     c = prod(torch.cat([r * h, agg], dim=1), W[:, 2 * D:]) + gru["bh"]
     new = (1.0 - z) * h + z * torch.tanh(c)
-    mean = new.sum(dim=1, keepdim=True) / D
-    var = ((new - mean) ** 2).sum(dim=1, keepdim=True) / D
+    row_sum = row_sum_by_slices if teams else lambda x: x.sum(dim=1, keepdim=True)
+    mean = row_sum(new) / D
+    var = row_sum((new - mean) ** 2) / D
     return (new - mean) * torch.rsqrt(var + ln_eps) * gru["ln_scale"] + gru["ln_bias"] + h
 
 
@@ -281,6 +298,22 @@ def _every_type_edges(N, V):
     return src.astype(np.int32), dst.astype(np.int32), bond.astype(np.int32), mask.astype(np.float32)
 
 
+# (N, D, V, seed) of each case
+_CASE_PARAMS = {"molecules N=256": (256, 32, 7, 0), "molecules N=384 D=16": (384, 16, 5, 1),
+                "every type N=1001": (1001, 32, 7, 2),
+                "molecules N=256 D=48": (256, 48, 7, 3),
+                "every type N=97 D=48": (97, 48, 6, 4),
+                "molecules N=128 D=128": (128, 128, 7, 5),
+                "molecules N=192 D=24": (192, 24, 5, 6),
+                "every type N=160 D=64": (160, 64, 6, 7),
+                "molecules N=192 D=128 h bf16": (192, 128, 7, 8),
+                "molecules N=128 D=8": (128, 8, 5, 9)}
+
+
+def _case_dim(name):
+    return _CASE_PARAMS[name][1]
+
+
 def _case(name):
     """(N, D, V, seed) and the edges: the op tests' two graphs, graphs at
     the general kernel's widths (D = 48: 3 n-tiles a column half; D = 128:
@@ -290,15 +323,7 @@ def _case(name):
     block flushes inside its walk), and h in bf16 at D = 128 (its values
     reach both kernels as the same numbers; the kernels read a bf16 h
     exactly)."""
-    N, D, V, seed = {"molecules N=256": (256, 32, 7, 0), "molecules N=384 D=16": (384, 16, 5, 1),
-                     "every type N=1001": (1001, 32, 7, 2),
-                     "molecules N=256 D=48": (256, 48, 7, 3),
-                     "every type N=97 D=48": (97, 48, 6, 4),
-                     "molecules N=128 D=128": (128, 128, 7, 5),
-                     "molecules N=192 D=24": (192, 24, 5, 6),
-                     "every type N=160 D=64": (160, 64, 6, 7),
-                     "molecules N=192 D=128 h bf16": (192, 128, 7, 8),
-                     "molecules N=128 D=8": (128, 8, 5, 9)}[name]
+    N, D, V, seed = _CASE_PARAMS[name]
     rng = np.random.default_rng(seed)
     if name.startswith("every type"):
         src, dst, bond, mask = _every_type_edges(N, V)
@@ -319,22 +344,42 @@ CASES = ["molecules N=256", "molecules N=384 D=16", "every type N=1001",
          "molecules N=128 D=8"]
 
 
+@functools.lru_cache(maxsize=None)
+def _pallas(kernel, case):
+    """The JAX Pallas kernel's result on a case (interpret mode)."""
+    N, V, h, m_table, gru, src, dst, bond, mask = _case(case)
+    jh, jm = jnp.asarray(h), jnp.asarray(m_table)
+    if kernel == "fused_message_aggregate":
+        return np.asarray(j_fused_message(jh, j_lanes(jm), bond, src, dst, mask > 0, N,
+                                          interpret=True))
+    return np.asarray(j_fused_step(jh, jm, {k: jnp.asarray(v) for k, v in gru.items()}, bond,
+                                   src, dst, mask, N, interpret=True))
+
+
+def _mirror(kernel, case, design):
+    N, V, h, m_table, gru, src, dst, bond, mask = _case(case)
+    th = _t(h).to(torch.bfloat16) if case.endswith("h bf16") else _t(h)
+    if kernel == "fused_message_aggregate":
+        K = _t(np.asarray(j_lanes(jnp.asarray(m_table))))
+        return aggregate_mirror(th, K, bond, src, dst, mask > 0, N, design=design)
+    return step_mirror(th, m_table, {k: _t(v) for k, v in gru.items()}, bond, src, dst,
+                       mask > 0, N, design=design)
+
+
 @pytest.mark.parametrize("kernel", ["fused_message_aggregate", "fused_mp_step"])
 @pytest.mark.parametrize("case", CASES)
 def test_mirror_matches_pallas_kernel(kernel, case):
-    N, V, h, m_table, gru, src, dst, bond, mask = _case(case)
-    jh, jm = jnp.asarray(h), jnp.asarray(m_table)
-    th = _t(h).to(torch.bfloat16) if case.endswith("h bf16") else _t(h)
-    if kernel == "fused_message_aggregate":
-        K = np.asarray(j_lanes(jm))
-        want = j_fused_message(jh, jnp.asarray(K), bond, src, dst, mask > 0, N, interpret=True)
-        got = aggregate_mirror(th, _t(K), bond, src, dst, mask > 0, N)
-    else:
-        want = j_fused_step(jh, jm, {k: jnp.asarray(v) for k, v in gru.items()}, bond, src,
-                            dst, mask, N, interpret=True)
-        got = step_mirror(th, m_table, {k: _t(v) for k, v in gru.items()}, bond, src,
-                          dst, mask > 0, N)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    np.testing.assert_allclose(_mirror(kernel, case, "blocks").numpy(), _pallas(kernel, case),
+                               **F32)
+
+
+@pytest.mark.parametrize("kernel", ["fused_message_aggregate", "fused_mp_step"])
+@pytest.mark.parametrize("case", [c for c in CASES if _case_dim(c) != 32])
+def test_team_mirror_matches_pallas_kernel(kernel, case):
+    """The general kernel's other design, the warp teams (the library takes
+    it for a small graph and D < 64), at every general width case."""
+    np.testing.assert_allclose(_mirror(kernel, case, "teams").numpy(), _pallas(kernel, case),
+                               **F32)
 
 
 def test_general_blocks_take_the_slots_their_budget_allows_and_flush_past_them():
@@ -381,3 +426,31 @@ def test_rounding_helpers():
     parts = bf16_parts(y)
     total = sum(p.double() for p in parts)
     assert torch.equal(total, y.double())
+
+
+@pytest.mark.parametrize("D", [8, 64, 128])
+def test_prologue_split_is_exact(D):
+    """The plain version of the 64-row blocks' prologue (``fused_split`` on a
+    CPU table): the three bf16 parts of each table entry sum back to it
+    exactly, as ``split_bf16x3`` splits it, and each W entry's TF32 pair
+    (hi = rna(w), lo = rna(w - hi)) leaves at most 2^-21 of |w|; the
+    planes it writes take the layout's byte count."""
+    from ionic_mpnn_torch.ops.cuda import fused_message
+
+    rng = np.random.default_rng(D)
+    V = 5
+    K = torch.from_numpy(rng.normal(size=(D, V * D)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(2 * D, 3 * D)).astype(np.float32))
+    parts, pairs = fused_message.fused_split(K, w)
+    x = K.view(D, V, D).permute(1, 2, 0).double()
+    assert parts.shape == (V, 3, D, D)
+    assert torch.equal(parts[:, 0].double() + parts[:, 1].double() + parts[:, 2].double(), x)
+    for p in parts.unbind(1):
+        assert torch.equal(p, p.to(torch.bfloat16).float())
+    assert torch.equal(pairs[0], tf32(w)) and torch.equal(pairs[1], tf32(w - pairs[0]))
+    err = (pairs[0].double() + pairs[1].double() - w.double()).abs()
+    assert (err <= 2.0 ** -21 * w.double().abs()).all()
+    nks = -(-D // 32)
+    k_bytes = V * nks * 3 * D * 40 * 2
+    assert fused_message.fused_split_bytes(K) == k_bytes
+    assert fused_message.fused_split_bytes(K, w) > -(-k_bytes // 128) * 128

@@ -1,22 +1,35 @@
-"""Two probes of the fused kernels' widths on one CUDA card, run from the
+"""Three probes of the fused kernels' widths on one CUDA card, run from the
 repository root with the tree to measure first on ``PYTHONPATH``:
 
-    PYTHONPATH=. python tools/width_probe.py times [--general] [--dim {32,64,128}]
+    PYTHONPATH=. python tools/width_probe.py times [--general] [--dim {32,64,128},...]
+        [--shape {cation,anion},...] [--design {teams,blocks}]
+    PYTHONPATH=. python tools/width_probe.py designs
     PYTHONPATH=. python tools/width_probe.py grads
 
 ``times``: the device time (torch.profiler, mean of 60 launches) of the
 fused message kernel, its backward ``dh`` launch and the step kernel at
-the bench batch's cation shape (batch 2048, N = 59,040, V = 7), at width
-``--dim`` (32 by default), h f32, as ``chip_smoke.py`` ``[times]`` reads
-them, per CUDA kernel the call launches (the general kernel's prologue
-``fused_message_split_kernel`` beside it) and the time the card spends in
-any of them (``total``); one JSON line.
-With ``--general`` the library is built with
-``IONIC_NO_D32_SPECIALISATION``, so D = 32 runs the general kernel
-(``fused_message_gen_kernel``). To hold two trees against each other,
-unpack the other one (``git archive``) into a git-ignored directory and run
-both in one call, in turns: ``PYTHONPATH=<dir> python tools/width_probe.py
-times --dim 64`` and the same with ``.``.
+one of the bench batch's shapes (batch 2048, V = 7; ``--shape cation``, the
+default, N = 59,040; ``anion`` N = 10,152), at width ``--dim`` (32 by
+default; a comma-separated list of either runs each pair in turn), h f32, as ``chip_smoke.py`` ``[times]`` reads them, per CUDA
+kernel the call launches (the blocks' prologue ``fused_message_split_kernel``
+beside the block kernel) and the time the card spends in any of them
+(``total``); a JSON line each. ``--design`` forces the general kernel's design
+(the library otherwise chooses by width and size; a tree without the choice
+refuses it). With ``--general`` the library is built with
+``IONIC_NO_D32_SPECIALISATION``, so D = 32 runs the general kernel. To hold
+two trees against each other, unpack the other one (``git archive``) into a
+git-ignored directory and run both in one call, in turns:
+``PYTHONPATH=<dir> python tools/width_probe.py times --dim 64`` and the
+same with ``.``.
+
+``designs``: both general designs, the warp teams and the 64-row blocks,
+forced in turn at D = 8, 16, 48, 64 and 128 on the cation and anion graphs
+of the bench data packed at batch 256 to 2048 (``BATCHES``), h f32: each
+kernel's result against its plain version (max |err|), its time per call
+(a CUDA graph of 20 calls timed with events, the median of 5 replays, as
+``chip_smoke.py`` ``[widths]`` reads it), and the design the library
+chooses; one JSON line a shape and width, then a summary line of the
+shapes where the choice took the slower design.
 
 ``grads``: ``FusedMPStep``'s gradients (the kernels) and plain autograd of
 the plain forward, both in f32, each held against the same gradient in
@@ -26,6 +39,7 @@ max(|err| / (1e-4 + 1e-4 |want|)): below 1 is within ``chip_smoke.py``'s
 ``GRAD_TOL``.
 """
 
+import functools
 import json
 import math
 import sys
@@ -33,13 +47,70 @@ import sys
 import torch
 
 
-def cation_batch(dev):
+BATCHES = (256, 512, 768, 1024, 1536, 2048)
+DESIGN_DIMS = (8, 16, 48, 64, 128)
+DESIGNS = {"teams": 1, "blocks": 2}
+
+
+@functools.lru_cache(maxsize=1)
+def bench_data():
     from ionic_mpnn_torch.benchmarks import make_bench_dataset
+
+    return make_bench_dataset(3 * 2048, seed=0)
+
+
+def bench_batch(dev, batch=2048):
+    """The first batch of the bench data packed as ``chip_smoke.py`` packs
+    it (headroom 2), and the bond-type count."""
     from ionic_mpnn_torch.data import iter_batches, plan_capacities
 
-    records, vocab = make_bench_dataset(3 * 2048, seed=0)
-    plan = plan_capacities(records, 2048, headroom=2.0)
-    return next(iter_batches(records, plan)).to(dev).cation, vocab.bond_vocab_size + 1
+    records, vocab = bench_data()
+    plan = plan_capacities(records[:3 * batch], batch, headroom=2.0)
+    return next(iter_batches(records[:3 * batch], plan)).to(dev), vocab.bond_vocab_size + 1
+
+
+def cation_batch(dev):
+    b, V = bench_batch(dev)
+    return b.cation, V
+
+
+def force_design(name):
+    """Force the general kernel's design (None: let the library choose)."""
+    from ionic_mpnn_torch.ops.cuda import _lib
+
+    lib = _lib.library()
+    if not hasattr(lib, "ionic_fused_force_design"):
+        sys.exit("this tree's library has one general design: --design does not apply")
+    lib.ionic_fused_force_design(DESIGNS[name] if name else 0)
+
+
+def graph_ms(fn, n=20, replays=5):
+    """Device time of one call of ``fn``: ``n`` calls captured in one CUDA
+    graph, each replay timed with CUDA events, the median over ``replays``
+    divided by ``n``."""
+    import statistics
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
 
 
 def device_ms(fn, n=60):
@@ -70,16 +141,26 @@ def device_ms(fn, n=60):
     return out
 
 
-def times(general, D):
-    from ionic_mpnn_torch.ops.cuda import _lib, fused_message, fused_step
-    from ionic_mpnn_torch.ops.cuda.segment_sum import csr_rowptr
-    from ionic_mpnn_torch.ops.gru import GATED_UPDATE_PARAM_SHAPES
+def times(general, D, shape, design=None):
+    from ionic_mpnn_torch.ops.cuda import _lib
 
     if general:
         _lib.NVCC_FLAGS = [*_lib.NVCC_FLAGS, "-DIONIC_NO_D32_SPECIALISATION"]
     _lib.library()
+    if design:
+        force_design(design)
     dev = torch.device("cuda", 0)
-    g, V = cation_batch(dev)
+    b, V = bench_batch(dev)
+    for D_ in D:
+        for shape_ in shape:
+            times_one(general, D_, getattr(b, shape_), shape_, V, design, dev)
+
+
+def times_one(general, D, g, shape, V, design, dev):
+    from ionic_mpnn_torch.ops.cuda import fused_message, fused_step
+    from ionic_mpnn_torch.ops.cuda.segment_sum import csr_rowptr
+    from ionic_mpnn_torch.ops.gru import GATED_UPDATE_PARAM_SHAPES
+
     N = g.node_capacity
     gen = torch.Generator().manual_seed(3)
     h = torch.randn(N, D, generator=gen).to(dev)
@@ -102,7 +183,70 @@ def times(general, D):
     import ionic_mpnn_torch
 
     print(json.dumps({"tree": ionic_mpnn_torch.__file__, "general": general, "D": D,
+                      "shape": shape, "N": N, "design": design or "chosen",
                       "card": torch.cuda.get_device_name(0), "ms": out}), flush=True)
+
+
+def designs():
+    from ionic_mpnn_torch.ops.cuda import _lib, fused_message, fused_step
+    from ionic_mpnn_torch.ops.cuda.segment_sum import csr_rowptr
+    from ionic_mpnn_torch.ops.gru import GATED_UPDATE_PARAM_SHAPES
+
+    lib = _lib.library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = torch.cuda.get_device_name(0)
+    wrong = []
+    for batch in BATCHES:
+        b, V = bench_batch(dev, batch)
+        for shape in ("cation", "anion"):
+            g = getattr(b, shape)
+            N = g.node_capacity
+            rowptr = csr_rowptr(g.dst, N)
+            args = (g.bond_ids, g.src, g.dst, g.edge_mask, N)
+            for D in DESIGN_DIMS:
+                gen = torch.Generator().manual_seed(3)
+                h = torch.randn(N, D, generator=gen).to(dev)
+                m = (torch.randn(V, D, D, generator=gen) * math.sqrt(1 / D)).to(dev)
+                gru = {k: (torch.randn(s, generator=gen) * math.sqrt(1 / D)).to(dev)
+                       for k, s in GATED_UPDATE_PARAM_SHAPES(D).items()}
+                K = fused_message.message_table_to_lanes(m)
+                Kt = fused_message.transpose_lane_table(K)
+                cot = torch.randn(N, D, generator=gen).to(dev)
+                calls = {
+                    "fused_message_aggregate": (
+                        lambda: fused_message.fused_message_aggregate(h, K, *args, rowptr=rowptr),
+                        lambda: fused_message.fused_message_aggregate_plain(h, K, *args)),
+                    "fused_message_aggregate_dh": (
+                        lambda: fused_message.message_backward(cot, h, K, *args, rowptr,
+                                                               need_dK=False)[0],
+                        lambda: fused_message.fused_message_aggregate_plain(cot, Kt, *args)),
+                    "fused_mp_step": (
+                        lambda: fused_step.fused_mp_step(h, m, gru, *args, rowptr=rowptr),
+                        lambda: fused_step.fused_mp_step_plain(h, m, gru, *args)),
+                }
+                row = {"batch": batch, "shape": shape, "N": N, "E": g.src.shape[0], "D": D,
+                       "blocks_64": -(-N // 64), "chosen": {}, "ms": {}, "err": {}}
+                with torch.inference_mode():
+                    for name, (kernel, plain) in calls.items():
+                        gru = int(name == "fused_mp_step")
+                        chosen = ("blocks" if lib.ionic_fused_scratch_bytes(D, V, gru, N) > 0
+                                  else "teams")
+                        row["chosen"][name] = chosen
+                        want = plain()
+                        for design in DESIGNS:
+                            force_design(design)
+                            got = kernel()
+                            row["err"][f"{name} {design}"] = (got - want).abs().max().item()
+                            row["ms"][f"{name} {design}"] = graph_ms(kernel)
+                        force_design(None)
+                        faster = min(DESIGNS, key=lambda d: row["ms"][f"{name} {d}"])
+                        if faster != chosen:
+                            wrong.append(f"{shape} batch {batch} N={N} D={D} {name}: chose "
+                                         f"{chosen} {row['ms'][f'{name} {chosen}']:.5f} ms, "
+                                         f"{faster} {row['ms'][f'{name} {faster}']:.5f} ms")
+                print(json.dumps(row), flush=True)
+    print(json.dumps({"card": card, "slower_choices": wrong}), flush=True)
 
 
 def grads():
@@ -158,10 +302,16 @@ if __name__ == "__main__":
     mode = sys.argv[1] if len(sys.argv) > 1 else ""
     if mode == "times":
         rest = sys.argv[2:]
-        dim = int(rest[rest.index("--dim") + 1]) if "--dim" in rest else 32
-        if dim not in (32, 64, 128):
-            sys.exit(f"--dim {dim}: one of 32, 64, 128")
-        times("--general" in rest, dim)
+        opt = lambda name, default: rest[rest.index(name) + 1] if name in rest else default
+        dims = [int(x) for x in opt("--dim", "32").split(",")]
+        shapes, design = opt("--shape", "cation").split(","), opt("--design", None)
+        if not set(dims) <= {32, 64, 128}:
+            sys.exit(f"--dim {dims}: of 32, 64, 128")
+        if not set(shapes) <= {"cation", "anion"} or design not in (None, *DESIGNS):
+            sys.exit(__doc__)
+        times("--general" in rest, dims, shapes, design)
+    elif mode == "designs":
+        designs()
     elif mode == "grads":
         grads()
     else:
