@@ -199,14 +199,16 @@ Phases, in order (any failure raises and the script exits non-zero):
 12. Chain: the reproduction path as users run it, each CLI a process of
    its own (``python -m ionic_mpnn_torch.cli.*``, no JAX) in a temporary
    directory: ``prepare_data --synthetic`` at the reference scale (7,666
-   viscosity rows, 400 melting-point draws), ``train_viscosity``,
-   ``train_melting_point`` and ``train_transfer`` (on train_viscosity's
-   checkpoint) for 2 epochs each, then ``evaluate``, then ``screen`` on
-   train_viscosity's checkpoint in candidate mode and with
-   ``--grid-cations`` (the brute-force device sweep). Each exits 0, writes
+   viscosity rows, 400 melting-point draws); ``train_viscosity`` beside
+   ``train_melting_point``, 2 epochs each; ``train_transfer`` (on
+   train_viscosity's checkpoint, 2 epochs) beside ``screen`` on that
+   checkpoint in candidate mode and with ``--grid-cations`` (the
+   brute-force device sweep); then ``evaluate``. The CLIs of a wave run side
+   by side, as a user with one card may run them. Each exits 0, writes
    its files and reports CUDA kernel launches; ``evaluate`` repeats each
-   training CLI's R² and MAE. Per CLI its seconds and R² lines, and per
-   transfer stage its epoch seconds and train steps/s.
+   training CLI's R² and MAE. Per CLI its seconds (beside the others of its
+   wave) and R² lines, and per transfer stage its epoch seconds and train
+   steps/s.
    [screen]: screening (``ionic_mpnn_torch/inference.py``) at the
    viscosity model's published width with seeded random weights, batch
    2048, ``pallas_step`` in the card's default compute dtype, on the
@@ -241,13 +243,13 @@ Phases, in order (any failure raises and the script exits non-zero):
    single-device step's wall, host and busy ms, idle share,
    message-edges/s and the all-reduce's device time per step (profiler),
    and the all-reduce of the step's buffer alone; ``fit(mesh=)`` at
-   [fit]'s recipe (3 epochs) in ``pallas_step`` bf16 on the native loader
+   [fit]'s recipe (2 epochs) in ``pallas_step`` bf16 on the native loader
    and onehot bf16 (window 64) on paired device epochs: resumed at epoch
-   2 it equals the uninterrupted run and, at one rank, ``fit()`` without a
+   1 it equals the uninterrupted run and, at one rank, ``fit()`` without a
    mesh, bit for bit; steady epoch seconds with and without the mesh;
    ``ScreeningEngine(mesh=)``'s ``predict_batch`` against the single
    engine (1e-5). Then 2 gloo ranks on card 0 (eager by design: gloo
-   cannot be captured), f32, ``pallas_step`` and ``gather`` with the
+   cannot be captured), side by side with [ep]'s gloo ranks, f32, ``pallas_step`` and ``gather`` with the
    pallas scatter: 2 steps each, the parameters within 1e-5 of each
    tensor's max of the accumulated single-process reference, the ranks
    bit-equal, launches exact, the steady step's wall ms (a record); a
@@ -263,8 +265,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    calls) equals the eager EP step and, at one rank, the single-device
    step, bit for bit over 8 steps (on several cards, within the bound
    below), launches exact; the EP step's wall, host and busy ms, idle
-   share, message-edges/s and its all-reduces' device time per step. Then
-   2 gloo ranks on card 0 (eager): EP v1 in both kernel configurations
+   share, message-edges/s and its all-reduces' device time per step. Its
+   gloo ranks ran earlier, beside [dp]'s (nothing there is timed for a
+   comparison): 2 gloo ranks on card 0 (eager): EP v1 in both kernel configurations
    (f32), halo exchange (gather f32), aligned EP (onehot bf16, window 64)
    and tensor parallelism (``model_parallel=2``, ``pallas_fused`` f32); and
    4 gloo ranks: DP×EP (2 × 2, aligned onehot bf16). Each gloo arm takes 2
@@ -274,7 +277,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    (one step over the same batch, or over the DP groups' batches
    accumulated), the ranks bit-equal, the launches per rank exact. Last,
    ``benchmarks/scaling.py`` in its three modes over the cards the machine
-   has. A failed rank stops the others and raises.
+   has (on one card one step, beside [dp]'s gloo ranks). A failed rank
+   stops the others and raises.
    [phases]: the phase-cut forward (``benchmarks/phases.py``) of the
    onehot model on the bench batch of 2048 (window_aligned, window 64),
    in bf16 and f32: every phase finite, ``fwd`` equal to the model's loss
@@ -331,8 +335,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    at its defaults (100,000 records, batch 2048, K = 8, onehot's aligned
    layout): the seconds of each host stage of a ``fit()`` epoch, the
    copies going to the card.
-   [bisect]: ``cli/quality_bisect.py`` at its defaults (1,500 records, 60
-   epochs, the five arms): each arm's line; no kernel launched.
+   [bisect]: ``cli/quality_bisect.py`` at its default size (1,500 records,
+   the five arms), its depth cut from 60 epochs to ``BISECT_EPOCHS``: each
+   arm's line; no kernel launched.
 13. Times. Wall times first (CUDA events, before torch.profiler attaches):
    each wrapper call at the cation shape (median of 60), each forward per
    batch (median of 50), the host time each kernel's autograd Function would
@@ -399,6 +404,34 @@ TRAIN_STEPS = 3
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def mark(phase: str) -> None:
+    """One line on standard error as each phase ends, with the seconds
+    since the start: where a run that was stopped got to."""
+    print(f"[progress] {phase} ended at {time.perf_counter() - T_START:.1f} s",
+          file=sys.stderr, flush=True)
+
+
+def run_together(calls):
+    """Run each of ``calls`` (name -> function of no arguments) in a thread
+    of its own and return ``{name: (value, seconds)}`` once all have
+    ended; the first error raises then. For work that waits on processes
+    of its own (``run_local`` ranks, CLI processes) and times nothing
+    that the others would disturb."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        value = fn()
+        return value, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(calls)) as pool:
+        futures = {name: pool.submit(timed, fn) for name, fn in calls.items()}
+    return {name: f.result() for name, f in futures.items()}
 
 
 def close(name, got, want, rtol, atol):
@@ -3205,12 +3238,12 @@ def phase_chain():
     """The reproduction chain as users run it, each CLI a process of its own
     (``python -m ionic_mpnn_torch.cli.*``, with every import of JAX made to
     fail, whether or not the machine has it): prepare_data
-    --synthetic at the reference scale, train_viscosity, train_melting_point,
-    train_transfer on train_viscosity's checkpoint, evaluate, then screen on
-    train_viscosity's checkpoint in candidate mode and with --grid-cations
-    (the brute-force device sweep). Each must exit 0, write its files, report
-    launches of the CUDA kernels, and evaluate's metrics must repeat each
-    training CLI's."""
+    --synthetic at the reference scale; train_viscosity beside
+    train_melting_point; train_transfer on train_viscosity's checkpoint
+    beside screen on that checkpoint in candidate mode and with
+    --grid-cations (the brute-force device sweep); then evaluate. Each must
+    exit 0, write its files, report launches of the CUDA kernels, and
+    evaluate's metrics must repeat each training CLI's."""
     import importlib.util
     import tempfile
 
@@ -3243,8 +3276,6 @@ def phase_chain():
                                 "--out-dir", str(res / "transfer"), *epochs],
              [res / "transfer" / f for f in ("history_transfer.pkl", "checkpoints",
                                              "scaler.json")]),
-            ("evaluate", ["--data-dir", str(data), "--results-dir", str(res),
-                          "--out-dir", str(res / "eval")], [res / "eval" / "metrics.json"]),
             # screening on train_viscosity's checkpoint: the template pairs, then
             # the enumerated cations x the screening anions through the device sweep
             ("screen", [*screen, "--out", str(res / "screen" / "candidates.csv")],
@@ -3253,67 +3284,81 @@ def phase_chain():
                                        "--temperatures", "298.15,323.15", "--brute-force",
                                        "--out", str(res / "screen" / "grid.csv")],
              [res / "screen" / "grid.csv"]),
+            ("evaluate", ["--data-dir", str(data), "--results-dir", str(res),
+                          "--out-dir", str(res / "eval")], [res / "eval" / "metrics.json"]),
         ]
-        for name, args, files in steps:
-            # python -m, with JAX and the JAX package unimportable
+        # waves of CLIs that need only what earlier waves wrote, the CLIs of
+        # a wave side by side: the data; the two trainings from scratch; the
+        # transfer and the screens on train_viscosity's checkpoint; evaluate
+        waves = [["prepare_data"], ["train_viscosity", "train_melting_point"],
+                 ["train_transfer", "screen", "screen --grid-cations"], ["evaluate"]]
+        by_name = {name: (args, files) for name, args, files in steps}
+        if sorted(by_name) != sorted(n for wave in waves for n in wave):
+            raise AssertionError(f"chain: the waves {waves} do not hold {sorted(by_name)}")
+
+        def cli(name):  # python -m, with JAX and the JAX package unimportable
             module = f"ionic_mpnn_torch.cli.{name.split()[0]}"
-            cmd = [sys.executable, "-c", CHAIN_NO_JAX, module, *args]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+            cmd = [sys.executable, "-c", CHAIN_NO_JAX, module, *by_name[name][0]]
+            return subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
                                   timeout=CHAIN_TIMEOUT)
-            seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise AssertionError(f"chain: {name} exited {proc.returncode}:\n"
-                                     f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-            missing = [str(f) for f in files if not f.exists()]
-            if missing:
-                raise AssertionError(f"chain: {name} did not write {missing}")
-            step = {"seconds": seconds}
-            m = re.search(r"^kernel launches (\{.*\})$", proc.stdout, re.M)
-            if name != "prepare_data":
-                if m is None:
-                    raise AssertionError(f"chain: {name} printed no launch counts")
-                step["launches"] = json.loads(m.group(1))
-                if not step["launches"]["fused_mp_step"] > 0:
-                    raise AssertionError(f"chain: {name} ran no CUDA kernel: "
-                                         f"{step['launches']}")
-                for k, v in step["launches"].items():
-                    launches[k] = launches.get(k, 0) + v
-            if name.startswith("train_"):
-                step["metrics"] = chain_metrics(proc.stdout)
-                if set(step["metrics"]) != {"Train", "Dev", "Test"} or not all(
-                        np.isfinite(v).all() for v in step["metrics"].values()):
-                    raise AssertionError(f"chain: {name} printed {step['metrics']}")
-            if name == "train_transfer":
-                step["stages"] = [line for line in proc.stdout.splitlines()
-                                  if re.match(r"stage \d: ", line)]
-                if len(step["stages"]) != 2:
-                    raise AssertionError(f"chain: train_transfer stages {step['stages']}")
-                if not step["launches"]["fused_message_aggregate_dh"] > 0:
-                    raise AssertionError("chain: stage 2 ran no dh launch")
-            if name == "evaluate":
-                got = json.loads((res / "eval" / "metrics.json").read_text())
-                for task, cli in (("viscosity", "train_viscosity"),
-                                  ("melting_point", "train_melting_point"),
-                                  ("transfer", "train_transfer")):
-                    for split, (r2, mae_) in out["steps"][cli]["metrics"].items():
-                        g = got[task][split]
-                        # the CLIs print 4 (R2) and 2 or 4 (MAE) decimals; the
-                        # readout's atomics may move the last one
-                        if (abs(g["r2"] - r2) > 1e-3 * (1 + abs(r2))
-                                or abs(g["mae"] - mae_) > 1e-2 + 1e-3 * abs(mae_)):
-                            raise AssertionError(f"chain: evaluate {task} {split} {g} vs "
-                                                 f"{cli}'s R2={r2} MAE={mae_}")
-                step["metrics"] = got
-            out["steps"][name] = step
-            lines = [line.strip() for line in proc.stdout.splitlines()
-                     if "R2=" in line or line.startswith(("stage ", "parsed ", "==", "split",
-                                                          "Epoch ", "===", "grid sweep",
-                                                          "screened in", "T grid"))]
-            log(f"[chain] {name}: exit 0 in {seconds:.2f} s; launches "
-                f"{step.get('launches')}")
-            for line in lines:
-                log(f"[chain]   {line}")
+
+        for wave in waves:
+            ran = run_together({name: (lambda n=name: cli(n)) for name in wave})
+            for name in wave:
+                files = by_name[name][1]
+                proc, seconds = ran[name]
+                if proc.returncode != 0:
+                    raise AssertionError(f"chain: {name} exited {proc.returncode}:\n"
+                                         f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+                missing = [str(f) for f in files if not f.exists()]
+                if missing:
+                    raise AssertionError(f"chain: {name} did not write {missing}")
+                step = {"seconds": seconds}
+                m = re.search(r"^kernel launches (\{.*\})$", proc.stdout, re.M)
+                if name != "prepare_data":
+                    if m is None:
+                        raise AssertionError(f"chain: {name} printed no launch counts")
+                    step["launches"] = json.loads(m.group(1))
+                    if not step["launches"]["fused_mp_step"] > 0:
+                        raise AssertionError(f"chain: {name} ran no CUDA kernel: "
+                                             f"{step['launches']}")
+                    for k, v in step["launches"].items():
+                        launches[k] = launches.get(k, 0) + v
+                if name.startswith("train_"):
+                    step["metrics"] = chain_metrics(proc.stdout)
+                    if set(step["metrics"]) != {"Train", "Dev", "Test"} or not all(
+                            np.isfinite(v).all() for v in step["metrics"].values()):
+                        raise AssertionError(f"chain: {name} printed {step['metrics']}")
+                if name == "train_transfer":
+                    step["stages"] = [line for line in proc.stdout.splitlines()
+                                      if re.match(r"stage \d: ", line)]
+                    if len(step["stages"]) != 2:
+                        raise AssertionError(f"chain: train_transfer stages {step['stages']}")
+                    if not step["launches"]["fused_message_aggregate_dh"] > 0:
+                        raise AssertionError("chain: stage 2 ran no dh launch")
+                if name == "evaluate":
+                    got = json.loads((res / "eval" / "metrics.json").read_text())
+                    for task, trainer in (("viscosity", "train_viscosity"),
+                                          ("melting_point", "train_melting_point"),
+                                          ("transfer", "train_transfer")):
+                        for split, (r2, mae_) in out["steps"][trainer]["metrics"].items():
+                            g = got[task][split]
+                            # the CLIs print 4 (R2) and 2 or 4 (MAE) decimals; the
+                            # readout's atomics may move the last one
+                            if (abs(g["r2"] - r2) > 1e-3 * (1 + abs(r2))
+                                    or abs(g["mae"] - mae_) > 1e-2 + 1e-3 * abs(mae_)):
+                                raise AssertionError(f"chain: evaluate {task} {split} {g} vs "
+                                                     f"{trainer}'s R2={r2} MAE={mae_}")
+                    step["metrics"] = got
+                out["steps"][name] = step
+                lines = [line.strip() for line in proc.stdout.splitlines()
+                         if "R2=" in line or line.startswith(("stage ", "parsed ", "==", "split",
+                                                              "Epoch ", "===", "grid sweep",
+                                                              "screened in", "T grid"))]
+                log(f"[chain] {name}: exit 0 in {seconds:.2f} s; launches "
+                    f"{step.get('launches')}")
+                for line in lines:
+                    log(f"[chain]   {line}")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[chain] phase {out['seconds']:.1f} s")
     return out, launches
@@ -3690,7 +3735,7 @@ DP_TIMED_ITERS = 10
 DP_GLOO_STEPS = 2  # steps of each 2-rank gloo arm
 DP_GLOO_RANKS = 2
 DP_GLOO_FIT_RECORDS = (512, 64)  # train, dev records of the 2-rank gloo fit
-DP_FIT_EPOCHS = 3
+DP_FIT_EPOCHS = 2  # resumed after the first
 DP_SCREEN_CATIONS = 128  # x 24 anions: the fan-out's candidates
 DP_TIMEOUT_S = 900
 
@@ -4030,11 +4075,13 @@ def dp_gloo_rank(rank, world, dev, base_dict, hb, fit_args):
     return out
 
 
-def phase_dp(records, plan, vocab, fit_data):
+def phase_dp(records, plan, vocab, fit_data, beside):
     """[dp]: the data-parallel tier (``ionic_mpnn_torch/parallel``) on the
     card, in ranks that ``run_local`` spawns: NCCL over every card, then 2
-    gloo ranks on card 0. Returns its record and the kernel launches its
-    ranks made (summed over ranks)."""
+    gloo ranks on card 0, beside the functions in ``beside`` (name ->
+    function of no arguments; nothing that times a comparison). Returns its
+    record, the kernel launches its ranks made (summed over ranks) and
+    ``{name: (value, seconds)}`` of ``beside``."""
     import tempfile
 
     from ionic_mpnn_torch.config import model_config_to_dict, viscosity_config
@@ -4059,10 +4106,10 @@ def phase_dp(records, plan, vocab, fit_data):
         nccl = run_local(dp_nccl_rank, world, "nccl", "cuda", base, hb[:world * DP_K],
                          fit_args, ckpt, timeout_s=DP_TIMEOUT_S)
         nccl_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    gloo = run_local(dp_gloo_rank, DP_GLOO_RANKS, "gloo", "cuda", base, hb, fit_args,
-                     timeout_s=DP_TIMEOUT_S)
-    gloo_s = time.perf_counter() - t0
+    side = run_together({"dp gloo": lambda: run_local(
+        dp_gloo_rank, DP_GLOO_RANKS, "gloo", "cuda", base, hb, fit_args,
+        timeout_s=DP_TIMEOUT_S), **beside})
+    gloo, gloo_s = side.pop("dp gloo")
 
     first = nccl[0]
     for r in nccl[1:]:
@@ -4117,12 +4164,13 @@ def phase_dp(records, plan, vocab, fit_data):
             f"candidates, max |err| {s['max_abs_err']:.3e} against the single engine "
             f"(rtol/atol 1e-5)")
     log(f"[dp] launches, summed over ranks: {launches}; nccl ranks {nccl_s:.1f} s, gloo ranks "
-        f"{gloo_s:.1f} s, phase {time.perf_counter() - t_phase:.1f} s")
+        f"{gloo_s:.1f} s (beside {sorted(side)}), phase {time.perf_counter() - t_phase:.1f} s")
     for r in gloo:
         for a in r["arms"].values():
             a.pop("params")
         r["fit"].pop("params")
-    return {"nccl": nccl, "gloo": gloo, "seconds": {"nccl": nccl_s, "gloo": gloo_s}}, launches
+    return ({"nccl": nccl, "gloo": gloo, "seconds": {"nccl": nccl_s, "gloo": gloo_s}},
+            launches, side)
 
 
 # ---------------------------------------------------------------- [ep]
@@ -4455,18 +4503,16 @@ def ep_gloo_rank(rank, world, dev, base_dict, hb, ab, arms):
     return out
 
 
-def phase_ep(records, plan, vocab):
-    """[ep]: the model-parallel tier (EP v1, halo, aligned, DP x EP, TP) on
-    the card, in ranks that ``run_local`` spawns: NCCL over every card,
-    then 2 and 4 gloo ranks on card 0; then the scaling harness. Returns
-    its record and the kernel launches of its ranks (summed)."""
-    from ionic_mpnn_torch.benchmarks.scaling import MODES, run_scaling_benchmark
+def ep_side_calls(records, plan, vocab):
+    """[ep]'s gloo ranks (2 and 4 on card 0) and, on one card, its one-step
+    run of the scaling harness, as functions of no arguments that
+    ``phase_dp`` runs beside its own gloo ranks: none of them is timed for
+    a comparison. Returns them and the inputs ``phase_ep`` shares."""
+    from ionic_mpnn_torch.benchmarks.scaling import run_scaling_benchmark
     from ionic_mpnn_torch.config import model_config_to_dict, viscosity_config
     from ionic_mpnn_torch.data import iter_batches, plan_capacities
     from ionic_mpnn_torch.parallel import run_local
 
-    t_phase = time.perf_counter()
-    world = torch.cuda.device_count()
     # [graphs]' packings of the bench batch; the aligned ones fold into EP_SHARDS
     hb = [next(iter_batches(records[:BATCH], plan, shuffle=True, seed=s))
           for s in range(max(EP_K, EP_GLOO_STEPS))]
@@ -4475,17 +4521,35 @@ def phase_ep(records, plan, vocab):
     ab = [next(iter_batches(records[:BATCH], aplan, shuffle=True, seed=s))
           for s in range(2 * EP_GLOO_STEPS)]
     base = model_config_to_dict(viscosity_config(vocab.atom_vocab_size, vocab.bond_vocab_size))
+    calls = {f"ep gloo {n}": (lambda n=n, arms=arms: run_local(
+        ep_gloo_rank, n, "gloo", "cuda", base, hb, ab, arms, timeout_s=EP_TIMEOUT_S))
+        for n, arms in EP_GLOO_ARMS.items()}
+    if torch.cuda.device_count() == 1:  # one mode, one timed step, to show it runs
+        calls["ep scaling"] = lambda: {"dp": run_scaling_benchmark(mode="dp", iters=1,
+                                                                   warmup=1)}
+    return calls, (hb, base)
+
+
+def phase_ep(inputs, side):
+    """[ep]: the model-parallel tier (EP v1, halo, aligned, DP x EP, TP) on
+    the card, in ranks that ``run_local`` spawns: NCCL over every card;
+    the 2 and 4 gloo ranks on card 0 ran beside [dp]'s (``side``: the
+    values and seconds of ``ep_side_calls``); then the scaling harness.
+    Returns its record and the kernel launches of its ranks (summed)."""
+    from ionic_mpnn_torch.benchmarks.scaling import MODES, run_scaling_benchmark
+    from ionic_mpnn_torch.parallel import run_local
+
+    t_phase = time.perf_counter()
+    world = torch.cuda.device_count()
+    hb, base = inputs
     seconds = {}
     t0 = time.perf_counter()
     nccl = run_local(ep_nccl_rank, world, "nccl", "cuda", base, hb[:EP_K],
                      timeout_s=EP_TIMEOUT_S)
     seconds["nccl"] = time.perf_counter() - t0
     gloo = {}
-    for n, arms in EP_GLOO_ARMS.items():
-        t0 = time.perf_counter()
-        gloo[n] = run_local(ep_gloo_rank, n, "gloo", "cuda", base, hb, ab, arms,
-                            timeout_s=EP_TIMEOUT_S)
-        seconds[f"gloo {n}"] = time.perf_counter() - t0
+    for n in EP_GLOO_ARMS:
+        gloo[n], seconds[f"gloo {n} (beside [dp]'s gloo ranks)"] = side[f"ep gloo {n}"]
 
     for r in nccl[1:]:
         for tag, a in r["arms"].items():
@@ -4507,11 +4571,11 @@ def phase_ep(records, plan, vocab):
     if world > 1:  # the sweep over the counts this machine has, at the bench batch
         scaling = {mode: run_scaling_benchmark(per_device_batch=BATCH, mode=mode)
                    for mode in MODES}
+        seconds["scaling"] = time.perf_counter() - t0
     else:  # one rank scales by definition: one mode, one timed step, to show it runs
-        scaling = {"dp": run_scaling_benchmark(mode="dp", iters=1, warmup=1)}
+        scaling, seconds["scaling (beside [dp]'s gloo ranks)"] = side["ep scaling"]
         log("[ep] scaling: one card, so the harness runs once (dp, one step); the sweep "
             "needs several cards")
-    seconds["scaling"] = time.perf_counter() - t0
 
     first = nccl[0]
     log(f"[ep] NCCL over {world} rank(s), batch {BATCH}, EP_K = {EP_K}, "
@@ -5077,17 +5141,21 @@ def phase_host_pipeline():
 
 # ---------------------------------------------------------------- [bisect]
 
+BISECT_EPOCHS = 12  # of the CLI's 60: depth cut to keep the run inside its limit
+
 def phase_bisect():
     """[bisect]: the quality bisect (``cli/quality_bisect.py``) at its
-    defaults (1,500 records, 60 epochs, the five arms) on the card: each
-    arm's line, and no kernel launched (f32 ``gather`` and ``onehot``)."""
+    default size (1,500 records, the five arms) and ``BISECT_EPOCHS``
+    epochs on the card: each arm's line, and no kernel launched (f32
+    ``gather`` and ``onehot``)."""
     from ionic_mpnn_torch.cli.quality_bisect import bisect
     from ionic_mpnn_torch.ops import cuda as kernels
 
     t_phase = time.perf_counter()
     kernels.reset_launch_counts()
     lines, t0 = [], t_phase
-    for line in bisect(device="cuda"):  # the first arm's seconds include the dataset
+    # the first arm's seconds include the dataset
+    for line in bisect(epochs=BISECT_EPOCHS, device="cuda"):
         line["seconds"], t0 = time.perf_counter() - t0, time.perf_counter()
         lines.append(line)
         log("[bisect] " + json.dumps(line))
@@ -5276,10 +5344,12 @@ def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
 
 def main() -> int:
     smi = phase_device()
+    mark("[device]")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions are the reference
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     phase_build()
+    mark("[build]")
 
     from ionic_mpnn_torch.benchmarks import make_bench_dataset
     from ionic_mpnn_torch.data import iter_batches, plan_capacities
@@ -5294,30 +5364,54 @@ def main() -> int:
         f"E={batch0.anion.edge_capacity}, V={V}")
 
     errs = phase_kernels(batch0, V, dev)
+    mark("[kernels]")
     errs["fused_message_aggregate_dh"] = phase_backward(batch0, V, dev)
+    mark("[backward]")
     widths, width_rows = phase_widths(batch0, records, vocab, dev)
+    mark("[widths]")
     models, batch0, launches, state = phase_main_path(records, plan, vocab, dev)
+    mark("[main]")
     train_steps, train_batch, train_launches = phase_train(records, plan, vocab, dev, state)
+    mark("[train]")
     fit_runs, fit_launches, one_epoch_fit, fit_data = phase_fit()
+    mark("[fit]")
     graphs, graphs_launches, graphs_profile = phase_graphs(records, vocab, fit_data, state)
+    mark("[graphs]")
     native = phase_native(fit_data, fit_data["k1"])
+    mark("[native]")
     mp, mp_launches = phase_mp(records, plan, vocab)
+    mark("[mp]")
     bench = phase_bench()
+    mark("[bench]")
     onehot, onehot_launches, onehot_profile = phase_onehot(
         records, plan, vocab, state, dev, fit_data)
+    mark("[onehot]")
     device_ep, device_ep_launches, device_ep_profile = phase_device_epochs(
         records, vocab, state, dev, fit_data)
+    mark("[device_epochs]")
     transfer, transfer_launches = phase_transfer(records, vocab, state)
+    mark("[transfer]")
     chain, chain_launches = phase_chain()
+    mark("[chain]")
     screen, screen_launches, screen_profile = phase_screen(dev)
-    dp, dp_launches = phase_dp(records, plan, vocab, fit_data)
-    ep, ep_launches = phase_ep(records, plan, vocab)
+    mark("[screen]")
+    ep_calls, ep_inputs = ep_side_calls(records, plan, vocab)
+    dp, dp_launches, ep_side = phase_dp(records, plan, vocab, fit_data, ep_calls)
+    mark("[dp]")
+    ep, ep_launches = phase_ep(ep_inputs, ep_side)
+    mark("[ep]")
     phases, phases_launches = phase_phases(records, vocab, state, dev)
+    mark("[phases]")
     quality, quality_launches = phase_quality(gated="--quality" in sys.argv[1:])
+    mark("[protocols] or [quality]")
     dryrun, dryrun_launches = phase_dryrun(dev)
+    mark("[dryrun]")
     demo, demo_launches = phase_demo()
+    mark("[demo]")
     host_pipeline = phase_host_pipeline()
+    mark("[host_pipeline]")
     bisect, bisect_launches = phase_bisect()
+    mark("[bisect]")
     rows, forward, dK, train, overhead = phase_times(
         batch0, V, models, launches, errs, train_steps, train_batch, train_launches,
         {"fit": fit_launches, "graphs": graphs_launches, "mp": mp_launches,
@@ -5326,11 +5420,13 @@ def main() -> int:
          "dp": dp_launches, "ep": ep_launches, "quality": quality_launches,
          "phases": phases_launches, "dryrun": dryrun_launches, "demo": demo_launches,
          "bisect": bisect_launches})
+    mark("[times]")
     fit_profile = fit_busy_share(one_epoch_fit)
     onehot["times"] = onehot_profile(forward["pallas_step bf16"])
     graphs = graphs_profile()
     screen["profile"] = screen_profile()
     device_ep["profile"] = device_ep_profile()
+    mark("the profiler readings")
 
     # the widths the paths ran (the D-scaling arm, the CLI) join the kernel rows
     rows += [r for r in width_rows if r["launches"]]
