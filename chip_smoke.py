@@ -204,7 +204,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    train_viscosity's checkpoint, 2 epochs) beside ``screen`` on that
    checkpoint in candidate mode and with ``--grid-cations`` (the
    brute-force device sweep); then ``evaluate``. The CLIs of a wave run side
-   by side, as a user with one card may run them. Each exits 0, writes
+   by side, as a user with one card may run them, and the chain runs after
+   [screen], beside [dp]'s gloo ranks, as do [protocols] and [dryrun]. Each exits 0, writes
    its files and reports CUDA kernel launches; ``evaluate`` repeats each
    training CLI's R² and MAE. Per CLI its seconds (beside the others of its
    wave) and R² lines, and per transfer stage its epoch seconds and train
@@ -287,9 +288,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    (the profiler stays attached to a process once it ran), ``utils.trace``
    around two graphed ``pallas_step`` bf16 train steps: the trace file
    exists and names ``fused_message_tc_kernel``; launches exact.
-   [protocols]: the quality-protocol CLI (``python -m
-   ionic_mpnn_torch.cli.quality_protocols``) as an entry point, in a
-   process of its own with JAX, its libraries, the JAX package and
+   [protocols] (beside [dp]'s gloo ranks): the quality-protocol CLI
+   (``python -m ionic_mpnn_torch.cli.quality_protocols``) as an entry
+   point, in a process of its own with JAX, its libraries, the JAX package and
    matplotlib unimportable: the published data (hard labels from 7,666
    viscosity rows and 400 melting-point draws), the random, pair-level and
    family-holdout splits and all three tasks, seed 0, batch 1024, in the
@@ -311,8 +312,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    its gate runs again in plain ``gather`` f32 on the card, both rows
    printed, and the phase fails. Its viscosity gate is missed (PERF.md §6,
    PR 13), so it stays out of the default run until its premise is set.
-   [dryrun]: the driver's entry points (``ionic_mpnn_torch/dryrun.py``,
-   the JAX package's ``__graft_entry__.py``). ``entry()`` on the card
+   [dryrun] (beside [dp]'s gloo ranks): the driver's entry points
+   (``ionic_mpnn_torch/dryrun.py``, the JAX package's
+   ``__graft_entry__.py``). ``entry()`` on the card
    (``pallas_step`` bf16, the resolved configuration, 8 records at full
    width) against plain ``gather`` f32 reading the bf16-rounded tensors at
    [main]'s tolerance, 8 ``fused_mp_step``; then ``dryrun_multichip`` on
@@ -4923,7 +4925,9 @@ def phase_dryrun(dev):
     [main]'s tolerance, 8 ``fused_mp_step``; then ``dryrun_multichip`` on
     one NCCL rank per card and on 2 gloo ranks on card 0 (eager), every arm
     of the JAX dry run, its sharded eval equal to the single-device forward
-    of each shard, the launches of each arm exact."""
+    of each shard, the launches of each arm exact. The NCCL and gloo runs
+    go side by side; so may other work that touches no launch count of
+    this process."""
     from ionic_mpnn_torch import dryrun
     from ionic_mpnn_torch.models import ViscosityModel
     from ionic_mpnn_torch.ops import cuda as kernels
@@ -4951,10 +4955,11 @@ def phase_dryrun(dev):
         f"8 fused_mp_step, max |err| {err:.3e} against plain gather f32 with the bf16-rounded "
         f"tensors (rtol/atol {MODEL_TOL[0]})")
     world = torch.cuda.device_count()
-    for tag, n, backend in (("nccl", world, "nccl"), ("gloo", DRYRUN_GLOO_RANKS, "gloo")):
-        t0 = time.perf_counter()
-        ranks = dryrun.dryrun_multichip(n, backend, "cuda")
-        seconds = time.perf_counter() - t0
+    arms = (("nccl", world, "nccl"), ("gloo", DRYRUN_GLOO_RANKS, "gloo"))
+    ran = run_together({tag: (lambda n=n, backend=backend: dryrun.dryrun_multichip(
+        n, backend, "cuda")) for tag, n, backend in arms})
+    for tag, n, backend in arms:
+        ranks, seconds = ran[tag]
         for r in ranks:
             want = dryrun_expected(r)
             if r["launches"] != want:
@@ -5391,21 +5396,25 @@ def main() -> int:
     mark("[device_epochs]")
     transfer, transfer_launches = phase_transfer(records, vocab, state)
     mark("[transfer]")
-    chain, chain_launches = phase_chain()
-    mark("[chain]")
     screen, screen_launches, screen_profile = phase_screen(dev)
     mark("[screen]")
+    # [dp]'s NCCL ranks alone; then its gloo ranks beside [ep]'s, the chain
+    # of CLIs, the quality protocols and the dry run, each in processes of
+    # its own (the dry run's entry() in this one): none of them is timed
+    # for a comparison
     ep_calls, ep_inputs = ep_side_calls(records, plan, vocab)
-    dp, dp_launches, ep_side = phase_dp(records, plan, vocab, fit_data, ep_calls)
-    mark("[dp]")
-    ep, ep_launches = phase_ep(ep_inputs, ep_side)
+    dp, dp_launches, side = phase_dp(records, plan, vocab, fit_data, {
+        **ep_calls, "[chain]": phase_chain,
+        "[protocols]": lambda: phase_quality(gated="--quality" in sys.argv[1:]),
+        "[dryrun]": lambda: phase_dryrun(dev)})
+    (chain, chain_launches), _ = side.pop("[chain]")
+    (quality, quality_launches), _ = side.pop("[protocols]")
+    (dryrun, dryrun_launches), _ = side.pop("[dryrun]")
+    mark("[dp], with [chain], [protocols] or [quality] and [dryrun] beside its gloo ranks")
+    ep, ep_launches = phase_ep(ep_inputs, side)
     mark("[ep]")
     phases, phases_launches = phase_phases(records, vocab, state, dev)
     mark("[phases]")
-    quality, quality_launches = phase_quality(gated="--quality" in sys.argv[1:])
-    mark("[protocols] or [quality]")
-    dryrun, dryrun_launches = phase_dryrun(dev)
-    mark("[dryrun]")
     demo, demo_launches = phase_demo()
     mark("[demo]")
     host_pipeline = phase_host_pipeline()
