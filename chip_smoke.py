@@ -32,7 +32,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    Then the full gradients of the three autograd Functions
    (``FusedMessageAggregate``: dh, dm_table; ``FusedMPStep``: dh, dm_table,
    dgru; ``SortedSegmentSum``: dmsg) against torch autograd of each plain
-   forward on the card, at rtol/atol 1e-4.
+   forward on the card, at rtol/atol 1e-4; the two dm_table (the table
+   gradient's kernel) against autograd of the same forward in f64, where
+   the f32 plain version's own error passes 1e-4 (logged beside).
    [widths]: the fused kernels at the widths the general kernel serves,
    D = 8, 16, 48, 64 and 128 (D = 32 is the specialisation of phases 3-4),
    in each of its two designs, forced in turn (``DESIGNS``: the 64-row
@@ -46,9 +48,14 @@ Phases, in order (any failure raises and the script exits non-zero):
    CUDA graph of 20 calls timed with events; D = 32 too, for comparison)
    beside its plain version's and its bound (the log adds the earlier
    release's time, ``EARLIER_MS``); at D = 64 and 128 the anion shape's
-   times in both designs, the blocks' prologue (its planes bit for bit
-   against the plain split, its time and bound) and the backward's dK
-   ops. Then the paths that run
+   times in both designs and the blocks' prologue (its planes bit for bit
+   against the plain split, its time and bound). At every width, 8 to 128
+   with 32, the backward's table gradient ``dK`` (``csrc/table_grad.cu``)
+   on the cation, anion and V = 32 graphs, h f32 and bf16: against its
+   plain version (PyTorch ops) within 1e-5 of the table's largest entry,
+   two launches bit-equal, its plan (held to ``TABLE_GRAD_PLANS``, the
+   plans the tests' mirror of the kernel's order takes), and its time
+   beside the plain version's and its bound. Then the paths that run
    these widths with the card's default configuration (``message_impl`` "auto": ``pallas_step``
    bf16): JAX's D-scaling arm at atom_dim 64 and 128 (fp_size = D, mixing
    max(20, D // 2), batch 2048, 4 message steps) — one train step against
@@ -78,7 +85,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    1e-4 then 1e-3; bf16: 2e-2); the launch counters read exactly, per step,
    8 ``fused_mp_step`` + 16 ``fused_message_aggregate`` (8 remat, 8 dh) for
    ``pallas_step``, 16 ``fused_message_aggregate`` (8 forward, 8 dh) for
-   ``pallas_fused``, 8 ``sorted_segment_sum`` for the pallas scatter.
+   ``pallas_fused``, 8 ``fused_message_table_grad`` (dK) in both, 8
+   ``sorted_segment_sum`` for the pallas scatter.
    On CUDA every train step, dev eval and ``predict`` forward of these
    phases and the later ones runs as a replayed CUDA graph (the port's
    default); each graph's kernel launches count once per replay (the
@@ -347,17 +355,21 @@ Phases, in order (any failure raises and the script exits non-zero):
    Function alternated, medians of 60) and each train step (median of 20 after 3
    warm-up steps, with message-edges/s over the 20). Then the card's own records through
    torch.profiler: each kernel's time (mean of 60 launches), the plain
-   version's and the one-call PyTorch yardstick's device time, the ``dK``
-   reduction's device time, and per forward and per train step the busy
+   version's and the one-call PyTorch yardstick's device time (the table
+   gradient: its two kernels, each and together, held to its plain version
+   and bit-equal on two launches), and per forward and per train step the busy
    time, the share of the wall time in which the card ran nothing, and the
    top kernels. Bounds are the least time the card could take (published
    H100 SXM peaks: 3.35 TB/s; the fused kernels' f32-accurate products over
-   the TF32 tensor-core rate / 3, the rest over the f32 CUDA-core rate).
+   the TF32 tensor-core rate / 3, the rest over the f32 CUDA-core rate),
+   with the operations this run's data needs: the typed buckets' products
+   count 2 D² for each (node, bond type) pair that holds a real edge
+   (``bucket_pairs``), their sums one add an element of a real edge.
    Then one epoch of the default configuration's ``fit()`` under the
    profiler: the card's busy time and its share of the epoch.
 
 Output: one ``{"kernels": [...]}`` JSON line (the rows of D = 64 and 128
-that the paths launched, per design and the prologue, from [widths],
+that the paths launched, per design, the prologue and ``dK``, from [widths],
 beside the model's D = 32; every width's times under
 ``"widths"``), then the last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
@@ -575,20 +587,24 @@ def phase_build():
     tensor_core_sass(so)
 
 
-# the 64-row blocks of every width but 32 and their prologue, which must not
-# spill (the warp teams, the earlier design kept for small grids and D < 64,
-# spill as they did: [build] prints their lines)
-GENERAL_KERNELS = ("fused_message_gen_kernel", "fused_message_split_kernel")
+# the 64-row blocks of every width but 32 and their prologue, and the table
+# gradient's two kernels, which must not spill (the warp teams, the earlier
+# design kept for small grids and D < 64, spill as they did: [build] prints
+# their lines)
+GENERAL_KERNELS = ("fused_message_gen_kernel", "fused_message_split_kernel",
+                   "table_grad_bucket_kernel", "table_grad_sum_kernel")
 # the fused product kernels, which must run on the tensor cores (the
 # prologue only splits the operands)
 PRODUCT_KERNELS = ("fused_message_tc_kernel", "fused_message_gen_kernel",
                    "fused_message_team_kernel")
+# the table gradient's product kernel (its sum of the parts is plain f32 adds)
+TABLE_GRAD_KERNEL = "table_grad_bucket_kernel"
 
 
 def tensor_core_sass(so):
-    """Count each fused product kernel's HMMA (tensor-core) instructions in
-    the built SASS, where the toolkit has cuobjdump; every one must hold
-    some."""
+    """Count each fused product kernel's and the table gradient's HMMA
+    (tensor-core) instructions in the built SASS, where the toolkit has
+    cuobjdump; every one must hold some."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -602,10 +618,11 @@ def tensor_core_sass(so):
         m = re.search(r"Function : (\S+)", line)
         if m:
             kernel = m.group(1)
-        elif kernel and "HMMA" in line and any(k in kernel for k in PRODUCT_KERNELS):
+        elif kernel and "HMMA" in line and any(
+                k in kernel for k in (*PRODUCT_KERNELS, TABLE_GRAD_KERNEL)):
             counts[kernel] = counts.get(kernel, 0) + 1
     for kernel in sorted(k for k in re.findall(r"Function : (\S+)", sass)
-                         if any(p in k for p in PRODUCT_KERNELS)):
+                         if any(p in k for p in (*PRODUCT_KERNELS, TABLE_GRAD_KERNEL))):
         log(f"[build] {kernel}: {counts.get(kernel, 0)} HMMA instructions")
         if not counts.get(kernel):
             raise AssertionError(f"{kernel}: no tensor-core instruction in its SASS")
@@ -855,10 +872,28 @@ def function_grads(fn, leaves, cot):
     return torch.autograd.grad(fn(*leaves), leaves, cot)
 
 
+def aggregate64(h, m_table, bond, src, dst, mask, N):
+    """The fused aggregate evaluated in h's and m_table's dtype (f64 here):
+    the plain version's ops without its f32 casts."""
+    from ionic_mpnn_torch.ops.cuda import fused_message
+
+    E, D = src.shape[0], h.shape[1]
+    x = (h.index_select(0, src.long()) @ fused_message.message_table_to_lanes(m_table))
+    x = x.view(E, -1, D).gather(1, bond.long().view(E, 1, 1).expand(E, 1, D)).squeeze(1)
+    x = x * mask[:, None].to(x.dtype)
+    return torch.zeros(N, D, dtype=h.dtype, device=h.device).index_add_(0, dst.long(), x)
+
+
 def check_functions(tag, h, m_table, gru, bond, src, dst, mask, N, cot, phase="backward"):
     """The three autograd Functions' gradients against torch autograd of
-    their plain forwards, on the card."""
+    their plain forwards, on the card. The two fused Functions' dm_table
+    (the table gradient's kernel) is held, at the same tolerance, to autograd
+    of the same forward in f64 instead: each entry sums about E / V edge
+    terms, and the f32 plain version's sgemm (depth E) is itself up to 1.5e-3
+    off an f64 evaluation at the cation shape (PERF.md §6), past the
+    1e-4 that the kernel holds; its distance is logged beside."""
     from ionic_mpnn_torch.ops.cuda import fused_message, fused_step, segment_sum
+    from ionic_mpnn_torch.ops.gru import gated_update
     from ionic_mpnn_torch.ops.message import edge_messages_from_table
 
     lanes = fused_message.message_table_to_lanes
@@ -880,12 +915,30 @@ def check_functions(tag, h, m_table, gru, bond, src, dst, mask, N, cot, phase="b
                 h_, m_, dict(zip(keys, g_)), bond, src, dst, mask, N),
             [h, m_table, *gru.values()]),
     }
+    edges = (bond, src, dst, mask, N)
+    f64 = {  # the forwards whose dm_table (grad 1) is held to f64
+        "FusedMessageAggregate (dh, dm_table)": lambda h_, m_: aggregate64(h_, m_, *edges),
+        "FusedMPStep (dh, dm_table, dgru)": lambda h_, m_, *g_: gated_update(
+            h_, aggregate64(h_, m_, *edges), dict(zip(keys, g_))),
+    }
     errs = {}
     for name, (fn, plain, leaves) in cases.items():
         got = function_grads(fn, leaves, cot)
         want = function_grads(plain, leaves, cot)
-        errs[name] = max(close(f"{name} grad {i} {tag}", a, b, GRAD_TOL, GRAD_TOL)
-                         for i, (a, b) in enumerate(zip(got, want)))
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(got, want)):
+            if name in f64 and i == 1:
+                ref = function_grads(f64[name], [x.double() for x in leaves], cot.double())[1]
+                err = close(f"{name} grad {i} {tag} (against f64)", a, ref, GRAD_TOL, GRAD_TOL)
+                over = lambda x: ((x.double() - ref).abs() - GRAD_TOL * (1 + ref.abs())).max()
+                log(f"[{phase}] {name} dm_table {tag} against f64: kernel max|err| {err:.3e}, "
+                    f"excess over rtol/atol {GRAD_TOL} {over(a).item():.2e}; the f32 plain "
+                    f"autograd's max|err| {(b.double() - ref).abs().max().item():.3e}, excess "
+                    f"{over(b).item():.2e}")
+            else:
+                err = close(f"{name} grad {i} {tag}", a, b, GRAD_TOL, GRAD_TOL)
+            worst = max(worst, err)
+        errs[name] = worst
     torch.cuda.synchronize()
     log(f"[{phase}] {tag}: " + ", ".join(f"{k} max|err| {v:.3e}" for k, v in errs.items()))
 
@@ -988,19 +1041,28 @@ EARLIER_MS = {
     32: (0.02110, 0.02329, 0.06042), 48: (0.07272, 0.07358, 0.18364),
     64: (0.09411, 0.09617, 0.23655), 128: (0.24136, 0.24133, 0.77679),
 }
-WIDTH_DK_DIMS = (64, 128)  # the widths whose paths run the backward's dK ops
 EARLIER_SCALING_MS = {64: 12.0990, 128: 26.0543}  # the D-scaling arm's step, same call
 
 
-def fused_bounds(N, E, E_real, D, V):
-    """Each fused kernel's bytes (inputs read once, out written once) and
-    flops at this shape, h f32, as [times] counts them."""
+def bucket_pairs(bond, dst, mask, V):
+    """P: the (destination node, bond type) pairs that hold a real edge, the
+    typed buckets whose rows the fused kernels and the table gradient
+    multiply by a type's D x D matrix (at most E_real)."""
+    m = mask.bool()
+    return int(torch.unique(dst[m].long() * V + bond[m].long()).numel())
+
+
+def fused_bounds(N, E, E_real, P, D, V):
+    """Each fused kernel's bytes (inputs read once, out written once), its
+    products' flops (2 D² for each of the P typed buckets; the step's gates
+    12 N D²) and its f32 adds on the CUDA cores (the buckets' E_real D) at
+    this shape, h f32, as [times] counts them."""
     edge_bytes = E * (4 + 4 + 4 + 1)  # bond, src, dst, mask
     msg = N * D * 4 + D * V * D * 4 + edge_bytes + N * D * 4
-    return {"fused_message_aggregate": (msg, 2 * E_real * D * D),
-            "fused_message_aggregate_dh": (msg, 2 * E_real * D * D),
+    return {"fused_message_aggregate": (msg, 2 * P * D * D, E_real * D),
+            "fused_message_aggregate_dh": (msg, 2 * P * D * D, E_real * D),
             "fused_mp_step": (msg + 4 * (6 * D * D + 5 * D),
-                              2 * E_real * D * D + 12 * N * D * D)}
+                              2 * P * D * D + 12 * N * D * D, E_real * D)}
 
 
 @contextlib.contextmanager
@@ -1040,8 +1102,9 @@ def width_times(D, h, m_table, gru, cot, bond, src, dst, mask, N, errs):
             lambda: fused_step.fused_mp_step(h, m_table, gru, *args, rowptr=rowptr),
             lambda: fused_step.fused_mp_step_plain(h, m_table, gru, *args)),
     }
-    bounds = fused_bounds(N, src.shape[0], int(mask.sum()), D, V)
-    shape = {"N": N, "E": src.shape[0], "E_real": int(mask.sum()), "D": D, "V": V}
+    P = bucket_pairs(bond, dst, mask, V)
+    bounds = fused_bounds(N, src.shape[0], int(mask.sum()), P, D, V)
+    shape = {"N": N, "E": src.shape[0], "E_real": int(mask.sum()), "P": P, "D": D, "V": V}
     rows = []
     with torch.inference_mode():
         for i, (name, (kernel, plain)) in enumerate(calls.items()):
@@ -1067,20 +1130,106 @@ def width_times(D, h, m_table, gru, cot, bond, src, dst, mask, N, errs):
                     + (f"; the earlier release {earlier:.5f} ms" if earlier else ""))
         if D in SCALING_DIMS:
             rows.append(prologue_row(D, K, gru, shape))
-        if D in WIDTH_DK_DIMS:
-            # the backward's dK (PyTorch ops, as JAX leaves it to XLA): with the
-            # dh launch, what the message kernel's backward costs at this width
-            dK_bytes = 2 * N * D * 4 + src.shape[0] * 13 + K.numel() * 4
-            b_ms, b_by = bound_ms(dK_bytes, 2 * int(mask.sum()) * D * D)
+    return rows
+
+
+TABLE_GRAD_SOURCE = "ionic_mpnn_torch/csrc/table_grad.cu"
+TABLE_GRAD_REPLACES = ("ionic_mpnn_tpu/ops/pallas/fused_message.py:338-347 (_vjp_bwd's dK, "
+                       "XLA ops)")
+# its tolerance against the plain version: 1e-5 of the table's largest entry
+# (an entry sums about E / V products whose partial sums reach the largest
+# entries: two f32 orders differ by ulps of those, not of a small entry)
+TABLE_GRAD_TOL = 1e-5
+
+
+def table_grad_bounds(N, E, E_real, P, D, V):
+    """The table gradient's bytes (g and h f32 read once, the edge arrays,
+    dK written once), its products' flops (Y_vᵀ g over the P typed buckets:
+    2 P D²) and its bucket adds (E_real D, f32 on the CUDA cores)."""
+    return 2 * N * D * 4 + E * (4 + 4 + 4 + 1) + D * V * D * 4, 2 * P * D * D, E_real * D
+
+
+# tg_plan's plan (walkers, slots, rows of a j-slice, slices, types a group,
+# groups, n-tiles of a fragment group) at each width and type count that
+# check_table_grad meets, with the H100's 232,448 bytes of shared memory a
+# block: tests/test_torch_tensorcore_math.py holds its mirror of tg_plan,
+# whose accumulation order it checks, to this table, and check_table_grad
+# holds the library's plan to it
+TABLE_GRAD_PLANS = {
+    (8, 7): (8, 4, 16, 1, 7, 1, 1), (16, 7): (8, 4, 16, 1, 7, 1, 1),
+    (32, 7): (8, 4, 32, 1, 7, 1, 2), (48, 7): (8, 3, 32, 2, 7, 1, 2),
+    (64, 7): (8, 2, 32, 2, 7, 1, 4), (128, 7): (4, 3, 32, 4, 7, 1, 4),
+    (8, 32): (8, 4, 16, 1, 32, 1, 1), (16, 32): (8, 4, 16, 1, 32, 1, 1),
+    (32, 32): (4, 4, 32, 1, 32, 1, 2), (48, 32): (8, 2, 32, 2, 16, 2, 2),
+    (64, 32): (8, 2, 32, 2, 11, 3, 4), (128, 32): (4, 2, 32, 4, 8, 4, 4),
+}
+TABLE_GRAD_PLAN_KEYS = ("walkers", "slots", "js", "slices", "types_a_group", "groups", "ng")
+
+
+def check_table_grad(tag, cot, h, bond, src, dst, mask, N, V, phase="widths"):
+    """The table-gradient kernel against its plain version (within
+    TABLE_GRAD_TOL of the table's largest entry), two launches bit-equal;
+    returns max |err|."""
+    from ionic_mpnn_torch.ops.cuda import fused_message
+    from ionic_mpnn_torch.ops.cuda.segment_sum import csr_rowptr
+
+    rowptr = csr_rowptr(dst, N)
+    got = fused_message.fused_message_table_grad(cot, h, bond, src, dst, mask, V, rowptr)
+    again = fused_message.fused_message_table_grad(cot, h, bond, src, dst, mask, V, rowptr)
+    want = fused_message.fused_message_table_grad_plain(cot, h, bond, src, dst, mask, V)
+    scale = want.abs().max().item()
+    err = close(f"fused_message_table_grad {tag}", got, want, 0.0, TABLE_GRAD_TOL * scale)
+    if not torch.equal(got, again):
+        raise AssertionError(f"fused_message_table_grad {tag}: two launches differ by "
+                             f"{(got - again).abs().max().item():.3e}")
+    plan = fused_message.table_grad_plan(h.shape[1], V, N)
+    want_plan = TABLE_GRAD_PLANS.get((h.shape[1], V))
+    if want_plan is None or tuple(plan[k] for k in TABLE_GRAD_PLAN_KEYS) != want_plan:
+        raise AssertionError(f"fused_message_table_grad {tag}: the library's plan {plan}, the "
+                             f"tests' mirror's {want_plan}")
+    log(f"[{phase}] dK {tag}: max|err| {err:.3e} ({err / max(scale, 1e-30):.2e} of the largest "
+        f"entry {scale:.3e}), two launches bit-equal; plan {plan}")
+    return err
+
+
+def table_grad_rows(D, cases, gen):
+    """The table gradient at width D on each (tag, h, bond, src, dst, mask,
+    N, V) case: held to its plain version with h f32 and bf16 and timed
+    against it (graph_ms, h f32). The cation row carries the kernel's name
+    (its launches come from the paths); the others are shapes only."""
+    from ionic_mpnn_torch.ops.cuda import fused_message
+    from ionic_mpnn_torch.ops.cuda.segment_sum import csr_rowptr
+
+    rows = []
+    for tag, h, bond, src, dst, mask, N, V in cases:
+        cot = torch.randn(N, D, generator=gen).to(h.device)
+        err = max(check_table_grad(f"D={D} {tag} h {str(dt)[6:]}", cot, h.to(dt), bond, src,
+                                   dst, mask, N, V) for dt in (torch.float32, torch.bfloat16))
+        rowptr = csr_rowptr(dst, N)
+        E_real = int(mask.sum())
+        P = bucket_pairs(bond, dst, mask, V)
+        b_ms, b_by = bound_ms(*table_grad_bounds(N, src.shape[0], E_real, P, D, V), TC_F32[0])
+        with torch.inference_mode():
             ms = graph_ms(lambda: fused_message.fused_message_table_grad(cot, h, bond, src, dst,
-                                                                         mask, V))
-            rows.append({"name": f"fused_message_table_grad (dK) D={D}", "kernel": None,
-                         "route": "torch ops", "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
-                         "timing": f"CUDA graph of {GRAPH_CALLS} calls, events",
-                         "shape": rows[-1]["shape"]})
-            log(f"[widths] time dK D={D} (not a Pallas kernel; PyTorch ops): {ms:.5f} ms "
-                f"(graph of {GRAPH_CALLS} calls), bound {b_ms:.5f} ms ({b_by}), "
-                f"{ms / b_ms:.2f}x the bound")
+                                                                         mask, V, rowptr))
+            plain_ms = graph_ms(lambda: fused_message.fused_message_table_grad_plain(
+                cot, h, bond, src, dst, mask, V))
+        side = tag.split()[0]
+        rows.append({"name": f"fused_message_table_grad D={D} {side}",
+                     "kernel": "fused_message_table_grad" if side == "cation" else None,
+                     "design": None, "cuda_kernel": f"{TABLE_GRAD_KERNEL}, table_grad_sum_kernel",
+                     "route": "cuda", "source": TABLE_GRAD_SOURCE,
+                     "replaces": TABLE_GRAD_REPLACES, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None,
+                     "timing": f"CUDA graph of {GRAPH_CALLS} calls, events",
+                     "plan": fused_message.table_grad_plan(D, V, N),
+                     "shape": {"N": N, "E": src.shape[0], "E_real": E_real, "P": P, "D": D,
+                               "V": V}})
+        log(f"[widths] time dK D={D} {tag} ({TABLE_GRAD_KERNEL} and its sum): {ms:.5f} ms "
+            f"(graph of {GRAPH_CALLS} calls), torch ops {plain_ms:.5f} ms "
+            f"({plain_ms / ms:.2f}x the kernel's), bound {b_ms:.5f} ms ({b_by}), "
+            f"{ms / b_ms:.2f}x the bound")
     return rows
 
 
@@ -1284,7 +1433,8 @@ def width_cli(D):
     steps, rem = divmod(counts["fused_message_aggregate_dh"], 8)
     forwards = WIDTH_CLI_EPOCHS * dev_b + train_b + dev_b + test_b
     want = {"sorted_segment_sum": 0, "fused_message_aggregate": 16 * steps,
-            "fused_message_aggregate_dh": 8 * steps, "fused_mp_step": 8 * (steps + forwards)}
+            "fused_message_aggregate_dh": 8 * steps, "fused_message_table_grad": 8 * steps,
+            "fused_mp_step": 8 * (steps + forwards)}
     if rem or steps < WIDTH_CLI_EPOCHS or counts != want:
         raise AssertionError(f"[widths] train_melting_point --atom-dim {D}: launches {counts}, "
                              f"expected {want} ({steps} train steps, {forwards} forwards)")
@@ -1368,6 +1518,17 @@ def phase_widths(batch, records, vocab, dev):
                                          *cation, phase="widths")
             out["errs"][D] = worst
         rows += width_times(D, h, m_table, gru, cot, *cation, worst)
+        # the backward's table gradient at this width: the cation, anion and
+        # every-type (V = 32) graphs, against its plain version (PyTorch ops)
+        a = batch.anion
+        t_case = typed_case(dev, rng, 32, 8, D=D)
+        rows += table_grad_rows(D, [
+            (f"cation N={N} E={g.edge_capacity} V={V}", h, *cation[:4], N, V),
+            (f"anion N={a.node_capacity} E={a.edge_capacity} V={V}",
+             torch.randn(a.node_capacity, D, generator=gen).to(dev), a.bond_ids, a.src, a.dst,
+             a.edge_mask, a.node_capacity, V),
+            (f"V=32 every type in every tile N={t_case[-1]}", t_case[0], *t_case[2:6],
+             t_case[6], 32)], gen)
         if D in SCALING_DIMS:
             a = batch.anion
             out.setdefault("anion_ms", {})[D] = anion_times(
@@ -1532,15 +1693,17 @@ def param_name(name):
 def kernel_launches(impl, scatter):
     """Kernel launches of the 4-step model per train step and per forward:
     per train step 8 fused_mp_step + 16 fused_message_aggregate (8 remat,
-    8 dh) for pallas_step, 16 fused_message_aggregate (8 forward, 8 dh)
-    for pallas_fused, 8 sorted_segment_sum for the pallas scatter; per
-    forward 8 of the configuration's kernel."""
+    8 dh) + 8 fused_message_table_grad (dK) for pallas_step, 16
+    fused_message_aggregate (8 forward, 8 dh) + 8 dK for pallas_fused, 8
+    sorted_segment_sum for the pallas scatter; per forward 8 of the
+    configuration's kernel."""
     if impl == "pallas_step":
         return ({"fused_mp_step": 8, "fused_message_aggregate": 16,
-                 "fused_message_aggregate_dh": 8}, {"fused_mp_step": 8})
+                 "fused_message_aggregate_dh": 8, "fused_message_table_grad": 8},
+                {"fused_mp_step": 8})
     if impl == "pallas_fused":
-        return ({"fused_message_aggregate": 16, "fused_message_aggregate_dh": 8},
-                {"fused_message_aggregate": 8})
+        return ({"fused_message_aggregate": 16, "fused_message_aggregate_dh": 8,
+                 "fused_message_table_grad": 8}, {"fused_message_aggregate": 8})
     if scatter == "pallas":
         return {"sorted_segment_sum": 8}, {"sorted_segment_sum": 8}
     return {}, {}
@@ -2066,33 +2229,44 @@ def optimizer_state(step):
 
 def replay_kernels(launches):
     """A graph's launches per replay as kernel_records counts them: the
-    three wrappers' (the dh share and the designs' counts are parts of
+    four wrappers' (the dh share and the designs' counts are parts of
     those)."""
     return {k: launches[k] for k in ("sorted_segment_sum", "fused_message_aggregate",
-                                     "fused_mp_step")}
+                                     "fused_mp_step", "fused_message_table_grad")}
 
 
 def kernel_records(fn):
     """Our kernels' launches in the card's own records (torch.profiler) of
     one call of ``fn``, by wrapper name: a fused kernel with the GRU
     epilogue is a fused_mp_step launch, without it a
-    fused_message_aggregate launch (the backward's dh included)."""
+    fused_message_aggregate launch (the backward's dh included); a table
+    gradient's bucket kernel a fused_message_table_grad call, whose sum of
+    the parts must run as often."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    counts = {"sorted_segment_sum": 0, "fused_message_aggregate": 0, "fused_mp_step": 0}
+    counts = {"sorted_segment_sum": 0, "fused_message_aggregate": 0, "fused_mp_step": 0,
+              "fused_message_table_grad": 0}
+    sums = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        if "segment_sum_kernel" in e.name:
+        if TABLE_GRAD_KERNEL in e.name:
+            counts["fused_message_table_grad"] += 1
+        elif "table_grad_sum_kernel" in e.name:
+            sums += 1
+        elif "segment_sum_kernel" in e.name:
             counts["sorted_segment_sum"] += 1
         elif any(k in e.name for k in PRODUCT_KERNELS):
             # kGru, the template's second argument, tells the step
             counts["fused_mp_step" if re.search(r"\btrue\b", e.name)
                    else "fused_message_aggregate"] += 1
+    if sums != counts["fused_message_table_grad"]:
+        raise AssertionError(f"the card ran {counts['fused_message_table_grad']} table-gradient "
+                             f"bucket kernels and {sums} sums of their parts")
     return counts
 
 
@@ -3089,12 +3263,12 @@ def phase_device_epochs(records, vocab, state, dev, fit_data):
 # and none goes through the FusedMPStep Function: no backward launch. Stage
 # 2 unfreezes steps 2-3 of each ion: step 2's input state is frozen, so
 # its backward runs the remat alone; step 3's also needs dh. Per ion 3
-# fused_message_aggregate of which 1 dh.
+# fused_message_aggregate of which 1 dh, and 2 dK (both steps' tables train).
 TRANSFER_LAUNCHES = {
     1: {"sorted_segment_sum": 0, "fused_message_aggregate": 0, "fused_mp_step": 8,
-        "fused_message_aggregate_dh": 0},
+        "fused_message_aggregate_dh": 0, "fused_message_table_grad": 0},
     2: {"sorted_segment_sum": 0, "fused_message_aggregate": 6, "fused_mp_step": 8,
-        "fused_message_aggregate_dh": 2},
+        "fused_message_aggregate_dh": 2, "fused_message_table_grad": 4},
 }
 BN_TOL = 1e-4  # the BatchNorm running statistics against plain's
 
@@ -3441,7 +3615,7 @@ def sweep_launches(impl, scatter, batches):
     per_fwd = kernel_launches(impl, scatter)[1]
     return {k: batches * per_fwd.get(k, 0) for k in
             ("sorted_segment_sum", "fused_message_aggregate", "fused_mp_step",
-             "fused_message_aggregate_dh")}
+             "fused_message_aggregate_dh", "fused_message_table_grad")}
 
 
 def phase_screen(dev):
@@ -5179,18 +5353,22 @@ def phase_bisect():
 
 # ---------------------------------------------------------------- phase 13
 
-def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS):
+def bound_ms(nbytes, flops, adds=0, flops_per_s=F32_FLOPS):
+    """The larger of the bytes over the memory rate and the operations over
+    their peaks: ``flops`` at ``flops_per_s``, ``adds`` on the f32 CUDA
+    cores."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / flops_per_s
+    t_ops = flops / flops_per_s + adds / F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-# the fused kernels' products are f32-accurate on the tensor cores: three
-# TF32 passes (the step), or six bf16 products at 989e12 / 6 (the message),
-# the same rate; the segment sum and the dK ops are f32 on the CUDA cores
+# the fused kernels' and the table gradient's products are f32-accurate on
+# the tensor cores: three TF32 passes (the step), or six bf16 products at
+# 989e12 / 6 (the message, dK), the same rate; the segment sum is f32 on the
+# CUDA cores
 TC_F32 = (TF32_FLOPS / 3, "tensor cores, f32-accurate: TF32 / 3")
 FLOP_PEAKS = {"fused_message_aggregate": TC_F32, "fused_mp_step": TC_F32,
-              "fused_message_aggregate_dh": TC_F32,
+              "fused_message_aggregate_dh": TC_F32, "fused_message_table_grad": TC_F32,
               "sorted_segment_sum": (F32_FLOPS, "f32 CUDA cores")}
 
 
@@ -5216,15 +5394,18 @@ def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
     dst64 = g.dst.long()
     args = (g.bond_ids, g.src, g.dst, g.edge_mask, N)
     edge_bytes = E * (4 + 4 + 4 + 1)  # bond, src, dst, mask
-    fused = fused_bounds(N, E, E_real, D, V)
+    P = bucket_pairs(g.bond_ids, g.dst, g.edge_mask, V)
+    fused = fused_bounds(N, E, E_real, P, D, V)
 
-    specs = [  # name, source, replaces, CUDA symbol, kernel, plain, library, bytes, flops
+    # name, source, replaces, CUDA symbol, kernel, plain, library, bytes, flops
+    # (at the row's peak), f32 adds (CUDA cores)
+    specs = [
         ("sorted_segment_sum", "ionic_mpnn_torch/csrc/segment_sum.cu",
          "ionic_mpnn_tpu/ops/pallas/segment_sum.py:179", "segment_sum_kernel",
          lambda: segment_sum.sorted_segment_sum(msg, g.dst, N, rowptr=rowptr),
          lambda: segment_sum.sorted_segment_sum_plain(msg, g.dst, N),
          lambda: torch.zeros(N, D, device=dev).index_add_(0, dst64, msg),
-         E * D * 4 + E * 4 + N * D * 4, E * D),
+         E * D * 4 + E * 4 + N * D * 4, E * D, 0),
         ("fused_message_aggregate", "ionic_mpnn_torch/csrc/fused_message.cu",
          FUSED_REPLACES["fused_message_aggregate"], "fused_message_tc_kernel",
          lambda: fused_message.fused_message_aggregate(h, K, *args, rowptr=rowptr),
@@ -5243,14 +5424,17 @@ def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
          lambda: fused_message.fused_message_aggregate_plain(cot, Kt, *args),
          None, *fused["fused_message_aggregate_dh"]),
     ]
-    # the backward's dK: PyTorch ops, as the JAX package leaves it to XLA
-    dK_call = lambda: fused_message.fused_message_table_grad(cot, h, *args[:4], V)
-    dK_bytes = 2 * N * D * 4 + edge_bytes + K.numel() * 4  # g, h, edges in; dK out
+    # the backward's dK: the table gradient's bucket kernel and the sum of
+    # its parts (csrc/table_grad.cu), as message_backward calls it
+    dK_call = lambda: fused_message.fused_message_table_grad(cot, h, *args[:4], V, rowptr)
+    dK_plain = lambda: fused_message.fused_message_table_grad_plain(cot, h, *args[:4], V)
     # wall-clock timings first: once the profiler has run, CUPTI stays
     # attached to the process and slows every later launch
     with torch.inference_mode():
         call_ms = {spec[0]: time_ms(spec[4]) for spec in specs}
         dK_call_ms = time_ms(dK_call)
+        dK_err = check_table_grad(f"cation N={N} E={E} D={D} h float32", cot, h, *args[:4], N,
+                                  V, phase="times")
         forward = {name: {"wall_ms": time_ms(lambda: model(batch), n=50)}
                    for name, model in models.items()}
         # the wrapper in inference mode launches directly; .apply forces the
@@ -5278,10 +5462,11 @@ def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
     train = {name: time_train_step(step, train_batch, iters=20, warmup=3)
              for name, step in train_steps.items()}
     rows = []
-    for name, source, replaces, symbol, kernel, plain, library, nbytes, flops in specs:
+    for name, source, replaces, symbol, kernel, plain, library, nbytes, flops, adds in specs:
         peak, peak_name = FLOP_PEAKS[name]
-        b_ms, b_by = bound_ms(nbytes, flops, peak)
-        cores_ms = bound_ms(nbytes, flops)[0]  # for the log: the flops over the f32 CUDA cores
+        b_ms, b_by = bound_ms(nbytes, flops, adds, peak)
+        # for the log: the flops over the f32 CUDA cores
+        cores_ms = bound_ms(nbytes, flops + adds)[0]
         ours = {k: v for k, v in device_profile(kernel)["by_kernel"].items() if symbol in k}
         if len(ours) != 1:
             raise AssertionError(f"{name}: expected one {symbol} kernel, got {ours}")
@@ -5299,7 +5484,7 @@ def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
             "plain_ms": device_profile(plain)["device_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "flop_peak": peak_name,
             "library_ms": device_profile(library)["device_ms"] if library else None,
-            "shape": {"N": N, "E": E, "E_real": E_real, "D": D, "V": V},
+            "shape": {"N": N, "E": E, "E_real": E_real, "P": P, "D": D, "V": V},
         })
         r = rows[-1]
         log(f"[times] {name} N={N} E={E}: kernel {r['ms']:.5f} ms on the card "
@@ -5307,16 +5492,34 @@ def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} ms ({r['bound_by']}; "
             f"flops over {peak_name}; {cores_ms:.5f} ms with the flops over f32 CUDA cores)")
 
-    b_ms, b_by = bound_ms(dK_bytes, 2 * E_real * D * D)
-    prof = device_profile(dK_call)
-    dK = {"name": "fused_message_table_grad (dK)", "route": "torch ops",
-          "source": "ionic_mpnn_torch/ops/cuda/fused_message.py",
-          "replaces": "ionic_mpnn_tpu/ops/pallas/fused_message.py:338-347 (XLA ops)",
-          "ms": prof["device_ms"], "call_ms": dK_call_ms, "bound_ms": b_ms, "bound_by": b_by,
-          "kernels": {k[:60]: v for k, v in prof["by_kernel"].items()}}
-    log(f"[times] dK (not a Pallas kernel) N={N} E={E}: {dK['ms']:.5f} ms on the card "
-        f"(call {dK_call_ms:.5f} ms), bound {b_ms:.5f} ms ({b_by}); kernels ms: "
-        + json.dumps({k: round(v, 5) for k, v in dK["kernels"].items()}))
+    name = "fused_message_table_grad"
+    b_ms, b_by = bound_ms(*table_grad_bounds(N, E, E_real, P, D, V), TC_F32[0])
+    ours = {k: v for k, v in device_profile(dK_call)["by_kernel"].items() if "table_grad" in k}
+    if len(ours) != 2:
+        raise AssertionError(f"{name}: expected its two kernels, got {ours}")
+    plain_prof = device_profile(dK_plain)
+    rows.append({
+        "name": name, "route": "cuda", "source": TABLE_GRAD_SOURCE,
+        "replaces": TABLE_GRAD_REPLACES,
+        "launches": (launches.get(name, 0) + train_launches.get(name, 0)
+                     + sum(p.get(name, 0) for p in path_launches.values())),
+        "main_launches": launches.get(name, 0), "train_launches": train_launches.get(name, 0),
+        **{f"{k}_launches": p.get(name, 0) for k, p in path_launches.items()},
+        "max_abs_err": dK_err,
+        # the bucket kernel and the sum of its parts on the card, each and
+        # together; the wrapper call; the plain version's (PyTorch ops) device time
+        "ms": sum(ours.values()), "kernels_ms": {k[:60]: v for k, v in ours.items()},
+        "call_ms": dK_call_ms, "plain_ms": plain_prof["device_ms"],
+        "plain_kernels_ms": {k[:60]: v for k, v in plain_prof["by_kernel"].items()},
+        "bound_ms": b_ms, "bound_by": b_by, "flop_peak": TC_F32[1], "library_ms": None,
+        "plan": fused_message.table_grad_plan(D, V, N),
+        "shape": {"N": N, "E": E, "E_real": E_real, "P": P, "D": D, "V": V},
+    })
+    r = rows[-1]
+    log(f"[times] {name} N={N} E={E}: kernels {r['ms']:.5f} ms on the card "
+        + json.dumps({k: round(v, 5) for k, v in r["kernels_ms"].items()})
+        + f" (wrapper call {r['call_ms']:.5f} ms), plain (PyTorch ops) {r['plain_ms']:.5f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}), {r['ms'] / b_ms:.2f}x the bound")
 
     with torch.inference_mode():
         for name, model in models.items():
@@ -5344,7 +5547,7 @@ def phase_times(batch, V, models, launches, errs, train_steps, train_batch,
             f"a step; device busy {t['busy_ms']:.4f} ms, "
             f"idle share {t['idle_share']:.3f}; top kernels ms: "
             + json.dumps({k: round(v, 5) for k, v in t["top"].items()}))
-    return rows, forward, dK, train, overhead
+    return rows, forward, train, overhead
 
 
 def main() -> int:
@@ -5421,7 +5624,7 @@ def main() -> int:
     mark("[host_pipeline]")
     bisect, bisect_launches = phase_bisect()
     mark("[bisect]")
-    rows, forward, dK, train, overhead = phase_times(
+    rows, forward, train, overhead = phase_times(
         batch0, V, models, launches, errs, train_steps, train_batch, train_launches,
         {"fit": fit_launches, "graphs": graphs_launches, "mp": mp_launches,
          "onehot": onehot_launches, "device_epochs": device_ep_launches,
@@ -5440,7 +5643,7 @@ def main() -> int:
     # the widths the paths ran (the D-scaling arm, the CLI) join the kernel rows
     rows += [r for r in width_rows if r["launches"]]
     widths["times"] = width_rows
-    log(json.dumps({"kernels": rows, "not_kernels": [dK], "widths": widths,
+    log(json.dumps({"kernels": rows, "widths": widths,
                     "forward_ms_per_batch": forward, "train_step": train,
                     "function_overhead": overhead, "fit": fit_runs,
                     "fit_profile": fit_profile, "graphs": graphs, "native": native,

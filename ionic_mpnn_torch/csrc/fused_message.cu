@@ -113,15 +113,13 @@
 #include <climits>
 
 #include "common.cuh"
+#include "fused_walk.cuh"
 
 namespace ionic {
 
 // ------------------------------------------------------------ D = 32: tensor cores
 
-constexpr int kTile = 16;     // destination nodes per warp tile (the mma M)
-constexpr int kChunk = 16;    // edges per step of the bucket phase
 constexpr int kTcDim = 32;    // the width the tensor-core kernel serves
-constexpr int kSlots = 4;     // bond types a tile's buckets hold at once
 // Warps per block: the step's epilogue needs more registers (65536 / 384 =
 // 170 a thread) than the message (128 at 16 warps).
 __host__ __device__ constexpr int max_warps(bool gru) { return gru ? 12 : 16; }
@@ -148,10 +146,6 @@ inline size_t tc_fixed_bytes(int n_types, bool gru) {
 
 inline size_t tc_warp_bytes(size_t elem, bool gru) {
   return y_bytes(gru) + 2 * kChunk * kTcDim * elem;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // TF32 rounding as cvt.rna.tf32.f32 does it (to nearest, ties away from
@@ -217,33 +211,6 @@ __device__ __forceinline__ void mma_3xtf32(float (&acc)[NT][4], const TA* A, int
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[nt][i] += hh[nt][i] + mx[nt][i];
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x, y) = x1 + x2 + x3 exactly, each part bf16 (8 significant bits,
-// rounded to nearest), packed in pairs as the bf16 mma takes them: x in the
-// low half.
-__device__ __forceinline__ void split_bf16x3(float x, float y, uint32_t& p1, uint32_t& p2,
-                                             uint32_t& p3) {
-  const __nv_bfloat162 h1 = __floats2bfloat162_rn(x, y);
-  const float2 f1 = __bfloat1622float2(h1);
-  const float rx = x - f1.x, ry = y - f1.y;
-  const __nv_bfloat162 h2 = __floats2bfloat162_rn(rx, ry);
-  const float2 f2 = __bfloat1622float2(h2);
-  p1 = bf16x2_bits(h1);
-  p2 = bf16x2_bits(h2);
-  p3 = bf16x2_bits(__floats2bfloat162_rn(rx - f2.x, ry - f2.y));
 }
 
 // acc[16 x 8*NT] += A[16 x 16*KT] @ B[16*KT x 8*NT], both f32 in shared
@@ -327,94 +294,7 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 // ---- the bucket phase ----
-
-// A tile's rowptr entries: lane r <= nrows holds rowptr[n0 + r], the others INT_MAX.
-__device__ __forceinline__ int load_rowptr(const int* __restrict__ rowptr, int tile,
-                                           int n_nodes, int lane) {
-  const int n0 = tile * kTile;
-  const int nrows = min(kTile, n_nodes - n0);
-  return lane <= nrows ? rowptr[n0 + lane] : INT_MAX;
-}
-
-// Where the warp's edge loads stand: a tile, its edge range [e0, e_end) left
-// to load, and its rowptr entries, by which an edge finds its row.
-struct Cursor {
-  int tile, e0, e_end;
-  int rp;  // lane r: rowptr[n0 + r] (INT_MAX past the tile)
-};
-
-__device__ __forceinline__ void enter_tile(Cursor& at, int tile, int rowptr_entries,
-                                           int n_nodes) {
-  at.tile = tile;
-  at.rp = rowptr_entries;
-  const int nrows = min(kTile, n_nodes - tile * kTile);
-  at.e0 = __shfl_sync(kFullMask, rowptr_entries, 0);
-  at.e_end = __shfl_sync(kFullMask, rowptr_entries, nrows);
-}
-
-// A chunk's edge arrays as loaded, a step before they are used: lane t < CH
-// holds edge e0 + t; m is 0 past the range.
-struct RawEdges {
-  int m = 0, b = 0, s = 0;
-};
-
-template <int CH>
-__device__ __forceinline__ RawEdges load_edges(const int* __restrict__ src,
-                                               const int* __restrict__ bond,
-                                               const uint8_t* __restrict__ mask,
-                                               const Cursor& at, int lane) {
-  RawEdges r;
-  const int e = at.e0 + lane;
-  if (lane < CH && e < at.e_end) {
-    r.m = mask[e];
-    r.b = bond[e];
-    r.s = src[e];
-  }
-  return r;
-}
-
-// Up to CH edges of a tile: lane t < CH holds edge e0 + t as
-// packed = row << 5 | bond (row = dst - n0), or -1 when it is masked or past
-// the tile's range, and its src.
-struct Chunk {
-  int packed = -1;
-  int s = 0;
-  uint32_t types = 0;  // bond types of its real edges, warp-uniform
-  int tile = 0;
-  bool last = true;    // the tile's last chunk
-};
-
-template <int CH>
-__device__ __forceinline__ Chunk make_chunk(const RawEdges& r, const Cursor& at, int lane) {
-  Chunk c;
-  const int e = at.e0 + lane;
-  int row = 0;  // the rows that start at or before e, after the first
-#pragma unroll
-  for (int k = 1; k < kTile; ++k) row += __shfl_sync(kFullMask, at.rp, k) <= e;
-  if (r.m) {
-    c.packed = (row << 5) | r.b;
-    c.s = r.s;
-  }
-  c.types = __reduce_or_sync(kFullMask, c.packed >= 0 ? 1u << (c.packed & 31) : 0u);
-  c.tile = at.tile;
-  c.last = at.e0 + CH >= at.e_end;
-  return c;
-}
 
 // The chunk's real h[src] rows into g (CH rows of D), 16 bytes a copy.
 template <typename T, int CH>
@@ -432,13 +312,6 @@ __device__ __forceinline__ void gather_rows_async(T* g, const T* __restrict__ h,
   }
   cp_async_commit();
 }
-
-// The slots of a tile's buckets: slot k holds type (types >> 8k) & 255 for
-// k < used; mask has those types' bits.
-struct Slots {
-  uint32_t types = 0, mask = 0;
-  int used = 0;
-};
 
 // This pass's bucket of lane t's edge, row << 2 | slot, or -1 when its type
 // has no slot (or it is not a real edge). Types of the chunk without a slot
@@ -846,8 +719,6 @@ int run_tc(const void* h, const float* table, const int* bond, const int* src,
 // flushes, as the specialisation does; at the bench's cation shape 99.4% of
 // the tiles hold at most 2 types.
 
-constexpr int kMaxDim = 128;   // the widest D the kernels take
-constexpr int kMaxTypes = 32;  // the tile's type mask, and the 5 bits of a packed bond
 constexpr int kChain = 8;      // depth steps per accumulation chain
 constexpr int kBlockTiles = 4;                   // tiles of 16 destination nodes a block owns
 constexpr int kBlockRows = kBlockTiles * kTile;  // 64
@@ -859,7 +730,6 @@ constexpr int kGenHeader = 256;
 constexpr size_t kSmemOneBlock = 232448;  // H100: the most one block may take
 constexpr size_t kSmemTwoBlocks = 115712;  // each of two blocks an SM (228 KB, 1 KB reserved each)
 
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 // n-tiles of 8 columns a warp holds of a product: a message half-row of
 // D / 16, a gate group's quarter times 2 m-tiles
 __host__ __device__ constexpr int gen_nt(int dim) { return dim <= 64 ? 4 : 8; }
@@ -1129,23 +999,6 @@ __device__ __forceinline__ void gate_slice(float (&hh)[2][gate_nt(NT)][4],
 
 // ---- the walk ----
 
-// The chunk's real h[src] rows, whole, into g (kChunk rows of dim), 16
-// bytes a copy.
-template <typename T>
-__device__ __forceinline__ void gather_chunk(T* g, const T* __restrict__ h, const Chunk& c,
-                                             int dim, int lane) {
-  const int pieces = dim * (int)sizeof(T) / 16, total = kChunk * pieces;
-  for (int i0 = 0; i0 < total; i0 += 32) {  // a trip count the whole warp shares
-    const int piece = i0 + lane, t = min(piece / pieces, kChunk - 1), p = piece - t * pieces;
-    const int pk = __shfl_sync(kFullMask, c.packed, t);
-    const int s = __shfl_sync(kFullMask, c.s, t);
-    if (piece < total && pk >= 0)
-      cp_async16(reinterpret_cast<char*>(g + t * dim) + p * 16,
-                 reinterpret_cast<const char*>(h + (size_t)s * dim) + p * 16);
-  }
-  cp_async_commit();
-}
-
 __device__ __forceinline__ void add4(float* y, const float* g) {
   float4 a = *reinterpret_cast<float4*>(y);
   const float4 b = *reinterpret_cast<const float4*>(g);
@@ -1179,24 +1032,6 @@ __device__ __forceinline__ void add_chunk(float* Yt, const T* g, int bucket, int
     float* y = Yt + ((p & 3) * kTile + (p >> 2)) * ys;
     for (int c = 4 * lane; c < dim; c += 128) add4(y + c, g + t * dim + c);
   }
-}
-
-// take_slots with `slots` slots (1 to kSlots).
-__device__ __forceinline__ int take_slots_gen(Slots& sl, uint32_t todo, const Chunk& c,
-                                              int slots) {
-  for (uint32_t fresh = todo & ~sl.mask; fresh && sl.used < slots; fresh &= fresh - 1) {
-    const int v = __ffs(fresh) - 1;
-    sl.types |= (uint32_t)v << (8 * sl.used++);
-    sl.mask |= 1u << v;
-  }
-  if (c.packed < 0) return -1;
-  const uint32_t b = c.packed & 31;
-  if (!((sl.mask >> b) & 1u)) return -1;
-  int slot = 0;
-#pragma unroll
-  for (int k = 1; k < kSlots; ++k)
-    slot += k < sl.used && ((sl.types >> (8 * k)) & 255u) == b ? k : 0;
-  return ((c.packed >> 5) << 2) | slot;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -2096,14 +1931,6 @@ int run_team(const void* h, const float* table, const int* bond, const int* src,
 
 
 // ------------------------------------------------------------ dispatch
-
-// The most bond types a width takes: 32 at every D that is a multiple of 8
-// from 8 to 128, none at any other.
-inline int max_types(int dim) {
-  return dim >= 8 && dim <= kMaxDim && dim % 8 == 0 ? kMaxTypes : 0;
-}
-
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // Whether a width runs the D = 32 specialisation (no scratch).
 inline bool specialised(int dim) {

@@ -9,15 +9,19 @@ takes the plain version; a CUDA tensor launches the kernel or raises.
 | --- | --- |
 | :func:`.segment_sum.sorted_segment_sum` (``SortedSegmentSum``) | ``ops/pallas/segment_sum.py::segment_sum_vjp`` |
 | :func:`.fused_message.fused_message_aggregate` (``FusedMessageAggregate``) | ``ops/pallas/fused_message.py::fused_message_aggregate``, forward and ``_vjp_bwd`` |
+| :func:`.fused_message.fused_message_table_grad` (in both Functions' backward) | ``_vjp_bwd``'s ``dK`` (``ops/pallas/fused_message.py:338-347``, XLA ops there) |
 | :func:`.fused_step.fused_mp_step` (``FusedMPStep``) | ``ops/pallas/fused_step.py::fused_mp_step`` |
 
 Every wrapper is differentiable on both devices; with no gradient to
 record (``inference_mode``, ``no_grad``) it launches without the Function,
 whose ``apply`` costs host time on each call. The backward of
 ``fused_message_aggregate`` launches its forward kernel on the transposed
-table (counted as a ``fused_message_aggregate`` launch); the backward of
-``fused_mp_step`` launches that kernel twice (the remat of ``agg`` and
-the ``dh``); the segment sum's backward is a gather.
+table (counted as a ``fused_message_aggregate`` launch) and the table
+gradient's kernel (``fused_message_table_grad``: its bucket kernel and the
+sum of its parts, one count a call); the backward of ``fused_mp_step``
+launches the fused-message kernel twice (the remat of ``agg`` and the
+``dh``) and the table gradient once; the segment sum's backward is a
+gather.
 
 At every width but 32 a fused launch runs one of two designs: the 64-row
 blocks, after their prologue (``fused_message_split_kernel``, which splits
@@ -56,10 +60,12 @@ def launch_counts(designs: bool = False) -> dict:
     """Kernel launches per wrapper since the last reset, and
     ``fused_message_aggregate_dh``: how many of the
     ``fused_message_aggregate`` launches were backward ``dh`` launches;
+    ``fused_message_table_grad``: the backward's ``dK`` kernel calls;
     with ``designs``, ``<wrapper>_blocks``: how many of each ran the 64-row
     blocks (and their prologue) rather than the warp teams."""
     counts = {name: mod.launches for name, mod in _MODULES.items()}
     counts["fused_message_aggregate_dh"] = fused_message.dh_launches
+    counts["fused_message_table_grad"] = fused_message.table_grad_launches
     if designs:
         counts.update({k: getattr(mod, a) for k, (mod, a) in _BLOCKS.items()})
     return counts
@@ -69,6 +75,7 @@ def reset_launch_counts() -> None:
     for mod in _MODULES.values():
         mod.launches = 0
     fused_message.dh_launches = 0
+    fused_message.table_grad_launches = 0
     for mod, attr in _BLOCKS.values():
         setattr(mod, attr, 0)
 
@@ -79,6 +86,7 @@ def set_launch_counts(counts: dict) -> None:
     for name, mod in _MODULES.items():
         mod.launches = counts[name]
     fused_message.dh_launches = counts["fused_message_aggregate_dh"]
+    fused_message.table_grad_launches = counts["fused_message_table_grad"]
     for k, (mod, attr) in _BLOCKS.items():
         if k in counts:
             setattr(mod, attr, counts[k])

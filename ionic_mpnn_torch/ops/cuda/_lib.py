@@ -65,6 +65,18 @@ _SIGNATURES = {
     # out, n_nodes, dim, n_types, scratch, stream
     "ionic_fused_step": ([_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
                           _P, _I, _I, _I, _P, _P], _I),
+    # the table gradient's entries take walkers a block: 0 lets the library
+    # choose, 8 or 4 takes that count (a probe's)
+    # dim, n_types, n_nodes, walkers -> bytes of the scratch of a table-gradient
+    # launch (its node parts' partial tables), or -1 for a shape it does not take
+    "ionic_table_grad_scratch_bytes": ([_I, _I, _I, _I], ctypes.c_long),
+    # dim, n_types, n_nodes, walkers, int[9] -> 0 and the launch's plan (walkers,
+    # slots, j-slice rows, slices, types a group, groups, n-tiles, shared bytes,
+    # node parts)
+    "ionic_table_grad_plan": ([_I, _I, _I, _I, _P], _I),
+    # g, h, h_dtype, bond, src, mask, rowptr, out, n_nodes, dim, n_types,
+    # walkers, scratch, stream
+    "ionic_table_grad": ([_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
 }
 
 

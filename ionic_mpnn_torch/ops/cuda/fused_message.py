@@ -38,12 +38,15 @@ Backward (:class:`FusedMessageAggregate`), as the JAX ``_vjp_bwd``:
   packer's contract, ``data/packing.py``); standard autograd would scatter
   by src instead.
 * ``dK[j, v·D + i] = Σ_{e: b_e = v} mask_e · g[dst_e, i] · h[src_e, j]``
-  (:func:`fused_message_table_grad`) is two gathers and one
-  (D, E) @ (E, V·D) f32 product, PyTorch ops as in JAX (XLA ops there,
-  outside the Pallas kernel). The mask is applied to ``g[dst]``: pad edges
-  carry bond id 0, whose matrix is trained, and would leak into
-  ``dK[:, 0:D]``. The product is full f32 under PyTorch's default
-  ``torch.backends.cuda.matmul.allow_tf32 = False``.
+  (:func:`fused_message_table_grad`), which JAX computes with XLA ops
+  outside the Pallas kernel (two gathers and one (D, E) @ (E, V·D)
+  product), is the CUDA kernel ``csrc/table_grad.cu``: the forward's walk
+  sums each (node, bond type) bucket ``Y`` of h rows, and
+  ``dK_v = Σ_tiles Y_vᵀ @ g_tile`` runs on the tensor cores with the
+  message's exact bf16 split; per-block partial tables summed in a fixed
+  order by a second kernel (no atomics). Pad edges carry bond id 0, whose
+  matrix is trained, and add nothing: the buckets take real edges only
+  (the plain version masks ``g[dst]``).
 
 Numerics for a bf16 ``h``: the forward reads it exactly into f32 sums; the
 backward takes ``dh`` in f32 and rounds it to bf16 once, and ``dK`` uses
@@ -53,9 +56,9 @@ Bound on the H100: memory bytes (h, the edge arrays, the table, the
 output) against 2·E_real·D² flops on the tensor cores at the f32-accurate
 rate (six bf16 products, 989 TFLOP/s / 6); see ``csrc/fused_message.cu``.
 
-Dispatch: a CPU tensor takes :func:`fused_message_aggregate_plain` (in
-both directions, through the same Function); a CUDA tensor launches the
-kernel or raises. With no gradient to record the wrapper skips the
+Dispatch: a CPU tensor takes :func:`fused_message_aggregate_plain` and
+:func:`fused_message_table_grad_plain` (in both directions, through the
+same Function); a CUDA tensor launches the kernels or raises. With no gradient to record the wrapper skips the
 Function (:func:`._lib.needs_grad`).
 """
 
@@ -73,6 +76,9 @@ __all__ = [
     "fused_message_aggregate",
     "fused_message_aggregate_plain",
     "fused_message_table_grad",
+    "fused_message_table_grad_plain",
+    "check_table_grad_inputs",
+    "table_grad_plan",
     "message_backward",
     "message_table_to_lanes",
     "lanes_to_message_table",
@@ -90,6 +96,10 @@ dh_launches = 0  # of those, the backward's dh launches on (g, Kᵀ)
 block_launches = 0
 dh_block_launches = 0
 split_launches = 0  # launches of the prologue alone (fused_split: checks and timings)
+# calls of fused_message_table_grad that launched its kernel, each one
+# launch of table_grad_bucket_kernel and one of table_grad_sum_kernel (as a
+# launch that runs the 64-row blocks counts its prologue with it)
+table_grad_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The widths the fused kernels take: the library's ionic_fused_max_types is
@@ -308,11 +318,12 @@ def _aggregate(h, K, bond_ids, src, dst, edge_mask, num_nodes: int, rowptr,
     return out
 
 
-def fused_message_table_grad(g, h, bond_ids, src, dst, edge_mask,
-                             n_types: int) -> torch.Tensor:
-    """``dK[j, v·D+i] = Σ_{e: b_e = v} mask_e · g[dst_e, i] · h[src_e, j]``
-    as an f32 (D, V·D) table: the masked ``g[dst]`` rows placed in their
-    bond's lane block of an (E, V·D) operand, then ``h[src]ᵀ`` @ it."""
+def fused_message_table_grad_plain(g, h, bond_ids, src, dst, edge_mask,
+                                   n_types: int) -> torch.Tensor:
+    """The plain version: the masked ``g[dst]`` rows placed in their bond's
+    lane block of an (E, V·D) operand, then ``h[src]ᵀ`` @ it (JAX's
+    ``_vjp_bwd``, ``ops/pallas/fused_message.py:338-347``), in f32 with
+    ``h`` upcast exactly."""
     E, D = src.shape[0], h.shape[1]
     gd = g.float().index_select(0, dst.long()) * edge_mask.view(E, 1).float()
     hs = h.float().index_select(0, src.long())
@@ -321,11 +332,102 @@ def fused_message_table_grad(g, h, bond_ids, src, dst, edge_mask,
     return hs.t() @ q.view(E, n_types * D)
 
 
+def check_table_grad_inputs(g, h, bond_ids, src, dst, edge_mask, n_types: int,
+                            rowptr) -> None:
+    """Raise ``ValueError`` on anything the table-gradient kernel cannot
+    take; the width and the type count before the library is loaded."""
+    name = "fused_message_table_grad"
+
+    def require(cond, msg):
+        if not cond:
+            raise ValueError(f"{name}: {msg}")
+
+    require(h.dim() == 2 and h.dtype in _DTYPES,
+            f"h must be (N, D) float32 or bfloat16, got {tuple(h.shape)} {h.dtype}")
+    N, D = h.shape
+    require(D in FUSED_DIMS, f"D={D} not supported: the kernels take D a multiple of 8 "
+                             f"from 8 to 128")
+    require(0 < n_types <= 32, f"{n_types} bond types: the kernels take 1 to 32")
+    require(g.dtype == torch.float32 and tuple(g.shape) == (N, D),
+            f"g must be ({N}, {D}) float32, got {tuple(g.shape)} {g.dtype}")
+    E = src.shape[0]
+    for t_name, t in (("bond_ids", bond_ids), ("src", src), ("dst", dst)):
+        require(t.dtype == torch.int32 and t.shape == (E,), f"{t_name} must be (E,) int32")
+    require(edge_mask.dtype == torch.bool and edge_mask.shape == (E,),
+            "edge_mask must be (E,) bool")
+    require(rowptr.dtype == torch.int32 and rowptr.shape == (N + 1,),
+            "rowptr must be (N+1,) int32")
+    for t_name, t in (("g", g), ("h", h), ("bond_ids", bond_ids), ("src", src), ("dst", dst),
+                      ("edge_mask", edge_mask), ("rowptr", rowptr)):
+        require(t.device == h.device, f"{t_name} is on {t.device}, h on {h.device}")
+        require(t.is_contiguous(), f"{t_name} is not contiguous")
+    require(N < 2 ** 31 and E < 2 ** 31, "size out of range")
+
+
+def table_grad_plan(D: int, n_types: int, num_nodes: int, device=None,
+                    walkers: int = 0) -> dict:
+    """How the table-gradient kernel cuts a launch on the card (the
+    library's ``tg_plan``): walkers a block, bucket slots a tile, rows of a
+    j-slice, slices, types a group, groups, n-tiles of a fragment group,
+    shared memory bytes a block, node parts. ``walkers`` as in
+    :func:`fused_message_table_grad`."""
+    import ctypes
+
+    out = (ctypes.c_int * 9)()
+    with torch.cuda.device(device):
+        code = _lib.library().ionic_table_grad_plan(D, n_types, num_nodes, walkers, out)
+    if code:
+        raise ValueError(f"{n_types} bond types at D={D}: not a shape the kernel takes")
+    keys = ("walkers", "slots", "js", "slices", "types_a_group", "groups", "ng", "smem",
+            "parts")
+    return dict(zip(keys, list(out)))
+
+
+def fused_message_table_grad(g, h, bond_ids, src, dst, edge_mask, n_types: int,
+                             rowptr: Optional[torch.Tensor] = None, *,
+                             walkers: int = 0) -> torch.Tensor:
+    """``dK[j, v·D+i] = Σ_{e: b_e = v} mask_e · g[dst_e, i] · h[src_e, j]``
+    as an f32 (D, V·D) table (``dst`` non-decreasing; ``rowptr`` from
+    :func:`csr_rowptr`, made when None). A CPU tensor takes
+    :func:`fused_message_table_grad_plain`; a CUDA tensor launches
+    ``csrc/table_grad.cu`` or raises. ``walkers`` (walker warps a block)
+    0 lets the library choose from D and the type count; 8 or 4 takes that
+    count, for a probe that times both sides of the choice."""
+    if g.device.type == "cpu":
+        return fused_message_table_grad_plain(g, h, bond_ids, src, dst, edge_mask, n_types)
+    _lib.require_cuda("fused_message_table_grad", g)
+    N, D = h.shape[0], h.shape[-1]
+    if rowptr is None:
+        rowptr = csr_rowptr(dst, N)
+    check_table_grad_inputs(g, h, bond_ids, src, dst, edge_mask, n_types, rowptr)
+    if walkers not in (0, 4, 8):
+        raise ValueError(f"fused_message_table_grad: walkers={walkers}, of 0, 4 and 8")
+
+    global table_grad_launches
+    g, h = _lib.aligned16(g), _lib.aligned16(h)
+    out = torch.empty(D, n_types * D, dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        lib = _lib.library()
+        nbytes = lib.ionic_table_grad_scratch_bytes(D, n_types, N, walkers)
+        if nbytes < 0:
+            raise ValueError(f"fused_message_table_grad: {n_types} bond types at D={D}: not a "
+                             "shape the kernel takes")
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=g.device) if nbytes else None
+        code = lib.ionic_table_grad(
+            g.data_ptr(), h.data_ptr(), _DTYPES[h.dtype], bond_ids.data_ptr(), src.data_ptr(),
+            edge_mask.data_ptr(), rowptr.data_ptr(), out.data_ptr(), N, D, n_types, walkers,
+            None if scratch is None else scratch.data_ptr(), _lib.stream_ptr(g.device))
+    _lib.check(code, "fused_message_table_grad")
+    table_grad_launches += 1
+    return out
+
+
 def message_backward(g, h, K, bond_ids, src, dst, edge_mask, num_nodes: int,
                      rowptr, need_dh: bool = True, need_dK: bool = True):
     """``(dh, dK)`` of the fused aggregate for the f32 cotangent ``g`` of
     its output; ``dh`` is f32 (the caller casts), either is None when not
-    needed. On CUDA, ``dh`` is one launch of the forward kernel."""
+    needed. On CUDA, ``dh`` is one launch of the forward kernel and ``dK``
+    one call of the table-gradient kernel, both on the same rowptr."""
     g = g.contiguous().float()
     dh = dK = None
     if need_dh:
@@ -333,7 +435,7 @@ def message_backward(g, h, K, bond_ids, src, dst, edge_mask, num_nodes: int,
                         num_nodes, rowptr, dh=True)
     if need_dK:
         dK = fused_message_table_grad(g, h, bond_ids, src, dst, edge_mask,
-                                      K.shape[1] // K.shape[0])
+                                      K.shape[1] // K.shape[0], rowptr)
     return dh, dK
 
 

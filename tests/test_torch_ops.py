@@ -3,6 +3,8 @@ version against the JAX Pallas kernel it replaces (interpret mode on the
 CPU). Tolerances: f32 rtol 1e-5 / atol 1e-5 (summation order differs);
 bf16 2e-2 (bf16 rounds at other places in the two frameworks)."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -179,8 +181,70 @@ def test_fused_inputs_refuse_widths_before_loading_the_library(D, gru, monkeypat
     assert D not in fused_message.FUSED_DIMS
 
 
+@pytest.mark.parametrize("D,V", [(20, 3), (136, 3), (32, 33)])
+def test_table_grad_refuses_shapes_before_loading_the_library(D, V, monkeypatch):
+    """A width the kernels do not take, or more than 32 bond types, is
+    refused by the table gradient's check before it asks the library."""
+
+    def no_library():
+        raise AssertionError("the check loaded the kernel library")
+
+    monkeypatch.setattr(kernels._lib, "library", no_library)
+    N, E = 64, 10
+    g, h = torch.zeros(N, D), torch.zeros(N, D)
+    edges = [torch.zeros(E, dtype=torch.int32) for _ in range(3)]
+    mask = torch.ones(E, dtype=torch.bool)
+    rowptr = torch.zeros(N + 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"D={D} not supported" if V <= 32 else
+                       f"{V} bond types: the kernels take 1 to 32"):
+        fused_message.check_table_grad_inputs(g, h, *edges, mask, V, rowptr)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_table_grad(D, dtype, graph):
+    """A graph, h (f32, or bf16 values), the cotangent g, and JAX's dK: the
+    table gradient of ``_vjp_bwd`` (``ops/pallas/fused_message.py:338-347``;
+    its dh runs the Pallas kernel in interpret mode)."""
+    from ionic_mpnn_tpu.ops.pallas.fused_message import _vjp_bwd
+    from ionic_mpnn_tpu.ops.pallas.segment_sum import (DEFAULT_MAX_TILES, DEFAULT_TILE,
+                                                        DEFAULT_WINDOW)
+    from test_torch_tensorcore_math import _every_type_edges
+
+    rng = np.random.default_rng(D)
+    if graph == "molecules":
+        N, V = 96, 7
+        src, dst, bond, mask = _molecular_edges(rng, N // 6, 20, N, V)
+    else:  # every 16-node tile holds all 7 types: more than the kernel's 4 slots
+        N, V = 97, 7
+        src, dst, bond, mask = _every_type_edges(N, V)
+    h = jnp.asarray(rng.normal(size=(N, D)).astype(np.float32), DTYPES[dtype][0])
+    g = rng.normal(size=(N, D)).astype(np.float32)
+    K = j_lanes(jnp.asarray((rng.normal(size=(V, D, D)) * 0.3).astype(np.float32)))
+    res = (h, K, bond, src, dst, mask > 0)
+    dK = _vjp_bwd(N, DEFAULT_WINDOW, DEFAULT_TILE, DEFAULT_MAX_TILES, True, res, jnp.asarray(g))[1]
+    return V, np.array(h.astype(jnp.float32)), g, src, dst, bond, mask > 0, np.array(dK)
+
+
+@pytest.mark.parametrize("D,dtype,graph", [
+    (8, "float32", "molecules"), (8, "bfloat16", "molecules"),
+    (32, "float32", "molecules"), (32, "bfloat16", "molecules"),
+    (128, "float32", "molecules"), (128, "bfloat16", "molecules"),
+    (32, "float32", "every type"), (128, "bfloat16", "every type")])
+def test_table_grad_plain_matches_jax_vjp_bwd(D, dtype, graph):
+    """The table gradient's plain version against JAX's ``_vjp_bwd`` dK: h in
+    f32 and in bf16 (read exactly: both upcast it), masked pad edges with
+    the trained bond 0 (molecules), and tiles that hold every type."""
+    V, h, g, src, dst, bond, mask, want = _jax_table_grad(D, dtype, graph)
+    assert np.abs(want).max() > 1.0  # not a table of zeros
+    th = _t(h, DTYPES[dtype][1])
+    got = fused_message.fused_message_table_grad_plain(
+        _t(g), th, _t(bond), _t(src), _t(dst), _t(mask), V)
+    assert got.dtype == torch.float32 and got.shape == (D, V * D)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+
+
 @pytest.mark.parametrize("kernel", ["sorted_segment_sum", "fused_message_aggregate",
-                                    "fused_mp_step"])
+                                    "fused_mp_step", "fused_message_table_grad"])
 def test_cpu_tensor_takes_plain_path(kernel):
     """A CPU tensor reaches the plain version and never the launch counter;
     any other device is refused rather than served by the plain version."""
@@ -200,6 +264,11 @@ def test_cpu_tensor_takes_plain_path(kernel):
             (h, K, bond, src, dst, mask, N)),
         "fused_mp_step": (fused_step.fused_mp_step, fused_step.fused_mp_step_plain,
                           (h, m_table, gru, bond, src, dst, mask, N)),
+        "fused_message_table_grad": (
+            fused_message.fused_message_table_grad,
+            fused_message.fused_message_table_grad_plain,
+            (_t(g["rng"].normal(size=(N, g["D"])).astype(np.float32)), h, bond, src, dst, mask,
+             g["V"])),
     }
     wrapper, plain, args = calls[kernel]
     kernels.reset_launch_counts()

@@ -27,6 +27,15 @@ at rtol/atol 1e-5:
   ``1 / (1 + exp(-x))``, tanh, the LayerNorm over the true D (the mean,
   then ``mean((x - mu)^2)``) and the residual.
 
+The backward's table gradient (``csrc/table_grad.cu``) is mirrored the
+same way: the same bucket walk (a 16-node tile's chunks, 4 slots, the
+edges of the block's type group only), then per round of a block's walker
+tiles, for each type, ``Yᵀ @ g_tile`` of every walker holding it in walker
+order as one chain of the bf16-split product, added into the f32
+accumulator; a tile that meets more types than its slots stops, the
+products run and it goes on; the node parts' partial tables summed in part
+order. It is held against JAX's ``_vjp_bwd`` dK.
+
 The mirror lives here, not in the package: it pins the design's numerics,
 which the card's kernel then holds against its plain version."""
 
@@ -39,9 +48,11 @@ import torch
 
 from ionic_mpnn_tpu.ops import gru as jgru
 from ionic_mpnn_tpu.ops.pallas.fused_message import (
+    _vjp_bwd as j_vjp_bwd,
     fused_message_aggregate as j_fused_message,
     message_table_to_lanes as j_lanes,
 )
+from ionic_mpnn_tpu.ops.pallas.segment_sum import DEFAULT_MAX_TILES, DEFAULT_TILE, DEFAULT_WINDOW
 from ionic_mpnn_tpu.ops.pallas.fused_step import fused_mp_step as j_fused_step
 
 from test_pallas_fused_message import _molecular_edges
@@ -119,6 +130,22 @@ def product_bf16x3(a, b, chain=CHAIN):
                 mx += x @ y
             hh += a1 @ b1
         acc += hh + mx
+    return acc
+
+
+def product_tiles_bf16x3(a, b):
+    """a @ b as the table gradient's mma: per depth step of 16 (a tile's
+    nodes), the five small products of the exact three-part bf16 splits in
+    one chain and x1*y1 as two halves of 8, each from zero; the step's
+    (half + half) + small added into the f32 sum."""
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for k in range(0, a.shape[1], 16):
+        a1, a2, a3 = bf16_parts(a[:, k:k + 16])
+        b1, b2, b3 = bf16_parts(b[k:k + 16])
+        mx = torch.zeros_like(acc)
+        for x, y in ((a3, b1), (a2, b2), (a1, b3), (a2, b1), (a1, b2)):
+            mx += x @ y
+        acc += (a1[:, :8] @ b1[:8] + a1[:, 8:] @ b1[8:]) + mx
     return acc
 
 
@@ -454,3 +481,194 @@ def test_prologue_split_is_exact(D):
     k_bytes = V * nks * 3 * D * 40 * 2
     assert fused_message.fused_split_bytes(K) == k_bytes
     assert fused_message.fused_split_bytes(K, w) > -(-k_bytes // 128) * 128
+
+
+# ---- the table gradient (csrc/table_grad.cu)
+
+TG_BUDGET = 232448  # the H100's shared memory a block may take
+
+
+def tg_plan(D, V, budget=TG_BUDGET):
+    """The table-gradient kernel's plan (``tg_plan`` in ``csrc/table_grad.cu``):
+    (walkers, slots, rows of a j-slice, slices, types a group, groups,
+    n-tiles of a fragment group). For 8 and 4 walkers and 4, 3 and 2 slots,
+    the most types a group that shared memory holds beside the walkers' two
+    bucket sets and row buffers and their g rows; of those the fewest walks
+    of the edge lists per walker, then the most slots."""
+    js = 16 if D <= 16 else 32
+    slices = -(-(-(-D // 16) * 16) // js)
+    per_type = js * D * 4
+    best = None
+    for walkers in (8, 4):
+        for slots in (4, 3, 2):
+            walker = 4 * (2 * slots * TILE * (js + 4) + 2 * CHUNK * js) + 4 * TILE * (D + 4)
+            fixed = 512 + walkers * walker
+            if fixed + per_type > budget:
+                continue
+            vg = min(V, (budget - fixed) // per_type)
+            groups = -(-V // vg)
+            vg = -(-V // groups)
+            if best is not None:
+                mine, theirs = slices * groups * best[0], best[3] * best[5] * walkers
+                if mine > theirs or (mine == theirs and slots <= best[1]):
+                    continue
+            ng = 4 if D // 8 >= 8 else 2 if D // 8 >= 4 else 1
+            best = (walkers, slots, js, slices, vg, groups, ng)
+    return best
+
+
+def table_grad_mirror(g, h, bond, src, dst, mask, N, V, parts=3, rounds=None):
+    """The table-gradient kernel's arithmetic: ``dK`` (D, V·D) f32 from the
+    cotangent g (N, D) and h (N, D). The tiles split into ``parts``
+    contiguous node parts; in each, per type group, ``walkers`` walkers
+    take every ``walkers``-th tile in turn: each round a walker adds the
+    rest of its tile's chunks into a fresh set of ``slots`` buckets until
+    the tile ends (its next tile waits for the next round) or a chunk has
+    types left over (they go on next round); then for each type of the
+    group, the walkers holding it in walker order dealt in turn to 4 / NG
+    chains, ``Yᵀ @ g_tile`` over each chain's walkers by
+    :func:`product_tiles_bf16x3` (each tile's products from zero, added in
+    f32), the chains added in order into the f32 accumulator. The
+    parts' tables add in the sum kernel's order: sums over every 8th part,
+    then the 8 in order. ``rounds``, a list, gets each group's rounds with
+    products and their count of walkers that stopped mid-tile."""
+    D = h.shape[1]
+    walkers, slots, _, _, vg, _, ng = tg_plan(D, V)
+    chains = 4 // ng
+    h, g = h.float(), g.float()
+    rowptr = np.searchsorted(dst, np.arange(N + 1))
+    tiles = -(-N // TILE)
+    partials = []
+    for p in range(parts):
+        tb, te = p * tiles // parts, (p + 1) * tiles // parts
+        acc = torch.zeros(V, D, D)
+        for v0 in range(0, V, vg):
+            group = set(range(v0, min(V, v0 + vg)))
+            ws = [{"tile": tb + w, "chunks": None} for w in range(walkers)]
+            n_rounds = n_stops = 0
+            while True:
+                sets = []
+                for w in ws:
+                    if w["tile"] >= te:
+                        continue
+                    if w["chunks"] is None:  # a fresh tile
+                        n0 = w["tile"] * TILE
+                        w["n0"], w["i"] = n0, 0
+                        w["chunks"] = [[e for e in c if int(bond[e]) in group]
+                                       for c in _tile_chunks(rowptr, n0, N, mask)]
+                        w["todo"] = (set(int(bond[e]) for e in w["chunks"][0])
+                                     if w["chunks"] else set())
+                    Y, slot_types = torch.zeros(slots, TILE, D), []
+                    stopped = False
+                    while w["i"] < len(w["chunks"]):
+                        w["todo"] = _add_chunk(Y, slot_types, w["todo"], w["chunks"][w["i"]], h,
+                                               src, dst, bond, w["n0"])
+                        if w["todo"]:
+                            stopped = True
+                            break
+                        w["i"] += 1
+                        if w["i"] < len(w["chunks"]):
+                            w["todo"] = set(int(bond[e]) for e in w["chunks"][w["i"]])
+                    G = torch.zeros(TILE, D)
+                    rows = min(TILE, N - w["n0"])
+                    G[:rows] = g[w["n0"]:w["n0"] + rows]
+                    sets.append((slot_types, Y, G))
+                    n_stops += stopped
+                    if not stopped:
+                        w["tile"] += walkers
+                        w["chunks"] = None
+                if not sets:
+                    break
+                for v in sorted(group):
+                    held = [(Y[st.index(v)], G) for st, Y, G in sets if v in st]
+                    if not held:
+                        continue
+                    s = None
+                    for chain in (held[c::chains] for c in range(chains)):
+                        if chain:
+                            part = product_tiles_bf16x3(
+                                torch.cat([y.t() for y, _ in chain], dim=1),
+                                torch.cat([gr for _, gr in chain], dim=0))
+                            s = part if s is None else s + part
+                    acc[v] = acc[v] + s
+                n_rounds += 1
+            if rounds is not None:
+                rounds.append((n_rounds, n_stops))
+        partials.append(acc)
+    sums = []
+    for w in range(min(8, parts)):
+        s = torch.zeros(V, D, D)
+        for p in range(w, parts, 8):
+            s = s + partials[p]
+        sums.append(s)
+    total = sums[0]
+    for s in sums[1:]:
+        total = total + s
+    return total.permute(1, 0, 2).reshape(D, V * D)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_table_grad(case):
+    """JAX's ``_vjp_bwd`` dK on a case, for a seeded cotangent."""
+    N, V, h, m_table, gru, src, dst, bond, mask = _case(case)
+    g = np.random.default_rng(_CASE_PARAMS[case][3] + 100).normal(
+        size=(N, h.shape[1])).astype(np.float32)
+    jh = jnp.asarray(h, jnp.bfloat16 if case.endswith("h bf16") else jnp.float32)
+    res = (jh, j_lanes(jnp.asarray(m_table)), bond, src, dst, mask > 0)
+    dK = j_vjp_bwd(N, DEFAULT_WINDOW, DEFAULT_TILE, DEFAULT_MAX_TILES, True, res, jnp.asarray(g))[1]
+    return g, np.array(dK)
+
+
+TG_CASES = ["molecules N=256", "every type N=1001", "molecules N=128 D=128",
+            "molecules N=192 D=128 h bf16", "molecules N=128 D=8", "every type N=97 D=48",
+            "molecules N=192 D=24"]
+
+
+@pytest.mark.parametrize("case", TG_CASES)
+def test_table_grad_mirror_matches_jax_vjp_bwd(case):
+    """The table-gradient kernel's arithmetic against JAX's dK at f32
+    tolerance: the model's width, tiles holding all 7 types (more than the
+    4 slots: products mid-tile), D = 128 with h f32 and bf16 (4 walkers),
+    D = 8 and 24 (the rows padded to 16), D = 48 (two j-slices)."""
+    N, V, h, m_table, gru, src, dst, bond, mask = _case(case)
+    th = _t(h).to(torch.bfloat16) if case.endswith("h bf16") else _t(h)
+    g, want = _jax_table_grad(case)
+    got = table_grad_mirror(_t(g), th, bond, src, dst, mask > 0, N, V)
+    # f32 tolerance on the table's scale: an entry sums about E / V products
+    # whose partial sums reach the largest entries, so two f32 orders differ
+    # by ulps of those (every type N=1001: the mirror 1.4e-5 and JAX 1.9e-5
+    # off an f64 sum, largest entry 106), not of a small result
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+def test_table_grad_plan_and_its_stops():
+    """The plans ``csrc/table_grad.cu`` takes at the widths the paths run
+    (one piece, 8 walkers of 4 slots at D = 32; two j-slices at 64; at 128
+    four slices of every type with 4 walkers of 3 slots, where 8 would need
+    3 type groups; V = 32 with 4 walkers, in groups at D = 128), and the
+    walkers stop inside every tile of the every-type case (7 chunks a tile,
+    each meeting all 7 types) and in none of a molecule graph of 3 types.
+    The plans are ``chip_smoke.py``'s table, to which it holds the
+    library's plan on the card: the mirror's order is the kernel's."""
+    import chip_smoke
+
+    assert tg_plan(32, 7) == (8, 4, 32, 1, 7, 1, 2)
+    assert tg_plan(64, 7) == (8, 2, 32, 2, 7, 1, 4)
+    assert tg_plan(128, 7) == (4, 3, 32, 4, 7, 1, 4)
+    assert tg_plan(8, 7) == (8, 4, 16, 1, 7, 1, 1)
+    assert tg_plan(32, 32) == (4, 4, 32, 1, 32, 1, 2)
+    assert tg_plan(128, 32) == (4, 2, 32, 4, 8, 4, 4)
+    for (D, V), plan in chip_smoke.TABLE_GRAD_PLANS.items():
+        assert tg_plan(D, V) == plan, (D, V)
+    N, V, h, m_table, gru, src, dst, bond, mask = _case("every type N=1001")
+    rounds = []
+    table_grad_mirror(torch.zeros(N, 32), _t(h), bond, src, dst, mask > 0, N, V, rounds=rounds)
+    # 63 tiles in 3 parts: 21 a part, 2 a walker at most; each tile stops
+    # in each of its rounds but the last
+    assert rounds and all(stops > 0 and n > 2 for n, stops in rounds)
+    rng = np.random.default_rng(3)
+    src, dst, bond, mask = _molecular_edges(rng, 256 // 6, 20, 256, 3)
+    rounds = []
+    table_grad_mirror(torch.zeros(256, 32), torch.zeros(256, 32), bond, src, dst, mask > 0, 256,
+                      3, rounds=rounds)
+    assert rounds and all(stops == 0 for n, stops in rounds)

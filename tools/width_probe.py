@@ -1,10 +1,11 @@
-"""Three probes of the fused kernels' widths on one CUDA card, run from the
+"""Four probes of the fused kernels' widths on one CUDA card, run from the
 repository root with the tree to measure first on ``PYTHONPATH``:
 
     PYTHONPATH=. python tools/width_probe.py times [--general] [--dim {32,64,128},...]
         [--shape {cation,anion},...] [--design {teams,blocks}]
     PYTHONPATH=. python tools/width_probe.py designs
     PYTHONPATH=. python tools/width_probe.py grads
+    PYTHONPATH=. python tools/width_probe.py walkers
 
 ``times``: the device time (torch.profiler, mean of 60 launches) of the
 fused message kernel, its backward ``dh`` launch and the step kernel at
@@ -37,6 +38,14 @@ f64, at D = 32, 64 and 128 on the cation shape, with the weights at 0.2
 and at 0.2 * sqrt(32 / D) (scaled by fan-in). Per gradient it prints
 max(|err| / (1e-4 + 1e-4 |want|)): below 1 is within ``chip_smoke.py``'s
 ``GRAD_TOL``.
+
+``walkers``: the table-gradient kernel (``fused_message_table_grad``) with 8
+and with 4 walker warps a block, and with the library's choice, at D = 32,
+64 and 128 on the bench batch's cation and anion graphs, h f32: each
+against its plain version (max |err| over the table's largest entry), its
+time per call (as ``designs`` reads it) and the walkers the library
+chooses; one JSON line a shape and width, then a summary line of the
+shapes where the choice took the slower count.
 """
 
 import functools
@@ -298,6 +307,43 @@ def grads():
             print(f"D={D} weights {scale:.4f}: " + "; ".join(parts), flush=True)
 
 
+def walkers():
+    from ionic_mpnn_torch.ops.cuda import _lib, fused_message
+    from ionic_mpnn_torch.ops.cuda.segment_sum import csr_rowptr
+
+    _lib.library()
+    dev = torch.device("cuda", 0)
+    b, V = bench_batch(dev)
+    wrong = []
+    for shape in ("cation", "anion"):
+        g = getattr(b, shape)
+        N = g.node_capacity
+        rowptr = csr_rowptr(g.dst, N)
+        edges = (g.bond_ids, g.src, g.dst, g.edge_mask, V, rowptr)
+        for D in (32, 64, 128):
+            gen = torch.Generator().manual_seed(3)
+            h = torch.randn(N, D, generator=gen).to(dev)
+            cot = torch.randn(N, D, generator=gen).to(dev)
+            chosen = fused_message.table_grad_plan(D, V, N)["walkers"]
+            row = {"shape": shape, "N": N, "E": g.src.shape[0], "D": D, "chosen": chosen,
+                   "ms": {}, "rel_err": {}}
+            with torch.inference_mode():
+                want = fused_message.fused_message_table_grad_plain(cot, h, *edges[:-1])
+                scale = want.abs().max().item()
+                for w in (8, 4, 0):
+                    call = functools.partial(fused_message.fused_message_table_grad, cot, h,
+                                             *edges, walkers=w)
+                    row["rel_err"][w] = (call() - want).abs().max().item() / scale
+                    row["ms"][w] = graph_ms(call)
+            faster = min((8, 4), key=row["ms"].get)
+            if faster != chosen:
+                wrong.append(f"{shape} N={N} D={D}: chose {chosen} walkers "
+                             f"{row['ms'][chosen]:.5f} ms, {faster} {row['ms'][faster]:.5f} ms")
+            print(json.dumps(row), flush=True)
+    print(json.dumps({"card": torch.cuda.get_device_name(0), "slower_choices": wrong}),
+          flush=True)
+
+
 if __name__ == "__main__":
     mode = sys.argv[1] if len(sys.argv) > 1 else ""
     if mode == "times":
@@ -314,5 +360,7 @@ if __name__ == "__main__":
         designs()
     elif mode == "grads":
         grads()
+    elif mode == "walkers":
+        walkers()
     else:
         sys.exit(__doc__)
