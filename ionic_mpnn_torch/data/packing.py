@@ -32,6 +32,8 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 __all__ = [
     "PackedGraphs",
     "IonPairBatch",
@@ -298,11 +300,14 @@ class StaticBatches:
     array of its first rows. :meth:`copy_into` does both for a list of
     batches; the native packer writes into :meth:`staging`'s arrays
     directly. Every batch must have the plan's :func:`batch_signature`
-    (the template's): anything else is refused."""
+    (the template's): anything else is refused. With ``span``, each
+    :meth:`copy_into` call is a span of that name (``utils/profiling.py``)."""
 
-    def __init__(self, template: IonPairBatch, slots: int, device):
+    def __init__(self, template: IonPairBatch, slots: int, device,
+                 span: Optional[str] = None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
+        self.span = span
         self.template = template
         self.signature = batch_signature(template)
         self.slots = slots
@@ -358,6 +363,13 @@ class StaticBatches:
     def copy_into(self, batches: Sequence[IonPairBatch]) -> None:
         """Put ``batches`` into slots ``0..len-1``: host batches through the
         staging buffers, batches already on the card by device copies."""
+        if self.span is None:
+            self._copy_into(batches)
+            return
+        with profiling.span(self.span, batches=len(batches)):
+            self._copy_into(batches)
+
+    def _copy_into(self, batches: Sequence[IonPairBatch]) -> None:
         if not 0 < len(batches) <= self.slots:
             raise ValueError(f"{len(batches)} batches for {self.slots} slots")
         for b in batches:

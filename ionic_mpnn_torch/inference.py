@@ -50,9 +50,16 @@ from .data.loader import BatchPlan
 from .data.packing import (IonPairBatch, PackedGraphs, StaticBatches, batch_signature,
                            pack_graphs, pack_ion_pair_batch, round_up, window_tile_batch)
 from .ops import grid_pack
+from .models.dual_encoder import MODEL_PHASES
 from .training.graphs import Replay
+from .utils import profiling
 
 __all__ = ["ScreeningEngine", "ScreenResult", "IonPool", "SweepReport", "stable_top_k"]
+
+# a screening dispatch's phases (utils/profiling.py): per batch the pack,
+# the model (whose own phases it does not split) and the top-k, then the
+# replay's merge
+SWEEP_SCOPE = profiling.scope("sweep", ("pack", "forward", "topk", "merge"), mute=MODEL_PHASES)
 
 
 def stable_top_k(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -138,17 +145,28 @@ class ScreenResult:
 
 @dataclass
 class SweepReport:
-    """Outcome of a :meth:`ScreeningEngine.screen_grid` sweep."""
+    """Outcome of a :meth:`ScreeningEngine.screen_grid` sweep.
+
+    ``wall_s``: from the upload of the pools (device path) or the
+    producer's start (host path) to the last merge; the pools and the
+    plan come before it. ``producer_wait_s``: the consumer's time blocked
+    on host packing (host path; the device path has no producer: 0.0).
+    ``device_s``: the dispatches' host time, each the queueing of a replay
+    (or a batch's call) and the wait for the one before it, its top-k
+    copied back (device path: the sweep's ``screen.dispatch`` spans).
+    ``steady_pairs_per_s``: pairs/s after the first dispatch completes,
+    its merge included (the capture and the pool upload excluded; device
+    path: from the end of the first ``screen.merge`` span to the end of
+    ``screen.replays``); 0.0 when the sweep fit in one dispatch, and on
+    the host path."""
 
     results: List[ScreenResult]
     n_screened: int
     pairs_per_s: float
     wall_s: float
     skipped: List[Tuple[str, str]]
-    producer_wait_s: float = 0.0  # consumer time blocked on host packing
-    device_s: float = 0.0  # dispatch + device forward + top-k transfer
-    # pairs/s after the first dispatch completes (the capture and the pool
-    # upload excluded); 0.0 when the sweep fit in one dispatch
+    producer_wait_s: float = 0.0
+    device_s: float = 0.0
     steady_pairs_per_s: float = 0.0
 
 
@@ -535,22 +553,43 @@ class ScreeningEngine:
         their own pitch; ``False`` sizes both by the shared maximum).
         ``lane_aligned_tiles`` rounds the aligned device pools' per-molecule
         edge capacity so the implicit window tile is a multiple of 128, as
-        the JAX package does for its TPU lanes; ``False`` keeps it tight."""
+        the JAX package does for its TPU lanes; ``False`` keeps it tight.
+
+        The sweep is the span ``screen.sweep`` (attribute ``candidates``),
+        holding ``screen.pools`` (both :class:`IonPool`\\ s), ``screen.plan``
+        (:meth:`_grid_plan`) and, on the device path, ``screen.upload`` (the
+        pools and temperatures to the card) and ``screen.replays``: each
+        replay's ``screen.dispatch`` (the graph's ``graph.first_call`` and
+        ``graph.capture`` inside the first) and ``screen.merge``."""
         if not device_pack and not native.native_available():
             raise RuntimeError("screen_grid host path requires the native packer")
-        cat_pool = IonPool(cations, self.vocab)
-        an_pool = IonPool(anions, self.vocab)
-        temps = np.atleast_1d(np.asarray(temperatures, np.float32))
+        with profiling.span("screen.sweep") as sweep:
+            with profiling.span("screen.pools"):
+                cat_pool = IonPool(cations, self.vocab)
+                an_pool = IonPool(anions, self.vocab)
+            temps = np.atleast_1d(np.asarray(temperatures, np.float32))
+            sweep.attrs["candidates"] = len(cat_pool) * len(an_pool) * len(temps)
+            with profiling.span("screen.plan"):
+                plan = self._grid_plan(cat_pool, an_pool, len(temps), device_pack,
+                                       per_side_caps)
+            k_batch = int(min(top_k, self.plan.batch_size))
+            if device_pack:
+                return self._screen_grid_device(
+                    cat_pool, an_pool, temps, plan, top_k, k_batch, minimize,
+                    max(1, int(steps_per_call)), progress_every,
+                    lane_aligned_tiles=lane_aligned_tiles)
+            return self._screen_grid_host(cat_pool, an_pool, temps, plan, top_k, k_batch,
+                                          minimize, pack_ahead, progress_every)
+
+    def _screen_grid_host(self, cat_pool: IonPool, an_pool: IonPool, temps: np.ndarray,
+                          plan: BatchPlan, top_k: int, k_batch: int, minimize: bool,
+                          pack_ahead: int, progress_every: int) -> SweepReport:
+        """The host path: batches packed by the native packer in a producer
+        thread, copied to the card, forward and per-batch top-k there, the
+        survivors merged on the host."""
         C, A, T = len(cat_pool), len(an_pool), len(temps)
         total = C * A * T
         B = self.plan.batch_size
-        plan = self._grid_plan(cat_pool, an_pool, T, device_pack, per_side_caps)
-        k_batch = int(min(top_k, B))
-        if device_pack:
-            return self._screen_grid_device(
-                cat_pool, an_pool, temps, plan, top_k, k_batch, minimize,
-                max(1, int(steps_per_call)), progress_every,
-                lane_aligned_tiles=lane_aligned_tiles)
         topk_fn = self._device_topk(k_batch, minimize)
 
         def build(g0: int, g1: int):
@@ -883,7 +922,9 @@ class ScreeningEngine:
                       lane_aligned_tiles: bool = True) -> "_DeviceSweep":
         """The device sweep's program: the pools uploaded once, and K
         batches rebuilt on the card per call of one CUDA graph (JAX jits the
-        same function as one ``lax.scan`` dispatch)."""
+        same function as one ``lax.scan`` dispatch). A call stamps its
+        phases (``utils/profiling.py``'s ``"sweep"`` scope): per batch
+        ``pack``, ``forward`` and ``topk``, then the ``merge``."""
         B = plan.batch_size
         dev = self.device
         aligned = plan.edge_layout == "window_aligned"
@@ -922,18 +963,22 @@ class ScreeningEngine:
                 anion_pitch=plan.anion_pitch)
 
         def one(g0):
+            profiling.phase("pack")
             batch = pack(g0)
+            profiling.phase("forward")
             pred = self.model(batch)["pred"].float()
+            profiling.phase("topk")
             score = torch.where(batch.sample_mask > 0, -pred if minimize else pred,
                                 float("-inf"))
             vals, idx = stable_top_k(score, k_batch)
             return vals, g0 + idx.to(torch.int32)
 
         def dispatch():
-            with torch.inference_mode():
+            with torch.inference_mode(), profiling.phase_scope(SWEEP_SCOPE, dev):
                 if K == 1:
                     return one(scal[0])
                 outs = [one(scal[0] + s * B) for s in range(K)]
+                profiling.phase("merge")
                 # in batch order, each batch's survivors in score order: equal
                 # scores sit in candidate-id order, so the stable merge keeps
                 # the lower id, as lax.top_k over JAX's scan output does
@@ -953,9 +998,9 @@ class ScreeningEngine:
         total = C * A * T
         B = plan.batch_size
         dev = self.device
-        t0 = time.perf_counter()
-        sweep = self._device_sweep(cat_pool, an_pool, temps, plan, k_batch, minimize, K,
-                                   lane_aligned_tiles)
+        with profiling.span("screen.upload") as upload:
+            sweep = self._device_sweep(cat_pool, an_pool, temps, plan, k_batch, minimize, K,
+                                       lane_aligned_tiles)
         pin = dev.type == "cuda"
         host_scal = [torch.zeros(4, dtype=torch.int32, pin_memory=pin) for _ in range(2)]
         host_out = [(torch.empty(k_batch, dtype=torch.float32, pin_memory=pin),
@@ -965,16 +1010,20 @@ class ScreeningEngine:
 
         heap: List[Tuple[float, int]] = []  # (score, gid); higher score is better
 
-        def merge(slot: int) -> None:
-            vals, gids = host_out[slot][0].numpy(), host_out[slot][1].numpy()
-            for v, gid in zip(vals, gids):
-                if not np.isfinite(v):
-                    continue
-                entry = (float(v), int(gid))
-                if len(heap) < top_k:
-                    heapq.heappush(heap, entry)
-                else:
-                    heapq.heappushpop(heap, entry)
+        def merge(slot: int, done: int):
+            """Merge a completed dispatch's survivors; ``done``: the
+            candidates every completed dispatch covered. Its span."""
+            with profiling.span("screen.merge", candidates=done) as span:
+                vals, gids = host_out[slot][0].numpy(), host_out[slot][1].numpy()
+                for v, gid in zip(vals, gids):
+                    if not np.isfinite(v):
+                        continue
+                    entry = (float(v), int(gid))
+                    if len(heap) < top_k:
+                        heapq.heappush(heap, entry)
+                    else:
+                        heapq.heappushpop(heap, entry)
+            return span
 
         # one-deep pipeline: replay i+1 is queued before replay i's survivors
         # are read. Each replay's outputs go to their own pinned buffers in
@@ -982,47 +1031,42 @@ class ScreeningEngine:
         # outputs; a scalar buffer is rewritten only after the copy-out that
         # followed its last use has completed (merged one iteration ago)
         pending = None
-        done = 0
         device_s = 0.0
-        t_warm = done_warm = 0.0  # clock and progress after the first sync
-        for it, g0 in enumerate(range(0, total, B * K)):
-            slot = it % 2
-            t_d = time.perf_counter()
-            host_scal[slot].numpy()[:] = (g0, C, A, total)
-            sweep.scal.copy_(host_scal[slot], non_blocking=True)
-            vals, gids = sweep.run()
-            host_out[slot][0].copy_(vals, non_blocking=True)
-            host_out[slot][1].copy_(gids, non_blocking=True)
-            if pin:
-                events[slot] = torch.cuda.Event()
-                events[slot].record()
+        first_merge = None  # the first completed dispatch's: the capture and upload before it
+        with profiling.span("screen.replays") as replays:
+            for it, g0 in enumerate(range(0, total, B * K)):
+                slot = it % 2
+                with profiling.span("screen.dispatch", candidates=g0) as dispatch:
+                    host_scal[slot].numpy()[:] = (g0, C, A, total)
+                    sweep.scal.copy_(host_scal[slot], non_blocking=True)
+                    vals, gids = sweep.run()
+                    host_out[slot][0].copy_(vals, non_blocking=True)
+                    host_out[slot][1].copy_(gids, non_blocking=True)
+                    if pin:
+                        events[slot] = torch.cuda.Event()
+                        events[slot].record()
+                    if pending is not None and events[pending] is not None:
+                        # this wait for the previous replay, not the queueing
+                        # of the next one, is the device time
+                        events[pending].synchronize()
+                device_s += dispatch.seconds
+                if pending is not None:
+                    done_merge = merge(pending, g0)
+                    first_merge = first_merge or done_merge
+                pending = slot
+                done = min(g0 + B * K, total)
+                if progress_every and done % progress_every < B * K:
+                    dt = (time.time_ns() - upload.start) / 1e9
+                    print(f"[screen] {done}/{total} ({done/dt:,.0f} pairs/s)", flush=True)
             if pending is not None:
-                # this wait for the previous replay, not the queueing of the
-                # next one, is the device time
                 if events[pending] is not None:
                     events[pending].synchronize()
-                device_s += time.perf_counter() - t_d
-                merge(pending)
-                if t_warm == 0.0:
-                    # the first completed dispatch: everything before it holds
-                    # the capture and the pool upload
-                    t_warm = time.perf_counter()
-                    done_warm = g0  # candidates the synced dispatch covered
-            else:
-                device_s += time.perf_counter() - t_d
-            pending = slot
-            done = min(g0 + B * K, total)
-            if progress_every and done % progress_every < B * K:
-                dt = time.perf_counter() - t0
-                print(f"[screen] {done}/{total} ({done/dt:,.0f} pairs/s)", flush=True)
-        if pending is not None:
-            if events[pending] is not None:
-                events[pending].synchronize()
-            merge(pending)
-        dt = time.perf_counter() - t0
+                merge(pending, total)
+        dt = (replays.end - upload.start) / 1e9
         steady = 0.0
-        if t_warm and total > done_warm:
-            steady = (total - done_warm) / (time.perf_counter() - t_warm)
+        if first_merge is not None:
+            steady = ((total - first_merge.attrs["candidates"])
+                      / ((replays.end - first_merge.end) / 1e9))
 
         results = []
         for score, gid in sorted(heap, reverse=True):

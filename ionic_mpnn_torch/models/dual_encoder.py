@@ -38,9 +38,14 @@ from ..ops.cuda.fused_step import fused_mp_step
 from ..ops.cuda.segment_sum import csr_rowptr
 from ..ops.message import bond_type_matrices, onehot_operands, parity_edge_mask
 from ..ops.segment import graph_sum_pool, graph_sum_pool_windowed
+from ..utils import profiling
 from .layers import BondMatrixMessage, GatedUpdate, dense, keras_embed_init_
 
-__all__ = ["IonEncoder", "DualEncoderTrunk", "check_config", "bind_ep"]
+__all__ = ["IonEncoder", "DualEncoderTrunk", "check_config", "bind_ep", "MODEL_PHASES"]
+
+# the phases the trunk stamps (``utils/profiling.py``), each ion's encoder
+# the first three: a scope that opens around the model lists or mutes them
+MODEL_PHASES = ("embed", "message", "readout", "head")
 
 _MESSAGE_IMPLS = ("gather", "typed", "symmetric", "onehot", "pallas_fused",
                   "pallas_step")
@@ -71,7 +76,9 @@ def check_config(cfg: ModelConfig) -> None:
 
 
 class IonEncoder(nn.Module):
-    """Encode one packed ion batch into per-graph fingerprints (B, fp)."""
+    """Encode one packed ion batch into per-graph fingerprints (B, fp):
+    the phases ``embed``, ``message`` (every step) and ``readout``, stamped
+    where a phase scope is open (``utils/profiling.py``)."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
@@ -110,6 +117,7 @@ class IonEncoder(nn.Module):
                                "model through an EP step (parallel.make_ep_train_step, "
                                "make_aligned_ep_train_step) or bind_ep")
         N = graphs.node_capacity
+        profiling.phase("embed")
         if self.embed_impl() == "onehot":
             # value-identical to the gather; the table's gradient is a
             # product, summed in f32 and rounded to the compute dtype (the
@@ -136,6 +144,7 @@ class IonEncoder(nn.Module):
                                        edge_mask, N, bond_table.shape[0],
                                        cfg.onehot_window, halo, self.dtype)
 
+        profiling.phase("message")
         for step in range(cfg.num_steps):
             bmm = getattr(self, f"bmm_{step}")
             gru = getattr(self, f"gru_{step}")
@@ -149,6 +158,7 @@ class IonEncoder(nn.Module):
                       edge_mask, rowptr=rowptr, halo=halo, operands=operands, ep=ep)
             h = gru(h, agg)
 
+        profiling.phase("readout")
         if ep is not None and cfg.message_impl == "onehot":
             # node-sharded (aligned EP): this shard's rows pooled into the
             # global graph slots in the compute dtype, as JAX pools them
@@ -201,5 +211,6 @@ class DualEncoderTrunk(nn.Module):
     def forward(self, cation: PackedGraphs, anion: PackedGraphs) -> Dict[str, torch.Tensor]:
         fp_cat = self.cat_encoder(cation, self.atom_embed, self.bond_embed)
         fp_an = self.an_encoder(anion, self.atom_embed, self.bond_embed)
+        profiling.phase("head")
         mixed = torch.relu(self.cat_proj(fp_cat)) + torch.relu(self.an_proj(fp_an))
         return {"mixed": mixed, "fp_cat": fp_cat, "fp_an": fp_an}

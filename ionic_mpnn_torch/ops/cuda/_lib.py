@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["library", "build", "check", "require_cuda", "needs_grad", "stream_ptr",
+__all__ = ["library", "loaded", "build", "check", "require_cuda", "needs_grad", "stream_ptr",
            "aligned16", "BUILD_LOG"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -77,6 +77,9 @@ _SIGNATURES = {
     # g, h, h_dtype, bond, src, mask, rowptr, out, n_nodes, dim, n_types,
     # walkers, scratch, stream
     "ionic_table_grad": ([_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
+    # ring, next, capacity (a power of two), phase code, stream: one phase
+    # stamp (utils/profiling.py)
+    "ionic_trace_stamp": ([_P, _P, ctypes.c_longlong, _I, _P], _I),
 }
 
 
@@ -153,6 +156,11 @@ def library() -> ctypes.CDLL:
             fn.restype = restype
         _lib = lib
     return _lib
+
+
+def loaded() -> bool:
+    """Whether :func:`library` has loaded the library (nothing is built)."""
+    return _lib is not None
 
 
 def check(code: int, what: str) -> None:

@@ -68,6 +68,7 @@ from typing import Optional
 
 import torch
 
+from ...utils import profiling
 from . import _lib
 from .segment_sum import csr_rowptr
 
@@ -89,17 +90,16 @@ __all__ = [
     "fused_split_plain",
 ]
 
-launches = 0  # kernel launches since the last reset (ops.cuda.reset_launch_counts)
-dh_launches = 0  # of those, the backward's dh launches on (g, Kᵀ)
-# of those, the launches that ran the 64-row blocks, each after their
-# prologue (fused_message_split_kernel), and the dh launches among them
-block_launches = 0
-dh_block_launches = 0
-split_launches = 0  # launches of the prologue alone (fused_split: checks and timings)
-# calls of fused_message_table_grad that launched its kernel, each one
-# launch of table_grad_bucket_kernel and one of table_grad_sum_kernel (as a
-# launch that runs the 64-row blocks counts its prologue with it)
-table_grad_launches = 0
+# launch counters (``utils/profiling.py``'s registry, shown by
+# ops.cuda.launch_counts): ``launches.fused_message_aggregate`` every kernel
+# launch; ``..._dh`` those of the backward's dh on (g, Kᵀ); ``..._blocks`` and
+# ``..._dh_blocks`` those that ran the 64-row blocks, each after their
+# prologue (fused_message_split_kernel); ``launches.fused_message_split`` the
+# prologue alone (fused_split: checks and timings);
+# ``launches.fused_message_table_grad`` the calls of fused_message_table_grad
+# that launched its kernel, each one launch of table_grad_bucket_kernel and
+# one of table_grad_sum_kernel (as a launch that runs the 64-row blocks
+# counts its prologue with it)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The widths the fused kernels take: the library's ionic_fused_max_types is
@@ -252,7 +252,6 @@ def fused_split(K: torch.Tensor, w: Optional[torch.Tensor] = None, scratch=None,
     version."""
     if K.device.type == "cpu":
         return fused_split_plain(K, w)
-    global split_launches
     D = K.shape[0]
     V = K.shape[1] // D
     nks, w_off, cols, ks, nkw, groups = _split_layout(D, V)
@@ -267,7 +266,7 @@ def fused_split(K: torch.Tensor, w: Optional[torch.Tensor] = None, scratch=None,
             K.data_ptr(), None if w is None else w.data_ptr(), scratch.data_ptr(), D, V,
             int(w is not None), _lib.stream_ptr(K.device))
     _lib.check(code, "fused_message_split")
-    split_launches += 1
+    profiling.count("launches.fused_message_split")
     if not read:
         return scratch
     kp = scratch[:V * nks * 3 * D * 40 * 2].view(torch.bfloat16).view(V, nks, 3, D, 40)
@@ -287,7 +286,7 @@ def _aggregate(h, K, bond_ids, src, dst, edge_mask, num_nodes: int, rowptr,
                dh: bool = False):
     """One forward evaluation, no autograd: the plain version for a CPU
     tensor, else one kernel launch. ``dh`` marks the backward's launch on
-    ``(g, Kᵀ)``, which ``dh_launches`` counts too."""
+    ``(g, Kᵀ)``, which ``launches.fused_message_aggregate_dh`` counts too."""
     if h.device.type == "cpu":
         return fused_message_aggregate_plain(h, K, bond_ids, src, dst,
                                              edge_mask, num_nodes)
@@ -297,7 +296,6 @@ def _aggregate(h, K, bond_ids, src, dst, edge_mask, num_nodes: int, rowptr,
     check_fused_inputs("fused_message_aggregate", h, K, bond_ids, src, dst,
                        edge_mask, num_nodes, rowptr)
 
-    global launches, dh_launches, block_launches, dh_block_launches
     h, K = _lib.aligned16(h), _lib.aligned16(K)
     D = h.shape[1]
     out = torch.empty(num_nodes, D, dtype=torch.float32, device=h.device)
@@ -309,12 +307,12 @@ def _aggregate(h, K, bond_ids, src, dst, edge_mask, num_nodes: int, rowptr,
             out.data_ptr(), num_nodes, D, K.shape[1] // D,
             None if scratch is None else scratch.data_ptr(), _lib.stream_ptr(h.device))
     _lib.check(code, "fused_message_aggregate")
-    launches += 1
+    profiling.count("launches.fused_message_aggregate")
     if dh:
-        dh_launches += 1
+        profiling.count("launches.fused_message_aggregate_dh")
     if scratch is not None:
-        block_launches += 1
-        dh_block_launches += int(dh)
+        profiling.count("launches.fused_message_aggregate_blocks")
+        profiling.count("launches.fused_message_aggregate_dh_blocks", int(dh))
     return out
 
 
@@ -403,7 +401,6 @@ def fused_message_table_grad(g, h, bond_ids, src, dst, edge_mask, n_types: int,
     if walkers not in (0, 4, 8):
         raise ValueError(f"fused_message_table_grad: walkers={walkers}, of 0, 4 and 8")
 
-    global table_grad_launches
     g, h = _lib.aligned16(g), _lib.aligned16(h)
     out = torch.empty(D, n_types * D, dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
@@ -418,7 +415,7 @@ def fused_message_table_grad(g, h, bond_ids, src, dst, edge_mask, n_types: int,
             edge_mask.data_ptr(), rowptr.data_ptr(), out.data_ptr(), N, D, n_types, walkers,
             None if scratch is None else scratch.data_ptr(), _lib.stream_ptr(g.device))
     _lib.check(code, "fused_message_table_grad")
-    table_grad_launches += 1
+    profiling.count("launches.fused_message_table_grad")
     return out
 
 

@@ -51,6 +51,7 @@ from typing import Dict, Optional
 import torch
 
 from ..gru import gated_update
+from ...utils import profiling
 from . import _lib
 from .fused_message import (
     _DTYPES,
@@ -69,9 +70,6 @@ __all__ = ["FusedMPStep", "GRU_KEYS", "fused_mp_step", "fused_mp_step_plain",
 
 # the GatedUpdate params in the order FusedMPStep takes them
 GRU_KEYS = ("wz", "bz", "wr", "br", "wh", "bh", "ln_scale", "ln_bias")
-
-launches = 0  # kernel launches since the last reset (ops.cuda.reset_launch_counts)
-block_launches = 0  # of those, the launches that ran the 64-row blocks (and their prologue)
 
 
 def pack_gru_weights(gru: Dict[str, torch.Tensor]):
@@ -116,7 +114,6 @@ def _step(h, m_table, gru, bond_ids, src, dst, edge_mask, num_nodes: int,
                        num_nodes, rowptr,
                        extra=(("gru_w", w), ("gru_b", b), ("ln", ln)), gru=True)
 
-    global launches, block_launches
     h = _lib.aligned16(h)
     out = torch.empty(num_nodes, D, dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
@@ -128,9 +125,9 @@ def _step(h, m_table, gru, bond_ids, src, dst, edge_mask, num_nodes: int,
             out.data_ptr(), num_nodes, D, K.shape[1] // D,
             None if scratch is None else scratch.data_ptr(), _lib.stream_ptr(h.device))
     _lib.check(code, "fused_mp_step")
-    launches += 1
-    if scratch is not None:
-        block_launches += 1
+    profiling.count("launches.fused_mp_step")
+    if scratch is not None:  # the 64-row blocks (and their prologue)
+        profiling.count("launches.fused_mp_step_blocks")
     return out
 
 

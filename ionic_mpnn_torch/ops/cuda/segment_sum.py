@@ -28,12 +28,12 @@ from typing import Optional
 
 import torch
 
+from ...utils import profiling
 from . import _lib
 
 __all__ = ["SortedSegmentSum", "sorted_segment_sum", "sorted_segment_sum_plain",
            "csr_rowptr"]
 
-launches = 0  # kernel launches since the last reset (ops.cuda.reset_launch_counts)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -79,7 +79,6 @@ def _segment_sum(messages, dst, num_nodes: int, rowptr):
     _require(0 <= num_nodes < 2 ** 31 and messages.numel() < 2 ** 62,
              "size out of range")
 
-    global launches
     out = torch.empty(num_nodes, messages.shape[1], dtype=torch.float32,
                       device=messages.device)
     with torch.cuda.device(messages.device):
@@ -88,7 +87,7 @@ def _segment_sum(messages, dst, num_nodes: int, rowptr):
             out.data_ptr(), num_nodes, messages.shape[1],
             _lib.stream_ptr(messages.device))
     _lib.check(code, "sorted_segment_sum")
-    launches += 1
+    profiling.count("launches.sorted_segment_sum")
     return out
 
 

@@ -28,16 +28,22 @@ backward on another stream (a loss kept from an eager step, say): that
 graph keeps the parameters' gradient accumulators on its stream, and the
 capture fails.
 
-The kernels' launch counters (``ops.cuda.launch_counts``) count wrapper
-calls. A capture's calls launch nothing, so :class:`Replay` takes them
-back, keeps them as the graph's launches per replay and adds them on each
-replay.
+The program's counters (``utils/profiling.py``: the kernels' launches,
+``trace.stamps``) count host calls. A capture's calls run nothing, so
+:class:`Replay` takes back everything a capture counted, keeps it as the
+graph's counts per replay and adds it on each replay. Its first call and
+its capture are the spans ``graph.first_call`` and ``graph.capture``; the
+card's phase stamps are launched in the capture alone (every replay
+stamps, the eager first call does not).
 
 :class:`StepGraphs` is one train step's pair of graphs for one plan, over
 the slots of a :class:`~ionic_mpnn_torch.data.packing.StaticBatches`: K
 steps over slots ``0..K-1`` (one replay per group of K batches) and one
 step over slot 0 (an epoch's remainder, one replay per batch: the port
 runs no padding batch, where JAX pads the group and skips the padding).
+A call of :meth:`StepGraphs.run` is the span ``train.replay``, its slots'
+:meth:`~ionic_mpnn_torch.data.packing.StaticBatches.copy_into` the span
+``train.copy``.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import torch
 
 from ..data.packing import IonPairBatch, StaticBatches
 from ..ops import cuda as kernels
+from ..utils import profiling
 
 __all__ = ["Replay", "StepGraphs", "side_stream"]
 
@@ -84,28 +91,39 @@ class Replay:
     ``generators``: a callable that returns the ``torch.Generator``\\ s the
     function draws from besides the default one (the dropout modules'),
     called when the capture starts. A replay returns the graph's static
-    outputs: the next replay overwrites them."""
+    outputs: the next replay overwrites them. ``attrs``: the integer
+    attributes of its ``graph.first_call`` and ``graph.capture`` spans."""
 
     def __init__(self, fn: Callable[[], Any], device, graphed: bool, pool=None,
-                 generators: Optional[Callable[[], List[torch.Generator]]] = None):
+                 generators: Optional[Callable[[], List[torch.Generator]]] = None,
+                 **attrs: int):
         self.fn = fn
         self.device = torch.device(device)
         self.graphed = graphed and self.device.type == "cuda"
         self.pool = pool
         self.generators = generators
+        self.attrs = attrs
         self.graph = None
         self.out = None
-        self.launches: Optional[dict] = None  # kernel launches per replay
+        self.counts: Optional[dict] = None  # the program's counts per replay
+
+    @property
+    def launches(self) -> Optional[dict]:
+        """The kernel launches per replay, keyed as ``ops.cuda.launch_counts``
+        keys them (with the designs' counters)."""
+        return None if self.counts is None else kernels.launch_counts(True, self.counts)
 
     def __call__(self):
         if not self.graphed:
             return self.fn()
         if self.graph is None:
-            out = self._eager()
-            self._capture()
+            with profiling.span("graph.first_call", **self.attrs):
+                out = self._eager()
+            with profiling.span("graph.capture", **self.attrs):
+                self._capture()
             return out
         self.graph.replay()
-        kernels.add_launch_counts(self.launches)
+        profiling.add_counters(self.counts)
         return self.out
 
     def _eager(self):
@@ -125,7 +143,7 @@ class Replay:
         graph = torch.cuda.CUDAGraph()
         for gen in (self.generators() if self.generators else ()):
             graph.register_generator_state(gen)
-        before = kernels.launch_counts(designs=True)
+        before = profiling.counters()
         collecting = gc.isenabled()
         gc.disable()
         try:
@@ -134,9 +152,11 @@ class Replay:
         finally:
             if collecting:
                 gc.enable()
-            after = kernels.launch_counts(designs=True)
-            kernels.set_launch_counts(before)  # the capture launched nothing
-        self.launches = {k: after[k] - before[k] for k in after}
+            after = profiling.counters()
+            # the capture ran nothing: a replay runs what it counted
+            profiling.set_counters({k: before.get(k, 0) for k in after})
+        self.counts = {k: n - before.get(k, 0) for k, n in after.items()
+                       if n != before.get(k, 0)}
         self.graph, self.out = graph, out
 
 
@@ -155,7 +175,7 @@ class StepGraphs:
                  steps: int, device, graphed: bool, pool=None, generators=None,
                  counts: bool = False):
         self.steps = steps
-        self.slots = StaticBatches(template, steps, device)
+        self.slots = StaticBatches(template, steps, device, span="train.copy")
         self.graphed = graphed and self.slots.device.type == "cuda"
         self.counts = (torch.zeros(steps, dtype=torch.float32, device=self.slots.device)
                        if counts else None)
@@ -164,10 +184,10 @@ class StepGraphs:
                      else (lambda b, j: body(b, self.counts[j])))
         batches = self.slots.batches
         self.one = Replay(lambda: self.body(batches[0], 0).reshape(1, 2), device, graphed,
-                          pool, generators)
+                          pool, generators, steps=1)
         self.group = self.one if steps == 1 else Replay(
             lambda: torch.stack([self.body(b, j) for j, b in enumerate(batches)]), device,
-            graphed, pool, generators)
+            graphed, pool, generators, steps=steps)
 
     def set_counts(self, values) -> None:
         """Queue the copy of ``values`` (host numbers) into ``counts[0..]``."""
@@ -183,15 +203,17 @@ class StepGraphs:
         ``(loss, data_loss)`` as a fresh (n, 2) device tensor."""
         if not 0 < n <= self.steps:
             raise ValueError(f"{n} steps for {self.steps} slots")
-        if n == self.steps:
-            return self.group().clone()
-        if not self.graphed:
-            return torch.stack([self.body(b, j) for j, b in enumerate(self.slots.batches[:n])])
-        out = []
-        for j in range(n):
-            if j:
-                self.slots.move(j, 0)
-                if self.counts is not None:
-                    self.counts[0].copy_(self.counts[j])
-            out.append(self.one().clone())
-        return torch.cat(out)
+        with profiling.span("train.replay", steps=n):
+            if n == self.steps:
+                return self.group().clone()
+            if not self.graphed:
+                return torch.stack([self.body(b, j)
+                                    for j, b in enumerate(self.slots.batches[:n])])
+            out = []
+            for j in range(n):
+                if j:
+                    self.slots.move(j, 0)
+                    if self.counts is not None:
+                        self.counts[0].copy_(self.counts[j])
+                out.append(self.one().clone())
+            return torch.cat(out)

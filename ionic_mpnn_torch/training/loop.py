@@ -52,17 +52,24 @@ import torch
 from ..config import ModelConfig, TrainConfig, resolve_device, resolve_steps_per_call
 from ..data.loader import BatchPlan, iter_batches, plan_template
 from ..data.packing import IonPairBatch, StaticBatches, _to_tensor, batch_signature
+from ..models.dual_encoder import MODEL_PHASES
 from ..models.layers import Dropout
+from ..utils import profiling
 from . import checkpoint as ckpt
 from .graphs import Replay, StepGraphs
 from .metrics import mae, r2_score
 from .normalizer import Normalizer
-from .optim import Optimizer, make_optimizer
+from .optim import OPTIMIZER_PHASES, Optimizer, make_optimizer
 
 __all__ = ["make_train_step", "make_eval_step", "l2_penalty", "data_loss", "data_loss_sum",
            "predict", "FitResult", "fit", "evaluate_splits", "TrainStep", "EvalStep"]
 
 _REGULARIZED_KERNELS = ("fp_dense", "head_dense")
+
+# a train step's phases (utils/profiling.py), in the order it stamps them
+TRAIN_SCOPE = profiling.scope(
+    "train", ("zero_grad",) + MODEL_PHASES + ("loss", "backward") + OPTIMIZER_PHASES)
+
 _RANK_SEED_STRIDE = 1_000_003  # a rank's dropout seeds: seed + i + stride · rank
 
 
@@ -151,15 +158,22 @@ class TrainStep:
         self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
 
     def _body(self, batch: IonPairBatch) -> torch.Tensor:
-        """One step on a device batch; ``(loss, data_loss)`` as a (2,) tensor."""
+        """One step on a device batch; ``(loss, data_loss)`` as a (2,) tensor.
+        Its phases are stamped (``utils/profiling.py``'s scope
+        :data:`TRAIN_SCOPE`: the model and the optimizer stamp theirs)."""
         self.model.train()
-        self.optimizer.zero_grad()
-        out = self.model(batch)
-        data = data_loss(out["pred"], batch.y, batch.sample_mask, self.loss_kind, self.delta)
-        loss = data + l2_penalty(self.model, self.l2)
-        loss.backward()
-        self.optimizer.step()
-        return torch.stack([loss.detach(), data.detach()])
+        with profiling.phase_scope(TRAIN_SCOPE, self.device):
+            profiling.phase("zero_grad")
+            self.optimizer.zero_grad()
+            out = self.model(batch)
+            profiling.phase("loss")
+            data = data_loss(out["pred"], batch.y, batch.sample_mask, self.loss_kind,
+                             self.delta)
+            loss = data + l2_penalty(self.model, self.l2)
+            profiling.phase("backward")
+            loss.backward()
+            self.optimizer.step()
+            return torch.stack([loss.detach(), data.detach()])
 
     def replay(self, fn) -> Replay:
         """``fn`` (train steps on static device tensors) as a

@@ -30,8 +30,12 @@ from typing import Iterable, List, Mapping, Optional
 
 import torch
 
+from ..utils import profiling
+
 __all__ = ["Optimizer", "make_optimizer", "make_partitioned_optimizer",
-           "clip_by_per_variable_norm_", "clip_by_global_norm_"]
+           "clip_by_per_variable_norm_", "clip_by_global_norm_", "OPTIMIZER_PHASES"]
+
+OPTIMIZER_PHASES = ("clip", "adam")  # what Optimizer.step stamps (utils/profiling.py)
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 WARMUP_START = 1.0 / 25.0  # of learning_rate
@@ -111,15 +115,19 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
+        """The clip, then the Adam(W) update (phases ``clip`` and ``adam``
+        where a phase scope is open)."""
         if not self.params:
             self.count.add_(1)
             return
         grads = self.grads()
+        profiling.phase("clip")
         if self.clipnorm is not None:
             if self.clip_mode == "global":
                 clip_by_global_norm_(grads, self.clipnorm)
             else:
                 clip_by_per_variable_norm_(grads, self.clipnorm)
+        profiling.phase("adam")
         lr = self.rate() if self.warmup_steps > 0 else None  # at the count before the step
         # optax update_moment: (1 - b)·g + b·m, in place
         torch._foreach_mul_(self.mu, B1)

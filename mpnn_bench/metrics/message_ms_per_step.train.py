@@ -1,0 +1,11 @@
+"""The message steps' card time per train step: the program's device phase
+stamps ``message`` (every step of both ions' encoders), the mean over the
+steps in the card's ring. ms."""
+
+from mpnn_bench import program_trace
+
+
+def read(ctx):
+    if ctx["kind"] != "train":
+        return None
+    return program_trace.phase_ms("train", ("message",))

@@ -1,28 +1,15 @@
-"""The port's utilities (``ionic_mpnn_torch/utils``): the throughput
-meter and the plots, as JAX's ``tests/test_utils.py`` holds its own, and
-``trace`` writing a ``torch.profiler`` trace file on the CPU."""
+"""The port's utilities (``ionic_mpnn_torch/utils``): the plots, as JAX's
+``tests/test_utils.py`` holds its own, and ``trace`` writing a
+``torch.profiler`` trace file on the CPU (the program's tracing:
+``test_torch_tracing.py``)."""
 
 import json
 import sys
-import time
 
 import numpy as np
 import torch
 
-from ionic_mpnn_torch.utils import ThroughputMeter, can_plot, plot_loss, plot_parity, trace
-
-
-def test_throughput_meter_counts_units_and_rates():
-    m = ThroughputMeter()
-    assert m.step(5.0) == 0.0  # the first step without start() only starts the clock
-    assert m.total_units == 0.0
-    m.start()
-    for _ in range(3):
-        time.sleep(0.01)
-        rate = m.step(100.0)
-    assert rate > 0
-    assert m.total_units == 300.0
-    assert 0 < m.average < 100.0 / 0.01 * 2
+from ionic_mpnn_torch.utils import can_plot, plot_loss, plot_parity, trace
 
 
 def test_plots_write_their_files_with_and_without_a_dev_split(tmp_path):
